@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""
+Smoke run of the gance_tpu_torch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, on a machine with a GPU
+
+It builds the port's CUDA kernels from `gance_tpu_torch/ops/cuda/csrc/` and then,
+in order (any failure exits non-zero; no phase's failure is caught):
+
+1. prints the card (nvidia-smi name and power limit), the torch and CUDA
+   versions, the TF32 flags and the kernel build time;
+2. holds each kernel against its plain PyTorch twin on the card, at the shapes
+   the 1024px config-f path gives it at batch 8, in fp32 (max abs error at most
+   1e-5 of the output's scale) and bf16 (at most 2 bf16 ulps), and times the
+   kernel, the twin, one PyTorch library call that computes the same function
+   where there is one, and the least time the card could take (bound);
+3. drives the main path: a random config-f 1024px network (seeded, with
+   non-zero noise strengths, biases and dlatent_avg) is written with
+   `save_generator_pickle`, loaded with `SynthesisNetwork.from_pkl`, and serves
+   `images_from_vectors` (batch 8), `images_from_matrices` (batch 8) and a
+   2-network `MultiNetwork.synthesize_stream` of 40 frames with alternating
+   indices; the launch counts of each request are checked (17 / 8 / 8 per
+   forward) and the frames are checked for shape, stream order and content;
+4. renders one frame on the card and on the port's CPU path (the plain twins)
+   and bounds the difference; prints the bf16 render's PSNR against fp32;
+5. prints fp32 and bf16 frames/s at batch 8, timed with CUDA events.
+
+The line before the last is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
+result.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+SEED = 20261016
+BATCH = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
+TAPS = (0.25, 0.75, 0.75, 0.25)  # [1,3,3,1] binomial, gain 2 per axis
+
+REPLACES = {
+    "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
+    "upsample2x_blur": "gance_tpu/ops/pallas/fused_ops.py:137",
+    "blur4_separable_pad11": "gance_tpu/ops/pallas/fused_ops.py:304",
+}
+SOURCES = {
+    "fused_bias_noise_lrelu": "gance_tpu_torch/ops/cuda/csrc/fused_bias_noise_lrelu.cu",
+    "upsample2x_blur": "gance_tpu_torch/ops/cuda/csrc/upsample2x_blur.cu",
+    "blur4_separable_pad11": "gance_tpu_torch/ops/cuda/csrc/blur4_separable.cu",
+}
+
+
+def fail(message: str) -> None:
+    print(f"chip_smoke FAILED: {message}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def require(condition: bool, message: str) -> None:
+    if not condition:
+        fail(message)
+
+
+def time_ms(fn: Callable[[], object], min_total_ms: float = 50.0) -> float:
+    """Mean milliseconds per call on the current stream, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    iters = max(3, min(200, int(min_total_ms / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(bytes_moved: float, flops: float) -> Tuple[float, str]:
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """fp32: max abs <= 1e-5 * max|want|; bf16: <= 2 ulps of bf16 at each value."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    if got.dtype == torch.float32:
+        limit = 1e-5 * max(float(w.abs().max()), 1e-30)
+        require(float(err.max()) <= limit, f"{name}: max abs {float(err.max()):.3g} > {limit:.3g}")
+    else:
+        mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+        ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(torch.bfloat16).eps
+        worst = float((err / ulp).max())
+        require(worst <= 2.0, f"{name}: {worst:.2f} bf16 ulps > 2")
+    return float(err.max())
+
+
+def path_shapes(config) -> Dict[str, List[Tuple[tuple, int]]]:
+    """Each kernel's input shapes on the synthesis path at BATCH, with launches
+    per forward."""
+    shapes: Dict[str, List[Tuple[tuple, int]]] = {
+        "fused_bias_noise_lrelu": [((BATCH, config.nf(1), 4, 4), 1)],
+        "upsample2x_blur": [],
+        "blur4_separable_pad11": [],
+    }
+    for res in range(3, config.resolution_log2 + 1):
+        size, cout = 2**res, config.nf(res - 1)
+        shapes["fused_bias_noise_lrelu"].append(((BATCH, cout, size, size), 2))
+        shapes["upsample2x_blur"].append(((BATCH, config.num_channels, size // 2, size // 2), 1))
+        shapes["blur4_separable_pad11"].append(((BATCH, cout, size + 1, size + 1), 1))
+    return shapes
+
+
+def kernel_phase(config, gen: torch.Generator) -> List[dict]:
+    from gance_tpu_torch.ops.cuda import fused_ops as K
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    k2d = torch.tensor(np.outer(TAPS, TAPS), dtype=torch.float32, device="cuda")
+    records = []
+    for name, shapes in path_shapes(config).items():
+        cases = [(s, n, None) for s, n in shapes]
+        if name == "blur4_separable_pad11":
+            # junk columns past an odd w_logical, filled with NaN: never read
+            b, c, h, _ = shapes[-1][0]
+            cases.append(((b, c, h, h + 15), 0, h))
+        totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        max_err, bound_by = 0.0, "bytes"
+        for shape, per_forward, w_logical in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = randn(shape, dtype)
+                b, c, h, w = shape
+                size = x.element_size()
+                library: Optional[Callable[[], torch.Tensor]] = None
+                if name == "fused_bias_noise_lrelu":
+                    noise, bias = randn((1, 1, h, w), torch.float32), randn((c,), torch.float32)
+                    strength = torch.tensor(0.37, device="cuda")
+                    run = lambda: K.fused_bias_noise_lrelu(x, noise, bias, strength)  # noqa: E731
+                    plain = lambda: K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)  # noqa: E731
+                    moved, flops = 2 * x.numel() * size + noise.numel() * 4, 5 * x.numel()
+                elif name == "upsample2x_blur":
+                    run = lambda: K.upsample2x_blur(x)  # noqa: E731
+                    plain = lambda: K.upsample2x_blur_plain(x)  # noqa: E731
+                    kt = k2d.to(dtype).expand(c, 1, 4, 4)
+                    library = lambda: F.conv_transpose2d(x, kt, stride=2, padding=1, groups=c)  # noqa: E731
+                    moved, flops = 5 * x.numel() * size, 16 * x.numel()
+                else:
+                    wl = w if w_logical is None else w_logical
+                    if w_logical is not None:
+                        x[..., wl:] = float("nan")
+                    run = lambda: K.blur4_separable_pad11(x, TAPS, w_logical)  # noqa: E731
+                    plain = lambda: K.blur4_separable_pad11_plain(x, TAPS, w_logical)  # noqa: E731
+                    kc = k2d.to(dtype).expand(c, 1, 4, 4)
+                    library = lambda: F.conv2d(x[..., :wl], kc, padding=1, groups=c)  # noqa: E731
+                    outs = b * c * (h - 1) * (wl - 1)
+                    moved, flops = (b * c * h * wl + outs) * size, 16 * outs
+                label = f"{name} {tuple(shape)} {str(dtype)[6:]}" + (
+                    f" w_logical={w_logical}" if w_logical else "")
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = check_close(label, got, want)
+                lib_ms = None
+                if library is not None:
+                    if dtype == torch.float32:  # the yardstick computes the same function
+                        check_close(label + " (library call)", library(), want)
+                    lib_ms = time_ms(library)
+                ms, plain_ms = time_ms(run), time_ms(plain)
+                bms, bound_by = bound_ms(moved, flops)
+                print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms "
+                      f"{plain_ms:.4f} library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+                      f"bound_ms {bms:.4f} ({bound_by})", flush=True)
+                if dtype == torch.float32 and per_forward:
+                    max_err = max(max_err, err)
+                    totals["ms"] += per_forward * ms
+                    totals["plain_ms"] += per_forward * plain_ms
+                    totals["bound_ms"] += per_forward * bms
+                    totals["library_ms"] += per_forward * (lib_ms or 0.0)
+                del x, got, want
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": 0,
+            "max_abs_err": max_err,
+            "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"],
+            "bound_ms": totals["bound_ms"],
+            "bound_by": bound_by,
+            "library_ms": None if name == "fused_bias_noise_lrelu" else totals["library_ms"],
+        })
+    torch.cuda.empty_cache()
+    return records
+
+
+def smoke_params(seed: int, config) -> dict:
+    """Random config-f params with every epilogue term non-zero."""
+    from gance_tpu_torch.models.stylegan2 import init_generator_params
+
+    params = init_generator_params(seed, config)
+    rng = np.random.RandomState(seed + 1)
+    for name, block in params["synthesis"].items():
+        if name == "noise":
+            continue
+        for layer_name, layer in block.items():
+            if "bias" in layer:
+                layer["bias"] = (0.1 * rng.standard_normal(layer["bias"].shape)).astype(np.float32)
+            if "noise_strength" in layer:
+                layer["noise_strength"] = np.float32(rng.uniform(0.05, 0.3))
+            if layer_name == "ToRGB":
+                # keep the summed RGB skip chain inside [-1, 1] for most pixels
+                layer["weight"] = (layer["weight"] * 0.15).astype(np.float32)
+    params["dlatent_avg"] = (0.5 * rng.standard_normal(config.dlatent_size)).astype(np.float32)
+    return params
+
+
+def check_frames(label: str, images: np.ndarray, count: int, resolution: int) -> None:
+    require(images.dtype == np.uint8 and images.shape == (count, resolution, resolution, 3),
+            f"{label}: got {images.dtype} {images.shape}")
+    for i, image in enumerate(images):
+        saturated = float(np.mean((image == 0) | (image == 255)))
+        require(float(image.std()) > 10.0, f"{label}[{i}]: near-constant image")
+        require(saturated < 0.5, f"{label}[{i}]: {saturated:.2f} of pixels saturated")
+
+
+def launches_per_forward(label: str, forwards: int, config) -> Dict[str, int]:
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES
+
+    counts = dict(LAUNCHES)
+    blocks = config.resolution_log2 - 2
+    want = {
+        "fused_bias_noise_lrelu": (1 + 2 * blocks) * forwards,
+        "upsample2x_blur": blocks * forwards,
+        "blur4_separable_pad11": blocks * forwards,
+    }
+    print(f"launches {label} ({forwards} forwards): {counts}", flush=True)
+    require(counts == want, f"{label}: launches {counts} != {want}")
+    return counts
+
+
+def main_path_phase(config, workdir: Path) -> Tuple[Dict[str, int], object, np.ndarray]:
+    from gance_tpu_torch.models.pickle_loader import save_generator_pickle
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork, SynthesisNetwork
+
+    paths = []
+    for i in range(2):
+        path = workdir / f"{i}_net.pkl"
+        start = time.perf_counter()
+        save_generator_pickle(smoke_params(SEED + 10 * i, config), path)
+        print(f"wrote {path.name}: {path.stat().st_size / 2**20:.1f} MiB in "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        paths.append(path)
+    rng = np.random.RandomState(SEED)
+    net = SynthesisNetwork.from_pkl(paths[0])
+    require(net.device.type == "cuda", f"from_pkl placed the net on {net.device}")
+    res = config.resolution
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    z = rng.standard_normal((BATCH, config.latent_size)).astype(np.float32)
+    reset_launch_counts()
+    images = net.images_from_vectors(z)
+    add(launches_per_forward("images_from_vectors", 1, config))
+    check_frames("images_from_vectors", images, BATCH, res)
+
+    w_plus = rng.standard_normal((BATCH, config.num_style_rows, config.dlatent_size))
+    reset_launch_counts()
+    images = net.images_from_matrices(w_plus.astype(np.float32))
+    add(launches_per_forward("images_from_matrices", 1, config))
+    check_frames("images_from_matrices", images, BATCH, res)
+
+    frames = rng.standard_normal((40, config.latent_size)).astype(np.float32)
+    indices = np.arange(40) % 2
+    with MultiNetwork(paths) as multi:
+        reset_launch_counts()
+        stream = np.stack(list(multi.synthesize_stream(frames, indices, batch_size=BATCH,
+                                                       lookahead=2)))
+        # windows of 16, 16, 8 frames: 8 + 8, 8 + 8, 4 + 4 per network
+        add(launches_per_forward("synthesize_stream", 6, config))
+        check_frames("synthesize_stream", stream, 40, res)
+        for start, end in ((0, 16), (16, 32), (32, 40)):
+            for index in (0, 1):
+                rows = np.arange(start, end)[indices[start:end] == index]
+                want = multi.network(index).images_from_vectors(frames[rows])
+                diff = np.abs(stream[rows].astype(int) - want.astype(int))
+                require(int(diff.max()) <= 1, f"stream frames {rows.tolist()} out of order "
+                        f"or wrong network (max diff {int(diff.max())})")
+        other = multi.network(1).images_from_vectors(frames[:1])
+        require(float(np.abs(other.astype(int) - stream[:1].astype(int)).mean()) > 5.0,
+                "networks 0 and 1 render the same frame")
+    print("main path: vectors, matrices and a 40-frame 2-network stream served; "
+          "stream order checked", flush=True)
+    return totals, net, z
+
+
+def parity_phase(net, z: np.ndarray) -> None:
+    from gance_tpu_torch.models.stylegan2 import generator_apply, images_to_uint8
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    cpu_net = SynthesisNetwork.from_staged((net.params, net.config), net.path, device="cpu")
+    z1 = torch.from_numpy(z[:1])
+    with torch.inference_mode():
+        start = time.perf_counter()
+        cpu = generator_apply(cpu_net.params, z1, cpu_net.config)
+        cpu_s = time.perf_counter() - start
+        gpu = generator_apply(net.params, z1.cuda(), net.config).cpu()
+    diff = float((gpu - cpu).abs().max())
+    u_gpu, u_cpu = images_to_uint8(gpu).numpy(), images_to_uint8(cpu).numpy()
+    steps = np.abs(u_gpu.astype(int) - u_cpu.astype(int))
+    print(f"parity card vs CPU (1 frame, fp32, CPU {cpu_s:.1f} s): float max abs {diff:.3g}; "
+          f"uint8 max {int(steps.max())} steps, {float(np.mean(steps == 0)):.6f} identical",
+          flush=True)
+    require(diff <= 1e-3, f"card vs CPU float max abs {diff:.3g} > 1e-3")
+    within = float(np.mean(steps <= 1))
+    require(within >= 0.999, f"card vs CPU uint8: {within:.5f} of pixels within 1 step")
+
+    bf16_net = SynthesisNetwork.from_staged(
+        (net.params, net.config), net.path, compute_dtype=torch.bfloat16)
+    u_bf16 = bf16_net.images_from_vectors(z).astype(np.float64)
+    u_f32 = net.images_from_vectors(z).astype(np.float64)
+    mse = float(np.mean((u_bf16 - u_f32) ** 2))
+    psnr = 10 * math.log10(255.0**2 / mse) if mse else float("inf")
+    print(f"bf16 vs fp32 render (batch {BATCH}): PSNR {psnr:.2f} dB, "
+          f"mean abs {float(np.mean(np.abs(u_bf16 - u_f32))):.3f} steps", flush=True)
+    require(psnr >= 35.0, f"bf16 PSNR {psnr:.2f} dB < 35")
+
+
+def fps_phase(net, z: np.ndarray, card: str) -> None:
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    for dtype in (torch.float32, torch.bfloat16):
+        run_net = net if dtype == torch.float32 else SynthesisNetwork.from_staged(
+            (net.params, net.config), net.path, compute_dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: run_net.device_images_from_vectors(z), min_total_ms=2000.0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"fps {str(dtype)[6:]} batch {BATCH} at {net.resolution}px: "
+              f"{BATCH / ms * 1e3:.2f} frames/s ({ms:.2f} ms per batch, peak "
+              f"{peak:.2f} GiB) on {card}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
+    sys.path.insert(0, str(ROOT))
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+    from gance_tpu_torch.ops import precision
+    from gance_tpu_torch.ops.cuda import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)  # the card's name and power limit, as nvidia-smi gives them
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
+          f"device {torch.cuda.get_device_name(0)}")
+    precision.apply_conv_precision()
+    print(f"GANCE_TPU_PRECISION={precision.CONV_PRECISION}: cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    print(f"kernel build: {build.build_all():.1f} s", flush=True)
+    for log in sorted(build.BUILD_DIR.glob("*.log")):
+        for line in log.read_text(errors="replace").splitlines():
+            if "registers" in line:
+                print(f"ptxas {log.stem}: {line.strip()}")
+
+    config = GeneratorConfig()  # config-f, 1024px
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = kernel_phase(config, gen)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        launches, net, z = main_path_phase(config, Path(tmp))
+    for record in records:
+        record["launches"] = launches[record["name"]]
+    parity_phase(net, z)
+    fps_phase(net, z, smi)
+
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,346 @@
+"""
+StyleGAN2 (config-f family) generator in PyTorch: mapping, synthesis and the
+uint8 output transform.
+
+The counterpart of the generator half of gance_tpu/models/stylegan2.py, with
+the same weight semantics (equalized-LR "unit" parameterization,
+modulation/demodulation, binomial resampling FIR, noise injection, skip-
+architecture ToRGB chain) and the same params tree keys
+(params["synthesis"]["64x64"]["Conv0_up"]["weight"]). Layouts are PyTorch's:
+
+  * activations NCHW, conv weights OIHW (Cout, Cin, kh, kw),
+  * 4x4/Const/const (1, C, 4, 4) and noise buffers (1, 1, H, W), both as the
+    TF pickle stores them,
+  * dense and style-affine weights (in, out), as in the pickle.
+
+Functions take a params tree of tensors on one device. The noise-carrying
+layers' epilogue runs through kernel A (`fused_bias_noise_lrelu`), the skip
+chain's upsample through kernel B and the up-conv's blur through kernel C.
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gance_tpu_torch.ops.bias_act import bias_act
+from gance_tpu_torch.ops.cuda.fused_ops import fused_bias_noise_lrelu
+from gance_tpu_torch.ops.modulated_conv import dense_layer, modulated_conv2d
+from gance_tpu_torch.ops.precision import apply_conv_precision
+from gance_tpu_torch.ops.upfirdn2d import upsample_2d_nchw
+
+Params = Dict[str, Any]
+
+# The reference's inference-time truncation: psi > 1 expands the deviation from
+# the average dlatent.
+DEFAULT_TRUNCATION_PSI = 1.2
+
+
+@dataclass(frozen=True)
+class GeneratorConfig:
+    """Static architecture hyperparameters (config-f defaults at 1024px)."""
+
+    resolution: int = 1024
+    latent_size: int = 512
+    dlatent_size: int = 512
+    num_channels: int = 3
+    fmap_base: int = 32768
+    fmap_decay: float = 1.0
+    fmap_min: int = 1
+    fmap_max: int = 512
+    mapping_layers: int = 8
+    mapping_fmaps: int = 512
+    mapping_lrmul: float = 0.01
+    resample_kernel: Tuple[int, ...] = (1, 3, 3, 1)
+
+    @property
+    def resolution_log2(self) -> int:
+        return int(math.log2(self.resolution))
+
+    @property
+    def num_style_rows(self) -> int:
+        """18 at 1024px."""
+        return self.resolution_log2 * 2 - 2
+
+    def nf(self, stage: int) -> int:
+        """Feature-map count at a stage (NVlabs nf())."""
+        return int(
+            np.clip(
+                int(self.fmap_base / (2.0 ** (stage * self.fmap_decay))),
+                self.fmap_min,
+                self.fmap_max,
+            )
+        )
+
+    def block_resolutions(self) -> Tuple[int, ...]:
+        """Synthesis block output resolutions above 4: (8, 16, ..., resolution)."""
+        return tuple(2**res for res in range(3, self.resolution_log2 + 1))
+
+
+# ---------------------------------------------------------------------------
+# Initialization: the shapes and distributions of gance_tpu's
+# init_generator_params (weights ~ N(0, 1), mapping weights ~ N(0, 1/lrmul^2),
+# zero biases / strengths / dlatent_avg, N(0, 1) const and noise), drawn from a
+# numpy RandomState, in the port's layouts.
+# ---------------------------------------------------------------------------
+
+
+def _conv_layer_params(
+    rng: np.random.RandomState, kernel: int, cin: int, cout: int, dlatent_size: int,
+    with_noise: bool,
+) -> Params:
+    params: Params = {
+        "weight": rng.standard_normal((cout, cin, kernel, kernel)).astype(np.float32),
+        "mod_weight": rng.standard_normal((dlatent_size, cin)).astype(np.float32),
+        "mod_bias": np.zeros((cin,), np.float32),
+        "bias": np.zeros((cout,), np.float32),
+    }
+    if with_noise:
+        params["noise_strength"] = np.zeros((), np.float32)
+    return params
+
+
+def init_generator_params(seed: int, config: GeneratorConfig) -> Params:
+    """Random generator params (mapping + synthesis + noise) as numpy float32."""
+    rng = np.random.RandomState(seed)
+    mapping: Params = {}
+    fan_in = config.latent_size
+    for i in range(config.mapping_layers):
+        fmaps = config.dlatent_size if i == config.mapping_layers - 1 else config.mapping_fmaps
+        mapping[f"Dense{i}"] = {
+            "weight": (
+                rng.standard_normal((fan_in, fmaps)) / config.mapping_lrmul
+            ).astype(np.float32),
+            "bias": np.zeros((fmaps,), np.float32),
+        }
+        fan_in = fmaps
+
+    synthesis: Params = {
+        "4x4": {
+            "Const": {
+                "const": rng.standard_normal((1, config.nf(1), 4, 4)).astype(np.float32)
+            },
+            "Conv": _conv_layer_params(
+                rng, 3, config.nf(1), config.nf(1), config.dlatent_size, True
+            ),
+            "ToRGB": _conv_layer_params(
+                rng, 1, config.nf(1), config.num_channels, config.dlatent_size, False
+            ),
+        }
+    }
+    for res in range(3, config.resolution_log2 + 1):
+        cin, cout = config.nf(res - 2), config.nf(res - 1)
+        synthesis[f"{2**res}x{2**res}"] = {
+            "Conv0_up": _conv_layer_params(rng, 3, cin, cout, config.dlatent_size, True),
+            "Conv1": _conv_layer_params(rng, 3, cout, cout, config.dlatent_size, True),
+            "ToRGB": _conv_layer_params(
+                rng, 1, cout, config.num_channels, config.dlatent_size, False
+            ),
+        }
+    synthesis["noise"] = {}
+    for layer_idx in range(config.num_style_rows - 1):
+        size = 2 ** ((layer_idx + 5) // 2)  # noise0 -> 4x4, noise1/2 -> 8x8, ...
+        synthesis["noise"][f"noise{layer_idx}"] = rng.standard_normal(
+            (1, 1, size, size)
+        ).astype(np.float32)
+    return {
+        "mapping": mapping,
+        "synthesis": synthesis,
+        "dlatent_avg": np.zeros((config.dlatent_size,), np.float32),
+    }
+
+
+def config_from_params(params: Params) -> GeneratorConfig:
+    """Infer the architecture config from a generator params tree (port layout)."""
+    synthesis = params["synthesis"]
+    resolution = max(int(k.split("x")[0]) for k in synthesis if "x" in k and k[0].isdigit())
+    top_log2 = int(math.log2(resolution))
+    top_channels = synthesis[f"{resolution}x{resolution}"]["Conv1"]["weight"].shape[0]
+    dense0 = params["mapping"]["Dense0"]["weight"]
+    return GeneratorConfig(
+        resolution=resolution,
+        latent_size=int(dense0.shape[0]),
+        dlatent_size=int(synthesis["4x4"]["Conv"]["mod_weight"].shape[0]),
+        mapping_layers=len([k for k in params["mapping"] if k.startswith("Dense")]),
+        mapping_fmaps=int(dense0.shape[1]),
+        fmap_base=int(top_channels * (2 ** (top_log2 - 1))),
+        fmap_max=int(synthesis["4x4"]["Conv"]["weight"].shape[0]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+def mapping_apply(
+    params: Params, z: torch.Tensor, config: GeneratorConfig, lrmul: Optional[float] = None
+) -> torch.Tensor:
+    """
+    G_mapping in fp32 at any compute dtype: pixel-norm the latent, then the
+    equalized-LR dense + lrelu layers (bias times lrmul 0.01).
+    :param z: (B, latent_size). :return: w (B, dlatent_size).
+    """
+    apply_conv_precision()
+    lrmul = config.mapping_lrmul if lrmul is None else lrmul
+    x = z.float()
+    x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + 1e-8)
+    mapping = params["mapping"]
+    for name in sorted((k for k in mapping if k.startswith("Dense")), key=lambda s: int(s[5:])):
+        layer = mapping[name]
+        x = dense_layer(x, layer["weight"], lrmul=lrmul)
+        x = bias_act(x, layer["bias"] * lrmul, act="lrelu")
+    return x
+
+
+def broadcast_dlatents(w: torch.Tensor, config: GeneratorConfig) -> torch.Tensor:
+    """(B, 512) -> w+ (B, num_style_rows, 512)."""
+    return w[:, None, :].expand(-1, config.num_style_rows, -1).contiguous()
+
+
+def truncate_dlatents(
+    dlatents: torch.Tensor,
+    dlatent_avg: torch.Tensor,
+    psi: float = DEFAULT_TRUNCATION_PSI,
+    cutoff: Optional[int] = None,
+) -> torch.Tensor:
+    """w' = w_avg + (w - w_avg) * psi, optionally only for style rows below `cutoff`."""
+    avg = dlatent_avg.to(dlatents.dtype)
+    if cutoff is None:
+        return avg + (dlatents - avg) * psi
+    rows = torch.arange(dlatents.shape[1], device=dlatents.device)
+    layer_psi = torch.where(rows < cutoff, psi, 1.0).to(dlatents.dtype)[None, :, None]
+    return avg + (dlatents - avg) * layer_psi
+
+
+def _synthesis_layer(
+    x: torch.Tensor,
+    layer_params: Params,
+    dlatent_row: torch.Tensor,
+    noise: Optional[torch.Tensor],
+    up: bool,
+    config: GeneratorConfig,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """conv (maybe up) -> noise inject -> bias + lrelu (NVlabs `layer()`)."""
+    x = modulated_conv2d(
+        x, dlatent_row, layer_params["weight"], layer_params["mod_weight"],
+        layer_params["mod_bias"], up=up, demodulate=True,
+        resample_kernel=config.resample_kernel, compute_dtype=compute_dtype,
+    )
+    if noise is None:
+        return bias_act(x, layer_params["bias"], act="lrelu")
+    return fused_bias_noise_lrelu(x, noise, layer_params["bias"], layer_params["noise_strength"])
+
+
+def _torgb(
+    x: torch.Tensor,
+    layer_params: Params,
+    dlatent_row: torch.Tensor,
+    y: Optional[torch.Tensor],
+    config: GeneratorConfig,
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """1x1 modulated conv (no demod) + bias; skip-add the upsampled RGB trunk."""
+    t = modulated_conv2d(
+        x, dlatent_row, layer_params["weight"], layer_params["mod_weight"],
+        layer_params["mod_bias"], demodulate=False,
+        resample_kernel=config.resample_kernel, compute_dtype=compute_dtype,
+    )
+    t = t + layer_params["bias"].to(t.dtype)[None, :, None, None]
+    return t if y is None else y + t
+
+
+def synthesis_apply(
+    params: Params,
+    dlatents: torch.Tensor,
+    config: GeneratorConfig,
+    noise_mode: str = "const",
+    generator: Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
+    uint8_output: bool = False,
+) -> torch.Tensor:
+    """
+    G_synthesis (skip architecture): w+ (B, num_style_rows, 512) -> image
+    (B, resolution, resolution, 3) NHWC float in about [-1, 1], or uint8 when
+    `uint8_output`.
+
+    :param noise_mode: 'const' (the params' noise buffers), 'random' (fresh
+        N(0, 1) noise per sample and layer, drawn from `generator`, which must
+        live on the params' device) or 'none'.
+    """
+    if noise_mode not in ("const", "random", "none"):
+        raise ValueError(f"bad noise_mode {noise_mode!r}")
+    if noise_mode == "random" and generator is None:
+        raise ValueError("noise_mode='random' requires a torch.Generator")
+    apply_conv_precision()
+    synthesis = params["synthesis"]
+    noise_buffers = synthesis.get("noise", {})
+    batch = dlatents.shape[0]
+
+    def layer_noise(layer_idx: int, size: int) -> Optional[torch.Tensor]:
+        if noise_mode == "const":
+            return noise_buffers.get(f"noise{layer_idx}")
+        if noise_mode == "random":
+            return torch.randn(
+                (batch, 1, size, size), generator=generator, device=dlatents.device
+            )
+        return None
+
+    const = synthesis["4x4"]["Const"]["const"].to(compute_dtype)
+    x = const.expand(batch, -1, -1, -1).contiguous()
+    x = _synthesis_layer(
+        x, synthesis["4x4"]["Conv"], dlatents[:, 0], layer_noise(0, 4), False, config,
+        compute_dtype,
+    )
+    y = _torgb(x, synthesis["4x4"]["ToRGB"], dlatents[:, 1], None, config, compute_dtype)
+
+    for res in range(3, config.resolution_log2 + 1):
+        block = synthesis[f"{2**res}x{2**res}"]
+        size = 2**res
+        x = _synthesis_layer(
+            x, block["Conv0_up"], dlatents[:, res * 2 - 5], layer_noise(res * 2 - 5, size),
+            True, config, compute_dtype,
+        )
+        x = _synthesis_layer(
+            x, block["Conv1"], dlatents[:, res * 2 - 4], layer_noise(res * 2 - 4, size),
+            False, config, compute_dtype,
+        )
+        y = upsample_2d_nchw(y, kernel=config.resample_kernel)
+        y = _torgb(x, block["ToRGB"], dlatents[:, res * 2 - 3], y, config, compute_dtype)
+
+    image = y.permute(0, 2, 3, 1).float()
+    return images_to_uint8(image) if uint8_output else image
+
+
+def generator_apply(
+    params: Params,
+    z: torch.Tensor,
+    config: GeneratorConfig,
+    truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI,
+    noise_mode: str = "const",
+    generator: Optional[torch.Generator] = None,
+    compute_dtype: torch.dtype = torch.float32,
+    uint8_output: bool = False,
+) -> torch.Tensor:
+    """Full G: z -> mapping -> broadcast -> truncation -> synthesis."""
+    w = mapping_apply(params, z, config)
+    dlatents = broadcast_dlatents(w, config)
+    if truncation_psi is not None and truncation_psi != 1.0:
+        dlatents = truncate_dlatents(dlatents, params["dlatent_avg"], truncation_psi)
+    return synthesis_apply(
+        params, dlatents, config, noise_mode=noise_mode, generator=generator,
+        compute_dtype=compute_dtype, uint8_output=uint8_output,
+    )
+
+
+def images_to_uint8(
+    images: torch.Tensor, drange: Tuple[float, float] = (-1.0, 1.0)
+) -> torch.Tensor:
+    """Float NHWC -> uint8 NHWC: floor(x * 127.5 + 128), then clip (no rounding)."""
+    lo, hi = drange
+    scale = 255.0 / (hi - lo)
+    x = images * scale + (0.5 - lo * scale)
+    return torch.clamp(torch.floor(x), 0.0, 255.0).to(torch.uint8)

@@ -1,0 +1,132 @@
+"""
+upfirdn2d — upsample, FIR filter, downsample — on NCHW tensors.
+
+Semantics follow the public NVlabs definition, as in gance_tpu/ops/upfirdn2d.py:
+  1. zero-stuff the input by `up` along H and W (each sample followed by up-1
+     zeros),
+  2. zero-pad by (pad0, pad1) on each spatial edge (negative pads crop),
+  3. convolve (true convolution, kernel flipped) with a 2-D FIR per channel,
+  4. keep every `down`-th sample.
+
+`upfirdn2d` is the plain form for any FIR (the CPU path and the reference).
+The synthesis path's two fixed cases go through hand-written kernels: the 2x
+skip-chain upsample (`upsample_2d`, kernel B) and the blur after the transpose
+conv of `upsample_conv_2d` (kernel C).
+"""
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gance_tpu_torch.ops.cuda.fused_ops import blur4_separable_pad11, upsample2x_blur
+
+KernelLike = Union[Sequence[float], np.ndarray]
+
+# The binomial resampling kernel used throughout StyleGAN2 (config-f default).
+DEFAULT_RESAMPLE_KERNEL: Tuple[int, ...] = (1, 3, 3, 1)
+
+
+def setup_filter_kernel(kernel: KernelLike, gain: float = 1.0) -> np.ndarray:
+    """Normalize a 1-D or 2-D FIR to a 2-D float32 kernel with DC gain `gain`."""
+    k = np.asarray(kernel, dtype=np.float32)
+    if k.ndim == 1:
+        k = np.outer(k, k)
+    k /= np.sum(k)
+    return k * gain
+
+
+def _separable_root(k: np.ndarray) -> np.ndarray:
+    """1-D factor of a separable symmetric 2-D kernel (k = outer(r, r), r >= 0)."""
+    return np.sqrt(np.maximum(np.diag(k), 0.0))
+
+
+def _separable_4tap(k: np.ndarray) -> bool:
+    root = _separable_root(k)
+    return k.shape == (4, 4) and np.allclose(np.outer(root, root), k)
+
+
+def upfirdn2d(
+    x: torch.Tensor,
+    kernel: np.ndarray,
+    up: int = 1,
+    down: int = 1,
+    pad0: int = 0,
+    pad1: int = 0,
+) -> torch.Tensor:
+    """
+    The upsample -> FIR -> downsample primitive on x (N, C, H, W), in plain
+    PyTorch (a depthwise conv2d).
+
+    :param kernel: 2-D FIR, already gain-scaled (see `setup_filter_kernel`).
+    :return: (N, C, H_out, W_out), H_out = (H*up + pad0 + pad1 - kh) // down + 1.
+    """
+    if x.ndim != 4:
+        raise ValueError(f"upfirdn2d expects NCHW input, got shape {tuple(x.shape)}")
+    kernel = np.asarray(kernel, dtype=np.float32)
+    if kernel.ndim != 2:
+        raise ValueError("upfirdn2d kernel must be 2D; use setup_filter_kernel first.")
+    n, c, h, w = x.shape
+    if up > 1:
+        stuffed = x.new_zeros((n, c, h, up, w, up))
+        stuffed[:, :, :, 0, :, 0] = x
+        x = stuffed.reshape(n, c, h * up, w * up)
+    x = F.pad(x, (pad0, pad1, pad0, pad1))  # negative pads crop
+    # true convolution: conv2d correlates, so flip the kernel
+    k = torch.from_numpy(np.ascontiguousarray(kernel[::-1, ::-1])).to(x.device, x.dtype)
+    k = k[None, None].expand(c, 1, *kernel.shape)
+    return F.conv2d(x, k, stride=down, groups=c)
+
+
+def upsample_2d(
+    x: torch.Tensor,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """FIR upsampling of NCHW x, NVlabs `upsample_2d` pad arithmetic. The 2x case
+    with a separable 4-tap FIR of unit gain runs kernel B."""
+    k = setup_filter_kernel(kernel, gain * (factor**2))
+    root = _separable_root(k)
+    if factor == 2 and _separable_4tap(k) and np.allclose(root, (0.25, 0.75, 0.75, 0.25)):
+        return upsample2x_blur(x)
+    p = k.shape[0] - factor
+    return upfirdn2d(x, k, up=factor, pad0=(p + 1) // 2 + factor - 1, pad1=p // 2)
+
+
+def upsample_2d_nchw(
+    xc: torch.Tensor,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """2x FIR upsampling of the synthesis RGB skip chain (the name the JAX
+    synthesis path calls)."""
+    return upsample_2d(xc, kernel, factor=2, gain=gain)
+
+
+def upsample_conv_2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """
+    Transpose conv (stride `factor`, VALID) followed by FIR smoothing: the
+    `Conv0_up` layers of StyleGAN2 synthesis. x is (B, Cin, H, W), w is OIHW.
+
+    The JAX reference correlates the zero-stuffed input with the *unflipped*
+    weight (padded kh-1 on each side). `F.conv_transpose2d` flips its kernel
+    and wants (Cin, Cout, kh, kw), so it gets w flipped and io-swapped; the
+    two flips cancel. Output is (B, Cout, 2H+1, 2W+1) before the blur and
+    (B, Cout, 2H, 2W) after it.
+    """
+    ck = w.shape[2]
+    k = setup_filter_kernel(kernel, gain * (factor**2))
+    p = (k.shape[0] - factor) - (ck - 1)
+    pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
+    y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=factor)
+    if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
+        return blur4_separable_pad11(y, tuple(float(v) for v in _separable_root(k)))
+    return upfirdn2d(y, k, pad0=pad0, pad1=pad1)

@@ -1,0 +1,10 @@
+"""Shared logger (same format as gance_tpu's, under the port's own name)."""
+
+import logging
+import sys
+
+LOGGER_FORMAT = "%(asctime)s - %(process)d - %(name)s - %(levelname)s - %(message)s"
+
+logging.basicConfig(level=logging.INFO, format=LOGGER_FORMAT, stream=sys.stderr)
+
+LOGGER = logging.getLogger("gance_tpu_torch")
