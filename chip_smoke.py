@@ -10,20 +10,37 @@ in order (any failure exits non-zero; no phase's failure is caught):
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
    versions, the TF32 flags and the kernel build time;
 2. holds each kernel against its plain PyTorch twin on the card, at the shapes
-   the 1024px config-f path gives it at batch 8, in fp32 (max abs error at most
-   1e-5 of the output's scale) and bf16 (at most 2 bf16 ulps), and times the
-   kernel, the twin, one PyTorch library call that computes the same function
-   where there is one, and the least time the card could take (bound);
+   the 1024px config-f path gives it at batch 8, in fp32 and bf16, and times
+   the kernel, the twin, one PyTorch library call that computes the same
+   function where there is one, and the least time the card could take
+   (bound). A, B and C round like their twins: fp32 max abs error at most 1e-5
+   of the output's scale, bf16 at most 2 bf16 ulps. E sums 1024 conv terms and
+   256 ToRGB terms in another order than its twin: fp32 at most 1e-4 of the
+   output's scale, bf16 at most 1e-2 (z and the output round to bf16). B is
+   also checked at the non-symmetric FIR (1, 2, 3, 4). E's bound counts the
+   products its folded weights need (36 of the 64 blocks of the dense
+   folded contraction are non-zero); the dense bound is printed beside it;
 3. drives the main path: a random config-f 1024px network (seeded, with
    non-zero noise strengths, biases and dlatent_avg) is written with
    `save_generator_pickle`, loaded with `SynthesisNetwork.from_pkl`, and serves
    `images_from_vectors` (batch 8), `images_from_matrices` (batch 8) and a
    2-network `MultiNetwork.synthesize_stream` of 40 frames with alternating
-   indices; the launch counts of each request are checked (17 / 8 / 8 per
-   forward) and the frames are checked for shape, stream order and content;
+   indices on the standard path; then the same vectors, matrices and 16 frames
+   of the stream on the polyphase top-block path (GANCE_TPU_PHASE1024=on,
+   kernel E), and one `output_side_length=512` request on each path. The
+   launch counts of each request are checked (A / B / C / E per forward:
+   17 / 8 / 8 / 0 standard, 15 / 7 / 7 / 1 phase, 15 / 8 / 7 / 1 phase with a
+   resize); the frames are checked for shape, stream order and content, the
+   phase path's frames against the standard path's (within 1 uint8 step on at
+   least 99.9% of pixels), and the resized frames against the float render
+   resized in float64 on the host with Keys cubic weights written out in this
+   script (the port's weights are held against jax.image.resize by
+   tests/test_torch_phase_block.py);
 4. renders one frame on the card and on the port's CPU path (the plain twins)
-   and bounds the difference; prints the bf16 render's PSNR against fp32;
-5. prints fp32 and bf16 frames/s at batch 8, timed with CUDA events.
+   and bounds the difference; prints the bf16 render's PSNR against fp32, on
+   both paths;
+5. prints fp32 and bf16 frames/s at batch 8 with the phase path off and on,
+   timed with CUDA events.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
@@ -32,6 +49,7 @@ result.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -48,17 +66,23 @@ SEED = 20261016
 BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core rate, dense
 TAPS = (0.25, 0.75, 0.75, 0.25)  # [1,3,3,1] binomial, gain 2 per axis
+TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # root of the non-symmetric FIR (1, 2, 3, 4)
+RESIZE_SIDE = 512
+PHASE_ENV = "GANCE_TPU_PHASE1024"
 
 REPLACES = {
     "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
     "upsample2x_blur": "gance_tpu/ops/pallas/fused_ops.py:137",
     "blur4_separable_pad11": "gance_tpu/ops/pallas/fused_ops.py:304",
+    "phase_conv1_torgb": "gance_tpu/ops/pallas/phase_fused.py:125",
 }
 SOURCES = {
     "fused_bias_noise_lrelu": "gance_tpu_torch/ops/cuda/csrc/fused_bias_noise_lrelu.cu",
     "upsample2x_blur": "gance_tpu_torch/ops/cuda/csrc/upsample2x_blur.cu",
     "blur4_separable_pad11": "gance_tpu_torch/ops/cuda/csrc/blur4_separable.cu",
+    "phase_conv1_torgb": "gance_tpu_torch/ops/cuda/csrc/phase_conv1_torgb.cu",
 }
 
 
@@ -90,21 +114,25 @@ def time_ms(fn: Callable[[], object], min_total_ms: float = 50.0) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved: float, flops: float) -> Tuple[float, str]:
+def bound_ms(bytes_moved: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> Tuple[float, str]:
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """fp32: max abs <= 1e-5 * max|want|; bf16: <= 2 ulps of bf16 at each value."""
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                fp32_rel: float = 1e-5, bf16_rel: Optional[float] = None) -> float:
+    """fp32: max abs <= fp32_rel * max|want|; bf16: <= bf16_rel * max|want| where
+    given, else <= 2 ulps of bf16 at each value."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     g, w = got.float(), want.float()
     require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
     err = (g - w).abs()
-    if got.dtype == torch.float32:
-        limit = 1e-5 * max(float(w.abs().max()), 1e-30)
+    rel = fp32_rel if got.dtype == torch.float32 else bf16_rel
+    if rel is not None:
+        limit = rel * max(float(w.abs().max()), 1e-30)
         require(float(err.max()) <= limit, f"{name}: max abs {float(err.max()):.3g} > {limit:.3g}")
     else:
         mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
@@ -116,13 +144,16 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def path_shapes(config) -> Dict[str, List[Tuple[tuple, int]]]:
     """Each kernel's input shapes on the synthesis path at BATCH, with launches
-    per forward."""
+    per forward: A, B and C on the standard path, E on the phase path (the
+    phase planes of the top block's input, 4 * C channels at half resolution)."""
+    top = config.resolution_log2
     shapes: Dict[str, List[Tuple[tuple, int]]] = {
         "fused_bias_noise_lrelu": [((BATCH, config.nf(1), 4, 4), 1)],
         "upsample2x_blur": [],
         "blur4_separable_pad11": [],
+        "phase_conv1_torgb": [((BATCH, 4 * config.nf(top - 1), 2 ** (top - 1), 2 ** (top - 1)), 1)],
     }
-    for res in range(3, config.resolution_log2 + 1):
+    for res in range(3, top + 1):
         size, cout = 2**res, config.nf(res - 1)
         shapes["fused_bias_noise_lrelu"].append(((BATCH, cout, size, size), 2))
         shapes["upsample2x_blur"].append(((BATCH, config.num_channels, size // 2, size // 2), 1))
@@ -132,6 +163,7 @@ def path_shapes(config) -> Dict[str, List[Tuple[tuple, int]]]:
 
 def kernel_phase(config, gen: torch.Generator) -> List[dict]:
     from gance_tpu_torch.ops.cuda import fused_ops as K
+    from gance_tpu_torch.ops.phase_block import fold_conv1_weights
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -139,19 +171,25 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
     k2d = torch.tensor(np.outer(TAPS, TAPS), dtype=torch.float32, device="cuda")
     records = []
     for name, shapes in path_shapes(config).items():
-        cases = [(s, n, None) for s, n in shapes]
+        # (shape, launches per forward, option): option is C's w_logical or B's taps
+        cases = [(s, n, TAPS if name == "upsample2x_blur" else None) for s, n in shapes]
         if name == "blur4_separable_pad11":
             # junk columns past an odd w_logical, filled with NaN: never read
             b, c, h, _ = shapes[-1][0]
             cases.append(((b, c, h, h + 15), 0, h))
+        if name == "upsample2x_blur":
+            cases.append((shapes[-1][0], 0, TAPS_1234))  # a FIR that is not symmetric
         totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
         max_err, bound_by = 0.0, "bytes"
-        for shape, per_forward, w_logical in cases:
+        for shape, per_forward, option in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 x = randn(shape, dtype)
                 b, c, h, w = shape
                 size = x.element_size()
                 library: Optional[Callable[[], torch.Tensor]] = None
+                note = ""
+                tolerance: Dict[str, float] = {}
+                flops_per_s = FP32_FLOPS_PER_S
                 if name == "fused_bias_noise_lrelu":
                     noise, bias = randn((1, 1, h, w), torch.float32), randn((c,), torch.float32)
                     strength = torch.tensor(0.37, device="cuda")
@@ -159,12 +197,49 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                     plain = lambda: K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)  # noqa: E731
                     moved, flops = 2 * x.numel() * size + noise.numel() * 4, 5 * x.numel()
                 elif name == "upsample2x_blur":
-                    run = lambda: K.upsample2x_blur(x)  # noqa: E731
-                    plain = lambda: K.upsample2x_blur_plain(x)  # noqa: E731
-                    kt = k2d.to(dtype).expand(c, 1, 4, 4)
+                    taps = option
+                    run = lambda: K.upsample2x_blur(x, taps)  # noqa: E731
+                    plain = lambda: K.upsample2x_blur_plain(x, taps)  # noqa: E731
+                    # the transpose conv flips its kernel: the same polyphase taps
+                    kt = torch.tensor(np.outer(taps, taps)[::-1, ::-1].copy(), device="cuda")
+                    kt = kt.to(dtype).expand(c, 1, 4, 4)
                     library = lambda: F.conv_transpose2d(x, kt, stride=2, padding=1, groups=c)  # noqa: E731
                     moved, flops = 5 * x.numel() * size, 16 * x.numel()
+                elif name == "phase_conv1_torgb":
+                    x.mul_(0.5)
+                    # the folded Conv1 of a random 3x3 weight, as on the main path:
+                    # 28 of its 64 (tap, in-phase, out-phase) blocks are zero
+                    w4 = fold_conv1_weights(randn((c // 4, c // 4, 3, 3), torch.float32)
+                                            * (9 * c // 4) ** -0.5)
+                    demod = randn((b, c), torch.float32).abs() + 0.5
+                    nb = randn((1, c, h + 1, w + 1), torch.float32) * 0.1
+                    wrgb = randn((b, c, 16), torch.float32) * c ** -0.5
+                    wrgb[:, :, 12:] = 0.0
+                    run = lambda: K.phase_conv1_torgb(x, w4, demod, nb, wrgb)  # noqa: E731
+                    plain = lambda: K.phase_conv1_torgb_plain(x, w4, demod, nb, wrgb)  # noqa: E731
+                    w4d, demodd, nbd, wrgbd = (t.to(dtype) for t in (w4, demod, nb, wrgb))
+
+                    def library() -> torch.Tensor:
+                        # no single call computes E: the composition it replaces
+                        z = F.conv2d(x, w4d, padding=1) * demodd[:, :, None, None] + nbd
+                        z = torch.maximum(z, z * 0.2)
+                        return torch.einsum("bchw,bck->bkhw", z, wrgbd)
+
+                    outs = b * (h + 1) * (w + 1)
+                    moved = (x.numel() + w4.numel() + nb.numel() + wrgb.numel() + 16 * outs) * size
+                    moved += demod.numel() * 4
+                    # the products this run's weights need: the non-zero entries of
+                    # w4 (36 of its 64 blocks) and of wrgb (12 of its 16 columns)
+                    nonzero = b * int(torch.count_nonzero(w4)) + int(torch.count_nonzero(wrgb))
+                    flops = 2 * (h + 1) * (w + 1) * nonzero
+                    if dtype == torch.bfloat16:
+                        flops_per_s = BF16_FLOPS_PER_S
+                    dense = 2 * outs * c * (4 * c + 16)
+                    note = (f" (dense folded contraction: bound_ms "
+                            f"{bound_ms(moved, dense, flops_per_s)[0]:.4f}, information only)")
+                    tolerance = dict(fp32_rel=1e-4, bf16_rel=1e-2)
                 else:
+                    w_logical = option
                     wl = w if w_logical is None else w_logical
                     if w_logical is not None:
                         x[..., wl:] = float("nan")
@@ -174,22 +249,26 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                     library = lambda: F.conv2d(x[..., :wl], kc, padding=1, groups=c)  # noqa: E731
                     outs = b * c * (h - 1) * (wl - 1)
                     moved, flops = (b * c * h * wl + outs) * size, 16 * outs
-                label = f"{name} {tuple(shape)} {str(dtype)[6:]}" + (
-                    f" w_logical={w_logical}" if w_logical else "")
+                label = f"{name} {tuple(shape)} {str(dtype)[6:]}"
+                if option is not None and name != "upsample2x_blur":
+                    label += f" w_logical={option}"
+                elif name == "upsample2x_blur" and option != TAPS:
+                    label += f" taps={option}"
                 got, want = run(), plain()
                 torch.cuda.synchronize()
-                err = check_close(label, got, want)
+                err = check_close(label, got, want, **tolerance)
                 lib_ms = None
                 if library is not None:
                     if dtype == torch.float32:  # the yardstick computes the same function
-                        check_close(label + " (library call)", library(), want)
+                        check_close(label + " (library call)", library(), want, **tolerance)
                     lib_ms = time_ms(library)
                 ms, plain_ms = time_ms(run), time_ms(plain)
-                bms, bound_by = bound_ms(moved, flops)
+                bms, by = bound_ms(moved, flops, flops_per_s)
                 print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms "
                       f"{plain_ms:.4f} library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
-                      f"bound_ms {bms:.4f} ({bound_by})", flush=True)
+                      f"bound_ms {bms:.4f} ({by}){note}", flush=True)
                 if dtype == torch.float32 and per_forward:
+                    bound_by = by
                     max_err = max(max_err, err)
                     totals["ms"] += per_forward * ms
                     totals["plain_ms"] += per_forward * plain_ms
@@ -234,6 +313,19 @@ def smoke_params(seed: int, config) -> dict:
     return params
 
 
+def keys_resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float64 weights of a Keys cubic (a = -0.5) resize along one
+    axis, antialiased on downscale, written out here apart from the port's
+    `cubic_resize_matrix`: half-pixel sample centres, the kernel widened by
+    n_in / n_out when shrinking, each column normalised to sum 1."""
+    scale = n_in / n_out
+    centres = (np.arange(n_out) + 0.5) * scale - 0.5
+    d = np.abs(np.arange(n_in)[:, None] - centres[None, :]) / max(scale, 1.0)
+    k = np.where(d < 1, 1.5 * d**3 - 2.5 * d**2 + 1,
+                 np.where(d < 2, -0.5 * d**3 + 2.5 * d**2 - 4 * d + 2, 0.0))
+    return k / k.sum(axis=0, keepdims=True)
+
+
 def check_frames(label: str, images: np.ndarray, count: int, resolution: int) -> None:
     require(images.dtype == np.uint8 and images.shape == (count, resolution, resolution, 3),
             f"{label}: got {images.dtype} {images.shape}")
@@ -243,23 +335,48 @@ def check_frames(label: str, images: np.ndarray, count: int, resolution: int) ->
         require(saturated < 0.5, f"{label}[{i}]: {saturated:.2f} of pixels saturated")
 
 
-def launches_per_forward(label: str, forwards: int, config) -> Dict[str, int]:
+def launches_per_forward(label: str, forwards: int, config, phase: bool = False,
+                         resize: bool = False) -> Dict[str, int]:
+    """Check the launches of the request just served. On the phase path the top
+    block's two conv layers take their epilogue in phase space (not A), its
+    blur is folded into the conv (not C), and its Conv1 + ToRGB run as E; the
+    last skip upsample is B's interleave on the float path (a resize) and the
+    plain phase planes on the fused uint8 path."""
     from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES
 
     counts = dict(LAUNCHES)
     blocks = config.resolution_log2 - 2
     want = {
-        "fused_bias_noise_lrelu": (1 + 2 * blocks) * forwards,
-        "upsample2x_blur": blocks * forwards,
-        "blur4_separable_pad11": blocks * forwards,
+        "fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
+        "upsample2x_blur": (blocks - (phase and not resize)) * forwards,
+        "blur4_separable_pad11": (blocks - phase) * forwards,
+        "phase_conv1_torgb": int(phase) * forwards,
     }
     print(f"launches {label} ({forwards} forwards): {counts}", flush=True)
     require(counts == want, f"{label}: launches {counts} != {want}")
     return counts
 
 
+def share_within_one_step(a: np.ndarray, b: np.ndarray) -> Tuple[int, float]:
+    """(max step difference, share of values within 1 step) of two uint8 arrays."""
+    steps = np.abs(a.astype(int) - b.astype(int))
+    return int(steps.max()), float(np.mean(steps <= 1))
+
+
+def require_close_frames(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    """uint8 frames within 1 step on at least 99.9% of values."""
+    worst, share = share_within_one_step(got, want)
+    print(f"{label}: max {worst} steps, {share:.6f} within 1 step", flush=True)
+    require(share >= 0.999, f"{label}: {share:.5f} of values within 1 step")
+
+
+def set_phase(mode: str) -> None:
+    os.environ[PHASE_ENV] = mode
+
+
 def main_path_phase(config, workdir: Path) -> Tuple[Dict[str, int], object, np.ndarray]:
     from gance_tpu_torch.models.pickle_loader import save_generator_pickle
+    from gance_tpu_torch.models.stylegan2 import generator_apply
     from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
     from gance_tpu_torch.synthesis.runtime import MultiNetwork, SynthesisNetwork
 
@@ -275,33 +392,33 @@ def main_path_phase(config, workdir: Path) -> Tuple[Dict[str, int], object, np.n
     net = SynthesisNetwork.from_pkl(paths[0])
     require(net.device.type == "cuda", f"from_pkl placed the net on {net.device}")
     res = config.resolution
-    totals = {}
+    totals: Dict[str, int] = {}
 
-    def add(counts):
-        for k, v in counts.items():
+    def serve(label: str, request: Callable[[], np.ndarray], forwards: int, count: int,
+              side: int = res, phase: bool = False) -> np.ndarray:
+        """One request with the counts set to 0 just before it and read just after."""
+        set_phase("on" if phase else "off")
+        reset_launch_counts()
+        images = request()
+        for k, v in launches_per_forward(label, forwards, config, phase=phase,
+                                         resize=side != res).items():
             totals[k] = totals.get(k, 0) + v
+        check_frames(label, images, count, side)
+        return images
 
     z = rng.standard_normal((BATCH, config.latent_size)).astype(np.float32)
-    reset_launch_counts()
-    images = net.images_from_vectors(z)
-    add(launches_per_forward("images_from_vectors", 1, config))
-    check_frames("images_from_vectors", images, BATCH, res)
-
-    w_plus = rng.standard_normal((BATCH, config.num_style_rows, config.dlatent_size))
-    reset_launch_counts()
-    images = net.images_from_matrices(w_plus.astype(np.float32))
-    add(launches_per_forward("images_from_matrices", 1, config))
-    check_frames("images_from_matrices", images, BATCH, res)
+    w_plus = rng.standard_normal(
+        (BATCH, config.num_style_rows, config.dlatent_size)).astype(np.float32)
+    vectors = serve("images_from_vectors", lambda: net.images_from_vectors(z), 1, BATCH)
+    matrices = serve("images_from_matrices", lambda: net.images_from_matrices(w_plus), 1, BATCH)
 
     frames = rng.standard_normal((40, config.latent_size)).astype(np.float32)
     indices = np.arange(40) % 2
     with MultiNetwork(paths) as multi:
-        reset_launch_counts()
-        stream = np.stack(list(multi.synthesize_stream(frames, indices, batch_size=BATCH,
-                                                       lookahead=2)))
         # windows of 16, 16, 8 frames: 8 + 8, 8 + 8, 4 + 4 per network
-        add(launches_per_forward("synthesize_stream", 6, config))
-        check_frames("synthesize_stream", stream, 40, res)
+        stream = serve("synthesize_stream", lambda: np.stack(list(multi.synthesize_stream(
+            frames, indices, batch_size=BATCH, lookahead=2))), 6, 40)
+        set_phase("off")
         for start, end in ((0, 16), (16, 32), (32, 40)):
             for index in (0, 1):
                 rows = np.arange(start, end)[indices[start:end] == index]
@@ -312,8 +429,41 @@ def main_path_phase(config, workdir: Path) -> Tuple[Dict[str, int], object, np.n
         other = multi.network(1).images_from_vectors(frames[:1])
         require(float(np.abs(other.astype(int) - stream[:1].astype(int)).mean()) > 5.0,
                 "networks 0 and 1 render the same frame")
+        # the polyphase top block with kernel E: one window of 8 + 8 frames
+        phase_stream = serve("synthesize_stream phase", lambda: np.stack(list(
+            multi.synthesize_stream(frames[:16], indices[:16], batch_size=BATCH, lookahead=2))),
+            2, 16, phase=True)
+        require_close_frames("phase vs standard stream", phase_stream, stream[:16])
     print("main path: vectors, matrices and a 40-frame 2-network stream served; "
           "stream order checked", flush=True)
+
+    phase_vectors = serve("images_from_vectors phase", lambda: net.images_from_vectors(z), 1,
+                          BATCH, phase=True)
+    require_close_frames("phase vs standard vectors", phase_vectors, vectors)
+    phase_matrices = serve("images_from_matrices phase",
+                           lambda: net.images_from_matrices(w_plus), 1, BATCH, phase=True)
+    require_close_frames("phase vs standard matrices", phase_matrices, matrices)
+
+    small = SynthesisNetwork.from_staged((net.params, net.config), net.path,
+                                         output_side_length=RESIZE_SIDE)
+    resized = serve(f"images_from_vectors side {RESIZE_SIDE}",
+                    lambda: small.images_from_vectors(z), 1, BATCH, side=RESIZE_SIDE)
+    phase_resized = serve(f"images_from_vectors side {RESIZE_SIDE} phase",
+                          lambda: small.images_from_vectors(z), 1, BATCH, side=RESIZE_SIDE,
+                          phase=True)
+    require_close_frames("phase vs standard resized", phase_resized, resized)
+    # the resize against the card's float render, resized in float64 on the host
+    # with this script's own weights
+    set_phase("off")
+    with torch.inference_mode():
+        fine = generator_apply(net.params, torch.from_numpy(z[:2]).cuda(), config).cpu().numpy()
+    weights = keys_resize_weights(res, RESIZE_SIDE)
+    host = np.einsum("bhwc,hy->bywc", fine.astype(np.float64), weights, optimize=True)
+    host = np.einsum("bywc,wx->byxc", host, weights, optimize=True)
+    host = np.clip(np.floor(host * 127.5 + 128.0), 0, 255).astype(np.uint8)
+    require_close_frames("resized vs host float64 resize", resized[:2], host)
+    print(f"phase path: vectors, matrices, a 16-frame stream and a side-{RESIZE_SIDE} request "
+          "on both paths served and checked", flush=True)
     return totals, net, z
 
 
@@ -321,6 +471,7 @@ def parity_phase(net, z: np.ndarray) -> None:
     from gance_tpu_torch.models.stylegan2 import generator_apply, images_to_uint8
     from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
 
+    set_phase("off")
     cpu_net = SynthesisNetwork.from_staged((net.params, net.config), net.path, device="cpu")
     z1 = torch.from_numpy(z[:1])
     with torch.inference_mode():
@@ -340,13 +491,16 @@ def parity_phase(net, z: np.ndarray) -> None:
 
     bf16_net = SynthesisNetwork.from_staged(
         (net.params, net.config), net.path, compute_dtype=torch.bfloat16)
-    u_bf16 = bf16_net.images_from_vectors(z).astype(np.float64)
     u_f32 = net.images_from_vectors(z).astype(np.float64)
-    mse = float(np.mean((u_bf16 - u_f32) ** 2))
-    psnr = 10 * math.log10(255.0**2 / mse) if mse else float("inf")
-    print(f"bf16 vs fp32 render (batch {BATCH}): PSNR {psnr:.2f} dB, "
-          f"mean abs {float(np.mean(np.abs(u_bf16 - u_f32))):.3f} steps", flush=True)
-    require(psnr >= 35.0, f"bf16 PSNR {psnr:.2f} dB < 35")
+    for mode in ("off", "on"):
+        set_phase(mode)
+        u_bf16 = bf16_net.images_from_vectors(z).astype(np.float64)
+        mse = float(np.mean((u_bf16 - u_f32) ** 2))
+        psnr = 10 * math.log10(255.0**2 / mse) if mse else float("inf")
+        print(f"bf16 (phase path {mode}) vs fp32 render (batch {BATCH}): PSNR {psnr:.2f} dB, "
+              f"mean abs {float(np.mean(np.abs(u_bf16 - u_f32))):.3f} steps", flush=True)
+        require(psnr >= 35.0, f"bf16 PSNR (phase path {mode}) {psnr:.2f} dB < 35")
+    set_phase("off")
 
 
 def fps_phase(net, z: np.ndarray, card: str) -> None:
@@ -355,12 +509,15 @@ def fps_phase(net, z: np.ndarray, card: str) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         run_net = net if dtype == torch.float32 else SynthesisNetwork.from_staged(
             (net.params, net.config), net.path, compute_dtype=dtype)
-        torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(lambda: run_net.device_images_from_vectors(z), min_total_ms=2000.0)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"fps {str(dtype)[6:]} batch {BATCH} at {net.resolution}px: "
-              f"{BATCH / ms * 1e3:.2f} frames/s ({ms:.2f} ms per batch, peak "
-              f"{peak:.2f} GiB) on {card}", flush=True)
+        for mode in ("off", "on"):
+            set_phase(mode)
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: run_net.device_images_from_vectors(z), min_total_ms=2000.0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"fps {str(dtype)[6:]} batch {BATCH} at {net.resolution}px phase {mode}: "
+                  f"{BATCH / ms * 1e3:.2f} frames/s ({ms:.2f} ms per batch, peak "
+                  f"{peak:.2f} GiB) on {card}", flush=True)
+    set_phase("off")
 
 
 def main() -> None:

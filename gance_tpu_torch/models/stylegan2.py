@@ -16,19 +16,25 @@ architecture ToRGB chain) and the same params tree keys
 Functions take a params tree of tensors on one device. The noise-carrying
 layers' epilogue runs through kernel A (`fused_bias_noise_lrelu`), the skip
 chain's upsample through kernel B and the up-conv's blur through kernel C.
+With the polyphase top block (`phase_top_block_mode`, GANCE_TPU_PHASE1024) the
+top block runs in phase space (ops/phase_block.py) and its Conv1, epilogue and
+ToRGB through kernel E.
 """
 
 import math
+import os
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from gance_tpu_torch.ops import phase_block
 from gance_tpu_torch.ops.bias_act import bias_act
-from gance_tpu_torch.ops.cuda.fused_ops import fused_bias_noise_lrelu
+from gance_tpu_torch.ops.cuda.fused_ops import RGB_COLUMNS, fused_bias_noise_lrelu
 from gance_tpu_torch.ops.modulated_conv import dense_layer, modulated_conv2d
-from gance_tpu_torch.ops.precision import apply_conv_precision
+from gance_tpu_torch.ops.precision import apply_conv_precision, exact_fp32
 from gance_tpu_torch.ops.upfirdn2d import upsample_2d_nchw
 
 Params = Dict[str, Any]
@@ -253,6 +259,32 @@ def _torgb(
     return t if y is None else y + t
 
 
+def phase_mode_from_env() -> str:
+    """GANCE_TPU_PHASE1024: 'auto' (default), 'on' or 'off', case-insensitive;
+    any other value raises."""
+    mode = os.environ.get("GANCE_TPU_PHASE1024", "auto").strip().lower()
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"GANCE_TPU_PHASE1024={mode!r}: expected 'auto', 'on', or 'off'")
+    return mode
+
+
+def resolve_phase_top_block(config: GeneratorConfig, mode: Optional[bool] = None) -> bool:
+    """
+    Whether the top block runs in polyphase form, decided once per call.
+    `mode` True / False forces it on / off; None reads GANCE_TPU_PHASE1024,
+    whose 'auto' is off here in every compute dtype: JAX turns it on only on a
+    TPU backend, and on the H100 the phase path is the slower one (PERF.md).
+    As in JAX, never at a top block of 128 channels or more (the fold would
+    only add work), and only for a symmetric separable 4-tap FIR; kernel E
+    also needs at most 4 output channels (its 16 RGB phase columns).
+    """
+    if mode is None:
+        mode = phase_mode_from_env() == "on"
+    return (bool(mode) and config.nf(config.resolution_log2 - 1) < 128
+            and phase_block.phase_path_supported(config.resample_kernel)
+            and 4 * config.num_channels <= RGB_COLUMNS)
+
+
 def synthesis_apply(
     params: Params,
     dlatents: torch.Tensor,
@@ -260,6 +292,7 @@ def synthesis_apply(
     noise_mode: str = "const",
     generator: Optional[torch.Generator] = None,
     compute_dtype: torch.dtype = torch.float32,
+    phase_top_block_mode: Optional[bool] = None,
     uint8_output: bool = False,
 ) -> torch.Tensor:
     """
@@ -270,6 +303,12 @@ def synthesis_apply(
     :param noise_mode: 'const' (the params' noise buffers), 'random' (fresh
         N(0, 1) noise per sample and layer, drawn from `generator`, which must
         live on the params' device) or 'none'.
+    :param phase_top_block_mode: True / False force the polyphase top block
+        on / off (on only where the top block has fewer than 128 channels and
+        the FIR and channel count fit it); None resolves GANCE_TPU_PHASE1024.
+    :param uint8_output: on the phase path the skip add, bias and quantisation
+        run per phase (`phase_top_block_uint8`, bit for bit
+        `images_to_uint8` of the float output); elsewhere `images_to_uint8`.
     """
     if noise_mode not in ("const", "random", "none"):
         raise ValueError(f"bad noise_mode {noise_mode!r}")
@@ -297,19 +336,37 @@ def synthesis_apply(
     )
     y = _torgb(x, synthesis["4x4"]["ToRGB"], dlatents[:, 1], None, config, compute_dtype)
 
-    for res in range(3, config.resolution_log2 + 1):
+    top = config.resolution_log2
+    use_phase = resolve_phase_top_block(config, phase_top_block_mode)
+
+    for res in range(3, top + 1):
         block = synthesis[f"{2**res}x{2**res}"]
         size = 2**res
+        dl_rows = (dlatents[:, res * 2 - 5], dlatents[:, res * 2 - 4], dlatents[:, res * 2 - 3])
+        if res == top and use_phase:
+            # the same draws, in the same order, as the standard path
+            noise_up = layer_noise(res * 2 - 5, size)
+            noise_c1 = layer_noise(res * 2 - 4, size)
+            if uint8_output:
+                return phase_block.phase_top_block_uint8(
+                    x, block, dl_rows, noise_up, noise_c1, y, config.resample_kernel,
+                    compute_dtype,
+                )
+            y = upsample_2d_nchw(y, kernel=config.resample_kernel)
+            y = phase_block.phase_top_block(
+                x, block, dl_rows, noise_up, noise_c1, y, config.resample_kernel, compute_dtype
+            )
+            break
         x = _synthesis_layer(
-            x, block["Conv0_up"], dlatents[:, res * 2 - 5], layer_noise(res * 2 - 5, size),
+            x, block["Conv0_up"], dl_rows[0], layer_noise(res * 2 - 5, size),
             True, config, compute_dtype,
         )
         x = _synthesis_layer(
-            x, block["Conv1"], dlatents[:, res * 2 - 4], layer_noise(res * 2 - 4, size),
+            x, block["Conv1"], dl_rows[1], layer_noise(res * 2 - 4, size),
             False, config, compute_dtype,
         )
         y = upsample_2d_nchw(y, kernel=config.resample_kernel)
-        y = _torgb(x, block["ToRGB"], dlatents[:, res * 2 - 3], y, config, compute_dtype)
+        y = _torgb(x, block["ToRGB"], dl_rows[2], y, config, compute_dtype)
 
     image = y.permute(0, 2, 3, 1).float()
     return images_to_uint8(image) if uint8_output else image
@@ -323,6 +380,7 @@ def generator_apply(
     noise_mode: str = "const",
     generator: Optional[torch.Generator] = None,
     compute_dtype: torch.dtype = torch.float32,
+    phase_top_block_mode: Optional[bool] = None,
     uint8_output: bool = False,
 ) -> torch.Tensor:
     """Full G: z -> mapping -> broadcast -> truncation -> synthesis."""
@@ -332,8 +390,61 @@ def generator_apply(
         dlatents = truncate_dlatents(dlatents, params["dlatent_avg"], truncation_psi)
     return synthesis_apply(
         params, dlatents, config, noise_mode=noise_mode, generator=generator,
-        compute_dtype=compute_dtype, uint8_output=uint8_output,
+        compute_dtype=compute_dtype, phase_top_block_mode=phase_top_block_mode,
+        uint8_output=uint8_output,
     )
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """The Keys cubic kernel with a = -0.5 at |distance| x."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+@lru_cache(maxsize=16)
+def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """
+    (in_size, out_size) float32 weights of jax.image.resize(method="cubic")
+    along one axis (jax/_src/image/scale.py::compute_weight_mat, computed in
+    float32 as JAX does): half-pixel sample positions, the kernel widened by
+    1/scale when downscaling (antialiasing), each column normalised to sum 1,
+    and columns whose sample lies outside the input zeroed. Cached, so it is
+    returned read-only.
+    """
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = _keys_cubic(x).astype(f32)
+    total = np.sum(weights, axis=0, keepdims=True)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                       weights / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    weights = np.where(inside[None, :], weights, 0).astype(f32)
+    weights.setflags(write=False)
+    return weights
+
+
+def resize_images(images: torch.Tensor, side_length: int) -> torch.Tensor:
+    """
+    Bicubic resize of float NHWC images on their device, as gance_tpu's
+    `resize_images` (jax.image.resize, method "cubic": the Keys cubic with
+    a = -0.5, antialiased on downscale). Two products with the per-axis weight
+    matrices, in exact fp32. F.interpolate(mode="bicubic") uses a = -0.75 and
+    does not antialias, so it is not this function.
+    """
+    _, h, w, _ = images.shape
+    out = images.float()
+    with exact_fp32():
+        if h != side_length:
+            wh = torch.tensor(cubic_resize_matrix(h, side_length), device=images.device)
+            out = torch.einsum("bhwc,hy->bywc", out, wh)
+        if w != side_length:
+            ww = torch.tensor(cubic_resize_matrix(w, side_length), device=images.device)
+            out = torch.einsum("bywc,wx->byxc", out, ww)
+    return out
 
 
 def images_to_uint8(

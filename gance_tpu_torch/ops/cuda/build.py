@@ -28,9 +28,14 @@ FUNCTIONS = {
     "fused_bias_noise_lrelu": (
         "gance_fused_bias_noise_lrelu", [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P]
     ),
-    "upsample2x_blur": ("gance_upsample2x_blur", [_P, _P, _L, _I, _I, _I, _P]),
+    "upsample2x_blur": (
+        "gance_upsample2x_blur", [_P, _P, _L, _I, _I, _F, _F, _F, _F, _I, _P]
+    ),
     "blur4_separable": (
         "gance_blur4_separable_pad11", [_P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _I, _P]
+    ),
+    "phase_conv1_torgb": (
+        "gance_phase_conv1_torgb", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     ),
 }
 

@@ -1,5 +1,5 @@
 """
-The three synthesis kernels, each as a wrapper, a plain PyTorch twin and a
+The four synthesis kernels, each as a wrapper, a plain PyTorch twin and a
 launch count.
 
 A wrapper takes its twin only when the tensor it is given lies on the CPU. For
@@ -7,33 +7,38 @@ a CUDA tensor it launches the hand-written kernel (`csrc/`, built by
 `build.py`) on the current stream or raises; nothing falls back. `LAUNCHES`
 counts kernel launches, one per call that reached a kernel.
 
-| wrapper | replaces (gance_tpu/ops/pallas/fused_ops.py) | source |
+| wrapper | replaces (in gance_tpu/ops/pallas/) | source (in csrc/) |
 | --- | --- | --- |
-| fused_bias_noise_lrelu | fused_bias_noise_lrelu (pallas_call :69) | csrc/fused_bias_noise_lrelu.cu |
-| upsample2x_blur | upsample2x_blur (pallas_call :152) | csrc/upsample2x_blur.cu |
-| blur4_separable_pad11 | blur4_separable_pad11 (pallas_call :333, :350) | csrc/blur4_separable.cu |
+| A fused_bias_noise_lrelu | fused_ops.py (pallas_call :69) | fused_bias_noise_lrelu.cu |
+| B upsample2x_blur | fused_ops.py (pallas_call :152) | upsample2x_blur.cu |
+| C blur4_separable_pad11 | fused_ops.py (pallas_call :333, :350) | blur4_separable.cu |
+| E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
 
-All three are memory-bound on the H100; each source file states its bound and
-design. Every kernel takes NCHW-contiguous fp32 or bf16 activations and
-computes in fp32.
+A, B and C are memory-bound on the H100, E is bound by its operations; each
+source file states its bound and design. Every kernel takes NCHW-contiguous
+fp32 or bf16 activations and sums in fp32.
 """
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from gance_tpu_torch.ops.cuda import build
+from gance_tpu_torch.ops.precision import exact_fp32
 
 LAUNCHES: Dict[str, int] = {
     "fused_bias_noise_lrelu": 0,
     "upsample2x_blur": 0,
     "blur4_separable_pad11": 0,
+    "phase_conv1_torgb": 0,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SQRT2 = math.sqrt(2.0)
+RGB_COLUMNS = 16  # kernel E's ToRGB width: 4 phases x up to 4 channels, zero-padded
+MAX_PHASE_CHANNELS = 512  # kernel E's largest C4 (its z tile lives in shared memory)
 
 
 def reset_launch_counts() -> None:
@@ -121,40 +126,51 @@ def fused_bias_noise_lrelu(
 
 
 # ---------------------------------------------------------------------------
-# B. 2x polyphase upsample with the [1,3,3,1] FIR
+# B. 2x polyphase upsample with a separable 4-tap FIR
 # ---------------------------------------------------------------------------
 
 
-def upsample2x_blur_plain(x: torch.Tensor) -> torch.Tensor:
+def _four_taps(taps: Sequence[float]) -> Tuple[float, float, float, float]:
+    if len(taps) != 4:
+        raise ValueError(f"expected 4 taps, got {taps}")
+    k0, k1, k2, k3 = (float(t) for t in taps)
+    return k0, k1, k2, k3
+
+
+def upsample2x_blur_plain(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     """
     The twin of kernel B: the polyphase 2x upsample of
     gance_tpu/ops/upfirdn2d.py::upsample2x_polyphase_nchw in fp32,
-    (B, C, H, W) -> (B, C, 2H, 2W), output in x's dtype.
+    (B, C, H, W) -> (B, C, 2H, 2W), output in x's dtype. Even phases are
+    k0*x[i-1] + k2*x[i], odd phases k1*x[i] + k3*x[i+1], first along W, then H.
     """
+    k0, k1, k2, k3 = _four_taps(taps)
     b, c, h, w = x.shape
     xp = F.pad(x.float(), (1, 1, 1, 1))
     left, mid, right = xp[..., :-2], xp[..., 1:-1], xp[..., 2:]
-    h_even = 0.25 * left + 0.75 * mid
-    h_odd = 0.75 * mid + 0.25 * right
+    h_even = k0 * left + k2 * mid
+    h_odd = k1 * mid + k3 * right
     hs = torch.stack([h_even, h_odd], dim=-1).reshape(b, c, h + 2, 2 * w)
     up, vmid, down = hs[:, :, :-2], hs[:, :, 1:-1], hs[:, :, 2:]
-    v_even = 0.25 * up + 0.75 * vmid
-    v_odd = 0.75 * vmid + 0.25 * down
+    v_even = k0 * up + k2 * vmid
+    v_odd = k1 * vmid + k3 * down
     return torch.stack([v_even, v_odd], dim=3).reshape(b, c, 2 * h, 2 * w).to(x.dtype)
 
 
-def upsample2x_blur(x: torch.Tensor) -> torch.Tensor:
-    """2x FIR upsample with the [1,3,3,1] binomial: (B, C, H, W) -> (B, C, 2H, 2W)."""
+def upsample2x_blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """2x FIR upsample with the polyphase taps (k0, k1, k2, k3) of a separable
+    4-tap FIR ((.25, .75, .75, .25) for [1,3,3,1]): (B, C, H, W) -> (B, C, 2H, 2W)."""
+    taps = _four_taps(taps)
     if x.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
     if _on_cpu(x):
-        return upsample2x_blur_plain(x)
+        return upsample2x_blur_plain(x, taps)
     _check("upsample2x_blur", x)
     b, c, h, w = x.shape
     out = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     _launch(
         "upsample2x_blur", "upsample2x_blur",
-        x.data_ptr(), out.data_ptr(), b * c, h, w, _DTYPE_CODES[x.dtype],
+        x.data_ptr(), out.data_ptr(), b * c, h, w, *taps, _DTYPE_CODES[x.dtype],
     )
     return out
 
@@ -182,14 +198,16 @@ def blur4_separable_pad11(
     x: torch.Tensor, taps: Sequence[float], w_logical: Optional[int] = None
 ) -> torch.Tensor:
     """
-    upfirdn2d(x[..., :w_logical], outer(taps, taps), pad0=1, pad1=1) as one
-    separable pass: x (B, C, H, Wp) -> (B, C, H-1, w_logical-1). Columns at or
-    past `w_logical` are never read. The taps are applied as a correlation, as
-    in the Pallas kernel; for the symmetric resampling FIRs of StyleGAN2 that
-    equals the true convolution.
+    The separable 4-tap FIR with pad 1 as one pass: x (B, C, H, Wp) ->
+    (B, C, H-1, w_logical-1), out[i][j] = sum_a sum_b taps[a] * taps[b] *
+    xp[i+a][j+b] with xp the zero-padded x[..., :w_logical]. Columns at or past
+    `w_logical` are never read. The taps are applied as a correlation, as in
+    the Pallas kernel: for upfirdn2d's true convolution with a FIR root r, pass
+    r reversed (`upsample_conv_2d` does).
     """
-    if x.ndim != 4 or len(taps) != 4:
-        raise ValueError(f"expected NCHW input and 4 taps, got {tuple(x.shape)}, {taps}")
+    taps = _four_taps(taps)
+    if x.ndim != 4:
+        raise ValueError(f"expected NCHW input, got {tuple(x.shape)}")
     b, c, h, wp = x.shape
     w_logical = wp if w_logical is None else int(w_logical)
     if not 2 <= w_logical <= wp or h < 2:
@@ -201,6 +219,84 @@ def blur4_separable_pad11(
     _launch(
         "blur4_separable_pad11", "blur4_separable",
         x.data_ptr(), out.data_ptr(), b * c, h, wp, w_logical,
-        *(float(t) for t in taps), _DTYPE_CODES[x.dtype],
+        *taps, _DTYPE_CODES[x.dtype],
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# E. phase-space Conv1 + demod/noise/bias/lrelu + ToRGB of the top block
+# ---------------------------------------------------------------------------
+
+
+def phase_conv1_torgb_plain(
+    x: torch.Tensor,
+    w4: torch.Tensor,
+    demod: torch.Tensor,
+    noise_bias: torch.Tensor,
+    wrgb: torch.Tensor,
+) -> torch.Tensor:
+    """
+    The twin of kernel E, in the kernel's arithmetic: the operands are taken in
+    x's dtype, the conv and the ToRGB product sum in fp32 (never TF32), z is
+    rounded to x's dtype before the ToRGB product, and the output is in x's
+    dtype.
+    """
+    dtype = x.dtype
+    with exact_fp32():
+        acc = F.conv2d(x.float(), w4.to(dtype).float(), padding=1)
+        z = acc * demod.float()[:, :, None, None] + noise_bias.to(dtype).float()
+        z = torch.maximum(z, z * 0.2).to(dtype).float()
+        return torch.einsum("bchw,bck->bkhw", z, wrgb.to(dtype).float()).to(dtype)
+
+
+def phase_conv1_torgb(
+    x: torch.Tensor,
+    w4: torch.Tensor,
+    demod: torch.Tensor,
+    noise_bias: torch.Tensor,
+    wrgb: torch.Tensor,
+) -> torch.Tensor:
+    """
+    rgb[b] = lrelu(conv2d(x[b], w4, pad 1) * demod[b] + noise_bias, 0.2) @ wrgb[b]
+    in one pass; the activated (B, C4, H+1, W+1) tensor is never stored.
+
+    :param x: (B, C4, H, W) phase planes, activated and scaled by Conv1's style.
+    :param w4: (C4, C4, 2, 2) OIHW, Conv1 folded into phase space.
+    :param demod: (B, C4) Conv1's demodulation, tiled over the four phases.
+    :param noise_bias: (1 or B, C4, H+1, W+1): noise * strength + bias.
+    :param wrgb: (B, C4, 16) phase-diagonal ToRGB with sqrt(2) * s_rgb folded
+        in; columns past 4 * channels are zero.
+    :return: (B, 16, H+1, W+1) RGB phase planes in x's dtype.
+    """
+    if x.ndim != 4:
+        raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
+    b, c4, h, w = x.shape
+    if (
+        w4.shape != (c4, c4, 2, 2)
+        or demod.shape != (b, c4)
+        or noise_bias.shape not in ((1, c4, h + 1, w + 1), (b, c4, h + 1, w + 1))
+        or wrgb.shape != (b, c4, RGB_COLUMNS)
+    ):
+        raise ValueError(
+            f"bad shapes x {tuple(x.shape)}, w4 {tuple(w4.shape)}, demod "
+            f"{tuple(demod.shape)}, noise_bias {tuple(noise_bias.shape)}, wrgb {tuple(wrgb.shape)}"
+        )
+    if c4 % 4 or c4 > MAX_PHASE_CHANNELS:
+        raise ValueError(f"C4={c4} must be a multiple of 4 and at most {MAX_PHASE_CHANNELS}")
+    if _on_cpu(x):
+        return phase_conv1_torgb_plain(x, w4, demod, noise_bias, wrgb)
+    dtype = x.dtype
+    wt = w4.to(dtype).permute(1, 2, 3, 0).contiguous()  # [in][kh][kw][out]
+    demod = demod.to(torch.float32).contiguous()
+    noise_bias = noise_bias.to(dtype).contiguous()
+    wrgb = wrgb.to(dtype).contiguous()
+    _check("phase_conv1_torgb", x, wt, demod, noise_bias, wrgb)
+    out = torch.empty((b, RGB_COLUMNS, h + 1, w + 1), dtype=dtype, device=x.device)
+    _launch(
+        "phase_conv1_torgb", "phase_conv1_torgb",
+        x.data_ptr(), wt.data_ptr(), demod.data_ptr(), noise_bias.data_ptr(),
+        wrgb.data_ptr(), out.data_ptr(), b, c4, h, w, int(noise_bias.shape[0] != 1),
+        _DTYPE_CODES[dtype],
     )
     return out

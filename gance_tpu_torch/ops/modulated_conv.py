@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gance_tpu_torch.ops.precision import exact_fp32_matmul
+from gance_tpu_torch.ops.precision import exact_fp32
 from gance_tpu_torch.ops.upfirdn2d import DEFAULT_RESAMPLE_KERNEL, upsample_conv_2d
 
 
@@ -33,7 +33,7 @@ def style_vector(
 ) -> torch.Tensor:
     """Style affine: s = w @ (mod_weight * coef) + bias + 1, fp32 (B, Cin)."""
     mod_coef = runtime_weight_coef(mod_weight.shape[0])
-    with exact_fp32_matmul():
+    with exact_fp32():
         s = style_w.float() @ (mod_weight.float() * mod_coef)
     return s + mod_bias.float() + 1.0
 
@@ -42,7 +42,7 @@ def demod_vector(styles: torch.Tensor, w_scaled: torch.Tensor) -> torch.Tensor:
     """d[b, o] = rsqrt(sum_i s[b, i]^2 * sum_khw w[o, i]^2 + 1e-8); `w_scaled` is
     the runtime-scaled fp32 OIHW weight."""
     w_sq_sum = w_scaled.square().sum(dim=(2, 3))  # (Cout, Cin)
-    with exact_fp32_matmul():
+    with exact_fp32():
         return torch.rsqrt(styles.square() @ w_sq_sum.t() + 1e-8)
 
 

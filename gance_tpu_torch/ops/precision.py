@@ -7,8 +7,9 @@ One knob, read once at import, the same as gance_tpu's: GANCE_TPU_PRECISION =
     with the reference, so this tier turns TF32 off for convs and matmuls.
   * "high" / "default" — TF32 allowed for fp32 convs and matmuls.
 
-The style/demod dots in modulated conv always run in exact fp32
-(`exact_fp32_matmul`), whatever the tier.
+The style/demod dots in modulated conv, `resize_images` and the plain twins
+of the kernels that sum products always run in exact fp32 (`exact_fp32`),
+whatever the tier.
 """
 
 import os
@@ -32,11 +33,13 @@ def apply_conv_precision() -> None:
 
 
 @contextmanager
-def exact_fp32_matmul() -> Iterator[None]:
-    """Run the enclosed matmuls in full fp32 (no TF32), then restore the flag."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+def exact_fp32() -> Iterator[None]:
+    """Run the enclosed convolutions and matmuls in full fp32 (no TF32), then
+    restore both flags."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -9,9 +9,11 @@ Semantics follow the public NVlabs definition, as in gance_tpu/ops/upfirdn2d.py:
   4. keep every `down`-th sample.
 
 `upfirdn2d` is the plain form for any FIR (the CPU path and the reference).
-The synthesis path's two fixed cases go through hand-written kernels: the 2x
-skip-chain upsample (`upsample_2d`, kernel B) and the blur after the transpose
-conv of `upsample_conv_2d` (kernel C).
+The synthesis path's two separable 4-tap cases go through hand-written
+kernels, as JAX sends them to its polyphase and separable forms: the 2x
+skip-chain upsample (`upsample_2d`, kernel B, with JAX's polyphase taps) and
+the blur after the transpose conv of `upsample_conv_2d` (kernel C, a true
+convolution like JAX's `upfirdn2d`).
 """
 
 from typing import Sequence, Tuple, Union
@@ -38,7 +40,8 @@ def setup_filter_kernel(kernel: KernelLike, gain: float = 1.0) -> np.ndarray:
 
 
 def _separable_root(k: np.ndarray) -> np.ndarray:
-    """1-D factor of a separable symmetric 2-D kernel (k = outer(r, r), r >= 0)."""
+    """1-D factor r >= 0 of a separable 2-D kernel k = outer(r, r); r need not
+    be symmetric (check with `_separable_4tap`)."""
     return np.sqrt(np.maximum(np.diag(k), 0.0))
 
 
@@ -86,11 +89,12 @@ def upsample_2d(
     gain: float = 1.0,
 ) -> torch.Tensor:
     """FIR upsampling of NCHW x, NVlabs `upsample_2d` pad arithmetic. The 2x case
-    with a separable 4-tap FIR of unit gain runs kernel B."""
+    with a separable 4-tap FIR runs kernel B in JAX's polyphase form
+    (gance_tpu/ops/upfirdn2d.py::upsample_2d), whose even phase is
+    k0*x[m-1] + k2*x[m] for the root k."""
     k = setup_filter_kernel(kernel, gain * (factor**2))
-    root = _separable_root(k)
-    if factor == 2 and _separable_4tap(k) and np.allclose(root, (0.25, 0.75, 0.75, 0.25)):
-        return upsample2x_blur(x)
+    if factor == 2 and _separable_4tap(k):
+        return upsample2x_blur(x, tuple(float(v) for v in _separable_root(k)))
     p = k.shape[0] - factor
     return upfirdn2d(x, k, up=factor, pad0=(p + 1) // 2 + factor - 1, pad1=p // 2)
 
@@ -103,6 +107,33 @@ def upsample_2d_nchw(
     """2x FIR upsampling of the synthesis RGB skip chain (the name the JAX
     synthesis path calls)."""
     return upsample_2d(xc, kernel, factor=2, gain=gain)
+
+
+def upsample2x_phases_nchw(
+    xc: torch.Tensor, taps: Sequence[float]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    Kernel B's 2x upsample without the final interleave: the four phase planes
+    ((i, j) = (row parity, column parity), each (B, C, H, W)) with
+    `upsample2x_blur(xc, taps)[..., 2m+i, 2n+j] == phases[i*2+j][..., m, n]`
+    bit for bit: the same fp32 terms in the same order, one rounding to xc's
+    dtype at the end. Counterpart of gance_tpu/ops/upfirdn2d.py::
+    upsample2x_phases_nchw, which JAX computes outside any Pallas kernel; it
+    feeds `phase_top_block_uint8`.
+    """
+    k0, k1, k2, k3 = (float(t) for t in taps)
+    xp = F.pad(xc.float(), (1, 1, 1, 1))
+    left, mid, right = xp[..., :-2], xp[..., 1:-1], xp[..., 2:]
+    h_even = k0 * left + k2 * mid
+    h_odd = k1 * mid + k3 * right
+
+    def vertical(hs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        up, vmid, down = hs[:, :, :-2], hs[:, :, 1:-1], hs[:, :, 2:]
+        return (k0 * up + k2 * vmid).to(xc.dtype), (k1 * vmid + k3 * down).to(xc.dtype)
+
+    v_even_j0, v_odd_j0 = vertical(h_even)
+    v_even_j1, v_odd_j1 = vertical(h_odd)
+    return v_even_j0, v_even_j1, v_odd_j0, v_odd_j1
 
 
 def upsample_conv_2d(
@@ -120,7 +151,9 @@ def upsample_conv_2d(
     weight (padded kh-1 on each side). `F.conv_transpose2d` flips its kernel
     and wants (Cin, Cout, kh, kw), so it gets w flipped and io-swapped; the
     two flips cancel. Output is (B, Cout, 2H+1, 2W+1) before the blur and
-    (B, Cout, 2H, 2W) after it.
+    (B, Cout, 2H, 2W) after it. The blur is upfirdn2d's true convolution, as in
+    JAX; kernel C correlates, so a separable FIR reaches it with its root
+    reversed.
     """
     ck = w.shape[2]
     k = setup_filter_kernel(kernel, gain * (factor**2))
@@ -128,5 +161,5 @@ def upsample_conv_2d(
     pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
     y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=factor)
     if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
-        return blur4_separable_pad11(y, tuple(float(v) for v in _separable_root(k)))
+        return blur4_separable_pad11(y, tuple(float(v) for v in _separable_root(k)[::-1]))
     return upfirdn2d(y, k, pad0=pad0, pad1=pad1)

@@ -12,10 +12,13 @@ psi=1.2 on the vectors path, constant noise buffers, and no mapping or
 truncation on the matrices path.
 
 Entry points run on `device="cuda"` unless the caller asks for the CPU; asking
-for CUDA on a host without it raises. Multi-device placement (`mesh`,
-`device_per_network`, `network_parallel`) and on-device resizing
-(`output_side_length` other than the resolution) are not ported yet and raise
-NotImplementedError.
+for CUDA on a host without it raises. Every call resolves the polyphase top
+block (GANCE_TPU_PHASE1024) anew, as JAX's runtime does. With an
+`output_side_length` other than the resolution, frames are rendered as float,
+resized on the device (`resize_images`, JAX's bicubic) and then quantised;
+otherwise the uint8 output is fused into synthesis. Multi-device placement
+(`mesh`, `device_per_network`, `network_parallel`) is not ported yet and
+raises NotImplementedError.
 """
 
 import os
@@ -32,6 +35,8 @@ from gance_tpu_torch.models.stylegan2 import (
     DEFAULT_TRUNCATION_PSI,
     GeneratorConfig,
     generator_apply,
+    images_to_uint8,
+    resize_images,
     synthesis_apply,
 )
 from gance_tpu_torch.types import is_vector
@@ -48,7 +53,6 @@ DEFAULT_COMPUTE_DTYPE = {
 }[os.environ.get("GANCE_TPU_COMPUTE_DTYPE", "float32").lower()]
 
 _MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-_RESIZE_ITEM = "ROADMAP.md Queue 1 item 2 (resize_images)"
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -131,11 +135,6 @@ class SynthesisNetwork:
     def __post_init__(self) -> None:
         if self.mesh is not None:
             raise NotImplementedError(f"mesh placement is not ported yet: {_MULTI_DEVICE_ITEM}")
-        if self.output_side_length not in (None, self.config.resolution):
-            raise NotImplementedError(
-                f"output_side_length={self.output_side_length} differs from the resolution "
-                f"{self.config.resolution}; on-device resizing is not ported yet: {_RESIZE_ITEM}"
-            )
         self.device = resolve_device(self.device)
         # Params go to the device once and stay there for every call.
         self.params = params_to_device(self.params, self.device)
@@ -180,23 +179,36 @@ class SynthesisNetwork:
     def _input(self, batch: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
 
+    @property
+    def _needs_resize(self) -> bool:
+        return self.output_side_length not in (None, self.config.resolution)
+
+    def _finish(self, images: torch.Tensor) -> torch.Tensor:
+        """uint8 frames as they leave: resized from float when asked, else as rendered."""
+        if self._needs_resize:
+            return images_to_uint8(resize_images(images, self.output_side_length))
+        return images
+
     @torch.inference_mode()
     def device_images_from_vectors(self, z_batch: np.ndarray) -> torch.Tensor:
-        """(B, latent) z -> (B, R, R, 3) uint8 on the device (queued, not synced)."""
-        return generator_apply(
+        """(B, latent) z -> (B, S, S, 3) uint8 on the device (queued, not synced);
+        S is `output_side_length`, or the resolution."""
+        return self._finish(generator_apply(
             self.params, self._input(z_batch), self.config,
             truncation_psi=self.truncation_psi, noise_mode="const",
-            compute_dtype=self.compute_dtype, uint8_output=True,
-        )
+            compute_dtype=self.compute_dtype,
+            uint8_output=not self._needs_resize,
+        ))
 
     @torch.inference_mode()
     def device_images_from_matrices(self, dlatent_batch: np.ndarray) -> torch.Tensor:
         """(B, num_style_rows, dlatent) w+ -> uint8 images on the device. Skips the
         mapping network and truncation: projection latents are final."""
-        return synthesis_apply(
+        return self._finish(synthesis_apply(
             self.params, self._input(dlatent_batch), self.config, noise_mode="const",
-            compute_dtype=self.compute_dtype, uint8_output=True,
-        )
+            compute_dtype=self.compute_dtype,
+            uint8_output=not self._needs_resize,
+        ))
 
     def device_images_generic(self, batch: np.ndarray) -> torch.Tensor:
         """Dispatch on input rank: (B, V) -> vectors, (B, R, V) -> matrices."""

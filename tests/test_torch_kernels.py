@@ -1,9 +1,12 @@
 """
-The port's three synthesis kernels (gance_tpu_torch/ops/cuda) on the CPU: each
-kernel's plain PyTorch twin against the Pallas function it replaces, run in
-interpret mode, at the shapes of tests/test_pallas_ops.py plus a C=64 case with
-an odd w_logical (the 1024px top block); the wrappers' CPU dispatch and input
-checks; and the ctypes binding against the C signatures in csrc/. The kernels
+The port's synthesis kernels A, B and C (gance_tpu_torch/ops/cuda) on the CPU:
+each kernel's plain PyTorch twin against the Pallas function it replaces, run
+in interpret mode, at the shapes of tests/test_pallas_ops.py plus a C=64 case
+with an odd w_logical (the 1024px top block); B at a FIR that is not symmetric
+against JAX's polyphase form; the wrappers' CPU dispatch and input checks; and
+the ctypes binding of all four kernels against the C signatures in csrc/.
+Kernel E's twin is held against its Pallas kernel in
+tests/test_torch_phase_block.py. The kernels
 themselves run only on a GPU: tests/test_torch_kernels_gpu.py holds each
 against its twin there, and `python3 chip_smoke.py` does so at the 1024px
 shapes.
@@ -68,11 +71,23 @@ def test_fused_bias_noise_lrelu_per_sample_noise(rng):
 def test_upsample2x_blur_twin_matches_pallas(rng, shape):
     x = rng.randn(*shape).astype(np.float32)
     want = np.asarray(pallas.upsample2x_blur(jnp.asarray(x), interpret=True))
-    got = K.upsample2x_blur_plain(nchw(x))
+    got = K.upsample2x_blur_plain(nchw(x), TAPS)
     assert got.shape == (shape[0], shape[3], 2 * shape[1], 2 * shape[2])
     np.testing.assert_allclose(nhwc(got), want, **TOL)
     polyphase = np.asarray(upsample2x_polyphase_nchw(jnp.asarray(nchw(x).numpy()), TAPS))
     np.testing.assert_allclose(got.numpy(), polyphase, **TOL)
+
+
+def test_upsample2x_blur_twin_takes_non_symmetric_taps(rng):
+    """B's taps are the polyphase taps in JAX's order: even phase k0*x[i-1] +
+    k2*x[i], odd phase k1*x[i] + k3*x[i+1], for a root that is not symmetric."""
+    root = (0.2, 0.4, 0.6, 0.8)  # (1, 2, 3, 4) with gain 2 per axis
+    x = rng.randn(2, 3, 7, 5).astype(np.float32)
+    want = np.asarray(upsample2x_polyphase_nchw(jnp.asarray(x), root))
+    got = K.upsample2x_blur_plain(torch.from_numpy(x), root)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    reversed_root = K.upsample2x_blur_plain(torch.from_numpy(x), root[::-1])
+    assert float((reversed_root - got).abs().max()) > 0.1
 
 
 @pytest.mark.parametrize(
@@ -108,7 +123,7 @@ def test_wrappers_use_the_twins_on_cpu(rng, dtype):
     pairs = [
         (K.fused_bias_noise_lrelu(x, noise, bias, strength),
          K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)),
-        (K.upsample2x_blur(x), K.upsample2x_blur_plain(x)),
+        (K.upsample2x_blur(x, TAPS), K.upsample2x_blur_plain(x, TAPS)),
         (K.blur4_separable_pad11(x, TAPS, 7), K.blur4_separable_pad11_plain(x, TAPS, 7)),
     ]
     for got, want in pairs:
@@ -126,13 +141,15 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="one value"):
         K.fused_bias_noise_lrelu(x, torch.zeros(1, 1, 4, 4), torch.zeros(2), torch.zeros(2))
     with pytest.raises(ValueError, match="NCHW"):
-        K.upsample2x_blur(torch.zeros(2, 4, 4))
+        K.upsample2x_blur(torch.zeros(2, 4, 4), TAPS)
     with pytest.raises(ValueError, match="w_logical"):
         K.blur4_separable_pad11(x, TAPS, w_logical=5)
     with pytest.raises(ValueError, match="4 taps"):
         K.blur4_separable_pad11(x, (0.5, 0.5))
+    with pytest.raises(ValueError, match="4 taps"):
+        K.upsample2x_blur(x, (0.5, 1.0, 0.5))
     with pytest.raises(ValueError, match="unsupported device"):
-        K.upsample2x_blur(torch.zeros(1, 1, 2, 2, device="meta"))
+        K.upsample2x_blur(torch.zeros(1, 1, 2, 2, device="meta"), TAPS)
 
 
 def _c_signatures():
@@ -149,7 +166,7 @@ def test_ctypes_bindings_match_c_signatures():
     """Every bound function exists in its source with as many parameters as argtypes
     (the wrapper appends the stream), and every source is built for sm_90a."""
     signatures = _c_signatures()
-    assert len(signatures) == len(build.FUNCTIONS) == 3
+    assert len(signatures) == len(build.FUNCTIONS) == 4
     for stem, (symbol, argtypes) in build.FUNCTIONS.items():
         assert signatures[symbol] == (stem, len(argtypes))
         assert (build.CSRC / f"{stem}.cu").is_file()
@@ -159,7 +176,7 @@ def test_ctypes_bindings_match_c_signatures():
 
 def test_library_paths_key_on_the_sources():
     paths = {build.library_path(name) for name in build.FUNCTIONS}
-    assert len(paths) == 3
+    assert len(paths) == 4
     for path in paths:
         assert path.parent == build.BUILD_DIR
         assert re.fullmatch(r"\w+-[0-9a-f]{16}\.so", path.name)

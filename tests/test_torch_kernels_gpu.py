@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
 
 TAPS = (0.25, 0.75, 0.75, 0.25)
+TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # the root of the non-symmetric FIR (1, 2, 3, 4)
 
 
 @pytest.fixture()
@@ -23,7 +24,8 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["fused_bias_noise_lrelu", "upsample2x_blur", "blur4"])
+@pytest.mark.parametrize(
+    "kernel", ["fused_bias_noise_lrelu", "upsample2x_blur", "blur4", "upsample2x_blur_fir1234"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_twin_on_gpu(cuda_device, kernel, dtype):
     """Kernel and twin round every operation alike, so they agree exactly."""
@@ -37,8 +39,10 @@ def test_kernel_matches_twin_on_gpu(cuda_device, kernel, dtype):
         got = K.fused_bias_noise_lrelu(x, noise, bias, strength)
         want = K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)
         name = kernel
-    elif kernel == "upsample2x_blur":
-        got, want, name = K.upsample2x_blur(x), K.upsample2x_blur_plain(x), kernel
+    elif kernel.startswith("upsample2x_blur"):
+        taps = TAPS if kernel == "upsample2x_blur" else TAPS_1234
+        got, want = K.upsample2x_blur(x, taps), K.upsample2x_blur_plain(x, taps)
+        name = "upsample2x_blur"
     else:
         x[..., 33:] = float("nan")
         got = K.blur4_separable_pad11(x, TAPS, 33)
@@ -47,3 +51,41 @@ def test_kernel_matches_twin_on_gpu(cuda_device, kernel, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert K.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,c4,h,w,nb_batch", [(2, 20, 5, 7, 2), (1, 256, 512, 512, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase_conv1_torgb_matches_twin_on_gpu(cuda_device, batch, c4, h, w, nb_batch, dtype):
+    """
+    Kernel E against its twin, at a small ragged shape (C4 not a multiple of
+    16, per-sample noise_bias, partial tiles) and at the 1024px block's 512^2
+    planes with C4 = 256. The twin sums the 4*C4-term conv and the C4-term
+    ToRGB product in fp32 in another order, so the tolerance is relative to the
+    output's scale: fp32 1e-4 (a K-term fp32 sum may be off by K * 6e-8 of its
+    terms' magnitudes, K = 1024); bf16 1e-2 (z rounds to bf16 before the ToRGB
+    product, and a z on a rounding boundary may round the other way; the output
+    itself rounds to bf16, 2^-8 relative).
+    """
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda_device) * scale
+
+    x = randn(batch, c4, h, w, scale=0.5).to(dtype)
+    w4 = randn(c4, c4, 2, 2, scale=c4 ** -0.5)
+    demod = randn(batch, c4).abs() + 0.5
+    noise_bias = randn(nb_batch, c4, h + 1, w + 1, scale=0.1)
+    wrgb = randn(batch, c4, 16, scale=c4 ** -0.5)
+    wrgb[:, :, 12:] = 0.0
+    before = K.LAUNCHES.copy()
+    got = K.phase_conv1_torgb(x, w4, demod, noise_bias, wrgb)
+    want = K.phase_conv1_torgb_plain(x, w4, demod, noise_bias, wrgb)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["phase_conv1_torgb"] == before["phase_conv1_torgb"] + 1
+    assert got.shape == (batch, 16, h + 1, w + 1) and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    assert float(got[:, 12:].abs().max()) == 0.0
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max()), err

@@ -118,6 +118,23 @@ def test_upsample_conv_2d_matches_numpy_and_jax(rng, shape, cout):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("resample_kernel", [(1, 3, 3, 1), (1, 2, 3, 4), (1, 1, 1, 1)])
+def test_separable_fir_orientation_matches_jax(rng, resample_kernel):
+    """A separable 4-tap FIR that is not symmetric is a true convolution in JAX:
+    kernel C's correlation gets the root reversed, and kernel B the polyphase
+    taps in JAX's order. Without that repair the (1, 2, 3, 4) case fails both
+    checks by more than 1."""
+    x = rng.randn(2, 6, 5, 3).astype(np.float32)
+    w = (0.3 * rng.randn(3, 3, 3, 4)).astype(np.float32)
+    got = nhwc(port_up.upsample_conv_2d(nchw(x), oihw(w), resample_kernel))
+    want = np.asarray(jax_up.upsample_conv_2d(jnp.asarray(x), jnp.asarray(w), resample_kernel))
+    assert float(np.abs(got - want).max()) <= 1e-5
+    xc = nchw(x)
+    got = port_up.upsample_2d_nchw(xc, resample_kernel).numpy()
+    want = np.asarray(jax_up.upsample_2d_nchw(jnp.asarray(xc.numpy()), resample_kernel))
+    assert float(np.abs(got - want).max()) <= 1e-5
+
+
 def test_style_and_demod_vectors_match_jax(rng):
     style_w = rng.randn(3, 16).astype(np.float32)
     mod_w = rng.randn(16, 8).astype(np.float32)
@@ -190,9 +207,12 @@ def test_precision_policy_turns_tf32_off_and_restores():
         expect = precision.CONV_PRECISION != "highest"
         assert torch.backends.cudnn.allow_tf32 is expect
         assert torch.backends.cuda.matmul.allow_tf32 is expect
+        torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
-        with precision.exact_fp32_matmul():
+        with precision.exact_fp32():
+            assert torch.backends.cudnn.allow_tf32 is False
             assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is True
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

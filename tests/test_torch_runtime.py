@@ -4,7 +4,7 @@ gance_tpu's, on the CPU: `SynthesisNetwork` and `MultiNetwork` render the same
 frames from the same TF-format pickles (within 1 uint8 step: fp32 sums in
 another order may flip a value on a step boundary), `synthesize_stream`
 groups, pads and orders frames exactly as JAX does (alternating indices,
-partial buckets), the deferred modes raise, a CUDA request without CUDA
+partial buckets), the deferred multi-device modes raise, a CUDA request without CUDA
 raises, and the port imports neither jax nor gance_tpu.
 """
 
@@ -99,6 +99,13 @@ def test_default_device_is_cuda_and_raises_without_it(two_networks):
     (dict(output_side_length=8), "resize_images"),
 ])
 def test_deferred_network_options_raise(two_networks, kwargs, item):
+    """An option that is still deferred raises and names its ROADMAP item; one
+    that has since been ported (resize_images) serves frames instead."""
+    if item == "resize_images":
+        net = port_rt.SynthesisNetwork.from_pkl(two_networks[0], device="cpu", **kwargs)
+        frames = net.images_from_vectors(np.zeros((2, 16), np.float32))
+        assert frames.shape == (2, 8, 8, 3) and frames.dtype == np.uint8
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         port_rt.SynthesisNetwork.from_pkl(two_networks[0], device="cpu", **kwargs)
 

@@ -6,17 +6,22 @@ Runs `SynthesisNetwork.device_images_from_vectors` of gance_tpu_torch on a
 random config-f network (seeded) at one batch size and compute dtype, then:
   * the time per batch by CUDA events, unprofiled;
   * torch.profiler over a few batches: device time summed per kernel name and
-    per family (the port's three kernels, convolutions, elementwise, copies,
-    other), as ms per batch and as a share of the device time;
+    per family (the port's kernels, convolutions, elementwise, copies, other),
+    as ms per batch and as a share of the device time;
   * the device's idle share: 1 - (device time per batch / time per batch).
 
-    python3 tools/profile_torch_synthesis.py [--batch 8] [--dtype float32|bfloat16]
+    python3 tools/profile_torch_synthesis.py [--batch 8] [--dtype float32|bfloat16] \
+        [--phase off|on]
+
+`--phase on` runs the top block in phase space (GANCE_TPU_PHASE1024=on), with
+its Conv1 + epilogue + ToRGB in kernel E.
 
 Needs a CUDA GPU; exits 1 without one.
 """
 
 import argparse
 import collections
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +32,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
-    ("port kernels", ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel")),
+    ("port kernels", ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel", "phase_f32_kernel",
+                      "phase_bf16_kernel")),
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "sm80", "winograd")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "where", "clamp", "floor")),
     ("copy", ("memcpy", "memset", "copy")),
@@ -47,7 +53,10 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     parser.add_argument("--batches", type=int, default=3, help="profiled batches")
+    parser.add_argument("--phase", choices=("off", "on"), default="off",
+                        help="the polyphase top block (GANCE_TPU_PHASE1024)")
     args = parser.parse_args()
+    os.environ["GANCE_TPU_PHASE1024"] = args.phase
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         sys.exit(1)
@@ -88,7 +97,7 @@ def main() -> None:
             per_kernel[event.key] += event.self_device_time_total / 1e3 / args.batches
     device_ms = sum(per_kernel.values())
     print(f"{card}; torch {torch.__version__}; batch {args.batch} {args.dtype} "
-          f"{config.resolution}px config-f")
+          f"{config.resolution}px config-f, phase path {args.phase}")
     print(f"time per batch (CUDA events, unprofiled): {wall_ms:.3f} ms = "
           f"{args.batch / wall_ms * 1e3:.2f} frames/s")
     if device_ms == 0:
