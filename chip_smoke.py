@@ -19,7 +19,10 @@ in order (any failure exits non-zero; no phase's failure is caught):
    output's scale, bf16 at most 1e-2 (z and the output round to bf16). B is
    also checked at the non-symmetric FIR (1, 2, 3, 4). E's bound counts the
    products its folded weights need (36 of the 64 blocks of the dense
-   folded contraction are non-zero); the dense bound is printed beside it;
+   folded contraction are non-zero); the dense bound is printed beside it.
+   D is held at the training path's shapes at batch 4 (every blur of one
+   discriminator forward, C's input gradient at the top block, the FIR
+   (1, 2, 3, 4)) with A-C's limits; its library call is a depthwise conv2d;
 3. drives the main path: a random config-f 1024px network (seeded, with
    non-zero noise strengths, biases and dlatent_avg) is written with
    `save_generator_pickle`, loaded with `SynthesisNetwork.from_pkl`, and serves
@@ -40,16 +43,45 @@ in order (any failure exits non-zero; no phase's failure is caught):
    and bounds the difference; prints the bf16 render's PSNR against fp32, on
    both paths;
 5. prints fp32 and bf16 frames/s at batch 8 with the phase path off and on,
-   timed with CUDA events.
+   timed with CUDA events;
+6. holds the gradients of kernels A-D (their autograd Functions) on the card
+   against the same gradients through the twins on the CPU, first and second
+   order, within 1e-4 of each gradient's scale (a cut gradient gives zeros);
+7. drives training (gance_tpu_torch/parallel/training.py): (a) one step's
+   losses and gradients with R1 and path length, at a 32px config with
+   config-f's widths, on the card and on the port's CPU path with the same
+   draws: losses within 1e-3 relative; gradients norm-wise within 2e-2 for
+   each network and 1e-1 for each leaf (a cut or wrong gradient is off by
+   about 1). Max-abs limits per leaf are below fp32 noise here: one lrelu
+   input within rounding of the kink takes the other slope and moves every
+   upstream gradient (the port's CPU fp32 against float64 differs by 0.4%
+   norm-wise on D and 3.4% of the leaf's max on 4x4/Conv/weight,
+   tools/gradient_conditioning.py); (b) config-f 1024px at full width and
+   depth, random seeded weights and seeded images in [-1, 1], through
+   `run_training`: 5 fp32 steps at batch 4 (step 0 with R1 and PL, step 4
+   with PL only), then 2 bf16 steps resumed from the checkpoint, each with
+   finite losses, its A/B/C/D launches checked against counts derived from
+   the architecture, seconds per step by CUDA events and peak memory; G, D
+   and EMA must have moved; the split of a step between G, D, R1 and PL by
+   CUDA events; (c) the checkpoint written after step 3, loaded, runs step 4
+   again and matches the unbroken run (the D step's losses within 1e-5
+   relative, the G step's within 1e-3, since cuDNN's weight gradients are
+   not deterministic and Adam's first steps amplify that; params within 2.5
+   lr everywhere and 5% of lr on average over every leaf, where a cut
+   gradient would give about lr); (d) the EMA generator, exported with
+   `save_generator_pickle`, is loaded with `SynthesisNetwork.from_pkl` and
+   serves one batch that matches the EMA params rendered directly.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints no
-result.
+The line before the last is the kernels' JSON record (A-E; D's time is per
+discriminator forward at batch 4, its launches are the training run's); the
+last line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
+and prints no result.
 """
 
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -69,6 +101,8 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core rate, dense
 TAPS = (0.25, 0.75, 0.75, 0.25)  # [1,3,3,1] binomial, gain 2 per axis
 TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # root of the non-symmetric FIR (1, 2, 3, 4)
+FIR_1234 = np.outer((1, 2, 3, 4), (1, 2, 3, 4)) / 100.0  # a 4x4 FIR that is not symmetric
+TRAIN_BATCH = 4  # NVlabs config-f's per-GPU minibatch
 RESIZE_SIDE = 512
 PHASE_ENV = "GANCE_TPU_PHASE1024"
 
@@ -77,12 +111,14 @@ REPLACES = {
     "upsample2x_blur": "gance_tpu/ops/pallas/fused_ops.py:137",
     "blur4_separable_pad11": "gance_tpu/ops/pallas/fused_ops.py:304",
     "phase_conv1_torgb": "gance_tpu/ops/pallas/phase_fused.py:125",
+    "stencil_blur4_valid": "gance_tpu/ops/pallas/fused_ops.py:412",
 }
 SOURCES = {
     "fused_bias_noise_lrelu": "gance_tpu_torch/ops/cuda/csrc/fused_bias_noise_lrelu.cu",
     "upsample2x_blur": "gance_tpu_torch/ops/cuda/csrc/upsample2x_blur.cu",
     "blur4_separable_pad11": "gance_tpu_torch/ops/cuda/csrc/blur4_separable.cu",
     "phase_conv1_torgb": "gance_tpu_torch/ops/cuda/csrc/phase_conv1_torgb.cu",
+    "stencil_blur4_valid": "gance_tpu_torch/ops/cuda/csrc/stencil_blur4_valid.cu",
 }
 
 
@@ -159,6 +195,14 @@ def path_shapes(config) -> Dict[str, List[Tuple[tuple, int]]]:
         shapes["upsample2x_blur"].append(((BATCH, config.num_channels, size // 2, size // 2), 1))
         shapes["blur4_separable_pad11"].append(((BATCH, cout, size + 1, size + 1), 1))
     return shapes
+
+
+def discriminator_shapes(config) -> List[Tuple[tuple, int, tuple]]:
+    """Kernel D's (input shape, launches per discriminator forward, pads) at
+    TRAIN_BATCH: each D block blurs its input with pads (2, 2) before the 3x3
+    Conv1_down and (1, 1) before the 1x1 Skip."""
+    return [((TRAIN_BATCH, config.nf(res - 1), 2**res, 2**res), 1, pads)
+            for res in range(config.resolution_log2, 2, -1) for pads in ((2, 2), (1, 1))]
 
 
 def kernel_phase(config, gen: torch.Generator) -> List[dict]:
@@ -288,8 +332,58 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
             "bound_by": bound_by,
             "library_ms": None if name == "fused_bias_noise_lrelu" else totals["library_ms"],
         })
+    records.append(stencil_phase(config, randn))
     torch.cuda.empty_cache()
     return records
+
+
+def stencil_phase(config, randn: Callable) -> dict:
+    """Kernel D at the training path's shapes (batch 4), in fp32 and bf16:
+    every blur of one discriminator forward, C's input gradient at the top
+    block ((4, 64, 1024, 1024) padded (2, 2) -> (4, 64, 1025, 1025), taps the
+    flipped outer product of C's) and the FIR (1, 2, 3, 4), which is not
+    symmetric. D and its twin sum alike: fp32 within 1e-5 of the output's
+    scale, bf16 within 2 ulps. The library call is a depthwise `conv2d`."""
+    from gance_tpu_torch.ops.cuda import fused_ops as K
+
+    binomial = np.outer(TAPS, TAPS) / 4.0
+    top = (TRAIN_BATCH, config.nf(config.resolution_log2 - 1), config.resolution, config.resolution)
+    cases = [(shape, n, pads, binomial, "") for shape, n, pads in discriminator_shapes(config)]
+    cases += [(top, 0, (2, 2), np.outer(TAPS, TAPS)[::-1, ::-1], " (C's input gradient)"),
+              (top, 0, (2, 2), FIR_1234, " FIR (1,2,3,4)")]
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    max_err = 0.0
+    for shape, per_forward, pads, fir, note in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randn(shape, dtype)
+            b, c, h, w = shape
+            p0, p1 = pads
+            kt = torch.tensor(np.ascontiguousarray(fir), dtype=dtype, device="cuda").expand(c, 1, 4, 4)
+            run = lambda: K.stencil_blur4_valid(x, fir, pads)  # noqa: E731
+            plain = lambda: K.stencil_blur4_valid_plain(x, fir, pads)  # noqa: E731
+            library = lambda: F.conv2d(x, kt, padding=p0, groups=c)  # noqa: E731
+            outs = b * c * (h + p0 + p1 - 3) * (w + p0 + p1 - 3)
+            moved, flops = (x.numel() + outs) * x.element_size(), 32 * outs
+            label = f"stencil_blur4_valid {shape} pads {pads} {str(dtype)[6:]}{note}"
+            with torch.no_grad():
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = check_close(label, got, want)
+                if dtype == torch.float32:
+                    check_close(label + " (library call)", library(), want)
+                lib_ms, ms, plain_ms = time_ms(library), time_ms(run), time_ms(plain)
+            bms, by = bound_ms(moved, flops)
+            print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})", flush=True)
+            if dtype == torch.float32 and per_forward:
+                max_err = max(max_err, err)
+                for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
+                                   ("library_ms", lib_ms)):
+                    totals[key] += per_forward * value
+            del x, got, want
+    return {"name": "stencil_blur4_valid", "route": "cuda",
+            "source": SOURCES["stencil_blur4_valid"], "replaces": REPLACES["stencil_blur4_valid"],
+            "launches": 0, "max_abs_err": max_err, "bound_by": "bytes", **totals}
 
 
 def smoke_params(seed: int, config) -> dict:
@@ -351,6 +445,7 @@ def launches_per_forward(label: str, forwards: int, config, phase: bool = False,
         "upsample2x_blur": (blocks - (phase and not resize)) * forwards,
         "blur4_separable_pad11": (blocks - phase) * forwards,
         "phase_conv1_torgb": int(phase) * forwards,
+        "stencil_blur4_valid": 0,
     }
     print(f"launches {label} ({forwards} forwards): {counts}", flush=True)
     require(counts == want, f"{label}: launches {counts} != {want}")
@@ -520,6 +615,301 @@ def fps_phase(net, z: np.ndarray, card: str) -> None:
     set_phase("off")
 
 
+def gradient_phase() -> None:
+    """First- and second-order gradients through the Functions of A-D on the
+    card against the same gradients through the twins on the CPU (the
+    wrappers take the twins for CPU tensors), at (4, 64, 128, 128)."""
+    from gance_tpu_torch.ops.cuda import fused_ops as K
+
+    def case(name: str, device: str):
+        rng = np.random.RandomState(3)
+
+        def t(*shape: int) -> torch.Tensor:
+            return torch.tensor(np.asarray(rng.randn(*shape), np.float32), device=device)
+
+        shape = (TRAIN_BATCH, 64, 128, 128)
+        if name == "fused_bias_noise_lrelu":
+            return K.fused_bias_noise_lrelu, [t(*shape), t(shape[0], 1, 128, 128), t(64), t()]
+        if name == "upsample2x_blur":
+            return (lambda x: K.upsample2x_blur(x, TAPS_1234)), [t(*shape)]
+        if name == "blur4_separable_pad11":
+            return (lambda x: K.blur4_separable_pad11(x, TAPS_1234, 121)), [t(*shape)]
+        return (lambda x: K.stencil_blur4_valid(x, FIR_1234, (2, 1))), [t(*shape)]
+
+    def gradients(name: str, device: str):
+        fn, inputs = case(name, device)
+        inputs = [v.requires_grad_(True) for v in inputs]
+        y = fn(*inputs)
+        gen = torch.Generator().manual_seed(4)
+        w = torch.randn(y.shape, generator=gen).to(device)
+        first = torch.autograd.grad((y.square() * w).sum(), inputs, create_graph=True)
+        u = [torch.randn(v.shape, generator=gen).to(device) for v in inputs]
+        second = torch.autograd.grad(sum((g * v).sum() for g, v in zip(first, u)), inputs,
+                                     allow_unused=True)
+        second = [torch.zeros_like(v) if g is None else g for v, g in zip(inputs, second)]
+        return [g.detach().cpu() for g in first], [g.detach().cpu() for g in second]
+
+    for name in ("fused_bias_noise_lrelu", "upsample2x_blur", "blur4_separable_pad11",
+                 "stencil_blur4_valid"):
+        got, want = gradients(name, "cuda"), gradients(name, "cpu")
+        worst = 0.0
+        for order, label in ((0, "first"), (1, "second")):
+            for i, (g, r) in enumerate(zip(got[order], want[order])):
+                scale = float(r.abs().max())
+                err = float((g - r).abs().max())
+                require(scale > 0 and err <= 1e-4 * scale,
+                        f"{name} {label}-order gradient of input {i}: max abs {err:.3g}, scale {scale:.3g}")
+                worst = max(worst, err / scale)
+        print(f"gradients {name}: first and second order on the card vs the CPU twin, "
+              f"worst {worst:.3g} of scale (limit 1e-4)", flush=True)
+
+
+def train_launches(config, apply_r1: bool, apply_pl: bool) -> Dict[str, int]:
+    """Kernel launches of one train step, derived from the architecture. A G
+    forward runs A 1 + 2 * blocks times and B and C once per block; a D
+    forward runs D twice per block. Backward: A's and B's are plain PyTorch;
+    C's input gradient is one D, D's is one D. The D step makes fakes without
+    a graph, runs D on fakes and reals, back-propagates both (one D each per
+    D launch) and with R1 also takes the reals' gradient (one D each) and
+    differentiates that again (one D each). The G step runs G and D forward
+    and back (one D per C and per D); path length adds a G forward on half
+    the batch, its input gradient (one D per C) and the second order through
+    both (one D per C, twice)."""
+    blocks = config.resolution_log2 - 2
+    a, bc, d_fwd = 1 + 2 * blocks, blocks, 2 * blocks
+    forwards = 2 + apply_pl
+    d_launches = 4 * d_fwd + 2 * d_fwd * apply_r1  # D step
+    d_launches += 2 * d_fwd + bc + 3 * bc * apply_pl  # G step
+    return {"fused_bias_noise_lrelu": a * forwards, "upsample2x_blur": bc * forwards,
+            "blur4_separable_pad11": bc * forwards, "stencil_blur4_valid": d_launches,
+            "phase_conv1_torgb": 0}
+
+
+class SeededImages:
+    """Seeded images in [-1, 1] in host memory, with the dataset interface
+    `run_training` reads: step s's batch is a function of (seed, s)."""
+
+    def __init__(self, seed: int, count: int, resolution: int) -> None:
+        rng = np.random.RandomState(seed)
+        side = resolution // 16  # smooth content: 16x16 blocks of noise, blurred by upsampling
+        coarse = rng.uniform(-1, 1, (count, 3, side, side)).astype(np.float32)
+        fine = F.interpolate(torch.from_numpy(coarse), size=(resolution, resolution),
+                             mode="bilinear", align_corners=False)
+        self.images = fine.permute(0, 2, 3, 1).contiguous().numpy()
+        self.seed = seed
+
+    def batches(self, start: int, total: int, batch: int):
+        for step in range(start, total):
+            idx = np.random.RandomState(self.seed + step).randint(0, len(self.images), batch)
+            yield step, self.images[idx]
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def train_parity_phase() -> None:
+    """One step's losses and gradients, R1 and PL on, at 32px with config-f's
+    widths (512 channels everywhere), on the card and on the CPU path."""
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+    from gance_tpu_torch.parallel import training as T
+
+    config = GeneratorConfig(resolution=32)
+    tc = T.TrainingConfig()
+    draws = T.draw_step(SEED, 0, TRAIN_BATCH, config, tc, "cpu")
+    reals = torch.from_numpy(SeededImages(SEED, 8, config.resolution).images[:TRAIN_BATCH])
+    results = {}
+    for device in ("cuda", "cpu"):
+        start = time.perf_counter()
+        state = T.init_training_state(SEED, config, tc, device=device)
+        d_grads, d_m = T.d_step_gradients(state.g_params, state.d_params, reals.to(device),
+                                          draws.to(device), True, config, tc)
+        g_grads, g_m = T.g_step_gradients(state.g_params, state.d_params, draws.to(device),
+                                          state.pl_mean, True, config, tc)
+        results[device] = ([g.detach().cpu() for g in d_grads],
+                           [g.detach().cpu() for g in g_grads], {**d_m, **g_m})
+        print(f"train parity: one step's gradients on {device} in "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (dc, gc, mc), (dp, gp, mp) = results["cuda"], results["cpu"]
+    for name in ("d_loss", "r1", "g_loss", "pl"):
+        err = abs(float(mc[name]) - float(mp[name])) / abs(float(mp[name]))
+        require(float(mp[name]) != 0 and err <= 1e-3, f"train parity {name}: {float(mc[name])} "
+                f"on the card vs {float(mp[name])} on the CPU")
+    state = T.init_training_state(SEED, config, tc, device="cpu")
+    for net, got, want, params in (("D", dc, dp, state.d_params), ("G", gc, gp, state.g_params)):
+        leaves, worst_leaf, worst_max = [], (0.0, ""), (0.0, "")
+        for (path, _), g, r in zip(T.tree_leaves(params), got, want):
+            if float(r.norm()) == 0.0:  # noise buffers and dlatent_avg get none
+                require(float(g.abs().max()) == 0.0, f"train parity {net} {path}: not zero")
+                continue
+            err = float((g - r).norm() / r.norm())
+            require(err <= 1e-1, f"train parity {net} gradient {path}: {err:.3g} of its norm")
+            worst_leaf = max(worst_leaf, (err, path))
+            worst_max = max(worst_max, (max_rel(g, r), path))
+            leaves.append((g.reshape(-1), r.reshape(-1)))
+        whole_got = torch.cat([g for g, _ in leaves])
+        whole_want = torch.cat([r for _, r in leaves])
+        whole = float((whole_got - whole_want).norm() / whole_want.norm())
+        print(f"train parity {net} gradients, card vs CPU: whole net {whole:.3g} of its norm "
+              f"(limit 2e-2); worst leaf {worst_leaf[0]:.3g} of its norm, {worst_leaf[1]} (limit "
+              f"1e-1); worst max-abs over the leaf's max {worst_max[0]:.3g}, {worst_max[1]} "
+              f"(information)", flush=True)
+        require(whole <= 2e-2, f"train parity {net}: whole-net gradient {whole:.3g} of its norm")
+    print(f"train parity (32px, 512 channels, batch {TRAIN_BATCH}, R1 and PL): losses "
+          f"{ {k: round(float(v), 6) for k, v in mc.items()} } within 1e-3 of the CPU's", flush=True)
+
+
+def training_phase(workdir: Path, card: str) -> Dict[str, int]:
+    """Config-f 1024px training through run_training: 5 fp32 steps and 2 bf16
+    steps at batch 4, the resume check and export-then-serve. Returns the
+    launches of the training run."""
+    from gance_tpu_torch.models.stylegan2 import (
+        GeneratorConfig, generator_apply, images_to_uint8, init_discriminator_params,
+        init_generator_params)
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    config = GeneratorConfig()
+    set_phase("off")
+    torch.cuda.empty_cache()
+    data = SeededImages(SEED, 8, config.resolution)
+    ckpt, ckpt_after_3 = workdir / "train.ckpt", workdir / "train_step4.ckpt"
+    out_net = workdir / "trained.pkl"
+    totals: Dict[str, int] = {}
+    seen: Dict[int, dict] = {}
+    events: Dict[str, torch.cuda.Event] = {}
+
+    def before(step: int) -> None:
+        if step == 4 and state_config[0].compute_dtype == "float32":
+            shutil.copyfile(ckpt, ckpt_after_3)  # written after step 3: the resume check's start
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events["start"] = torch.cuda.Event(enable_timing=True)
+        events["start"].record()
+
+    def after(step: int, state, metrics: Dict[str, torch.Tensor]) -> None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        seconds = events["start"].elapsed_time(end) / 1e3
+        counts = dict(LAUNCHES)
+        tc = state_config[0]
+        apply_r1, apply_pl = step % tc.r1_interval == 0, step % tc.pl_interval == 0
+        want = train_launches(config, apply_r1, apply_pl)
+        values = {k: float(v) for k, v in metrics.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"train step {step} {tc.compute_dtype} (R1 {apply_r1}, PL {apply_pl}): "
+              f"{seconds:.3f} s, peak {peak:.2f} GiB, losses {values}, launches {counts}",
+              flush=True)
+        require(counts == want, f"train step {step}: launches {counts} != {want}")
+        require(all(math.isfinite(v) for v in values.values()), f"train step {step}: {values}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        seen[step] = {"seconds": seconds, "peak": peak, "metrics": values}
+
+    fp32 = T.TrainingConfig()
+    state_config = [fp32]
+    state = T.run_training(data, config, fp32, ckpt, 5, TRAIN_BATCH, checkpoint_every=4,
+                           seed=SEED, device="cuda", before_step=before, after_step=after)
+    g0, d0 = init_generator_params(SEED, config), init_discriminator_params(SEED + 1, config)
+    top = f"{config.resolution}x{config.resolution}"
+
+    def change(tensor: torch.Tensor, initial: np.ndarray) -> float:
+        return float((tensor.detach().cpu() - torch.from_numpy(initial)).abs().max())
+
+    moved = {
+        "G": change(state.g_params["synthesis"][top]["Conv1"]["weight"],
+                    g0["synthesis"][top]["Conv1"]["weight"]),
+        "EMA": change(state.ema_params["synthesis"][top]["Conv1"]["weight"],
+                      g0["synthesis"][top]["Conv1"]["weight"]),
+        "D": change(state.d_params[top]["FromRGB"]["weight"], d0[top]["FromRGB"]["weight"]),
+    }
+    print(f"after 5 fp32 steps, max change of the top block's Conv1 weight (G, EMA) and "
+          f"of D's FromRGB weight: {moved}", flush=True)
+    require(all(v > 0 for v in moved.values()), f"params did not move: {moved}")
+
+    # (c) resume: step 4 again from the checkpoint written after step 3
+    unbroken = {path: leaf.detach().clone() for path, leaf in
+                T.tree_leaves(state.g_params) + [("D/" + p, v) for p, v in T.tree_leaves(state.d_params)]}
+    del state
+    torch.cuda.empty_cache()
+    resumed = T.load_checkpoint(ckpt_after_3, fp32, "cuda")
+    require(resumed.step == 4, f"checkpoint after step 3 holds step {resumed.step}")
+    reals = torch.from_numpy(next(data.batches(4, 5, TRAIN_BATCH))[1]).cuda()
+    draws = T.draw_step(SEED, 4, TRAIN_BATCH, config, fp32, "cuda")
+    resumed, metrics = T.make_train_step(config, fp32)(resumed, reals, draws)
+    again = {k: float(v) for k, v in metrics.items()}
+    first = seen[4]["metrics"]
+    for name, limit in (("d_loss", 1e-5), ("r1", 1e-5), ("g_loss", 1e-3), ("pl", 1e-3)):
+        err = abs(again[name] - first[name]) / max(abs(first[name]), 1e-30)
+        require(err <= limit, f"resume: {name} {again[name]} vs unbroken {first[name]}")
+    lr = fp32.learning_rate
+    worst_max, worst_mean = 0.0, 0.0
+    for path, leaf in T.tree_leaves(resumed.g_params) + [
+            ("D/" + p, v) for p, v in T.tree_leaves(resumed.d_params)]:
+        diff = (leaf.detach() - unbroken[path]).abs()
+        worst_max, worst_mean = max(worst_max, float(diff.max())), max(worst_mean, float(diff.mean()))
+    print(f"resume from the checkpoint after step 3: step 4 losses {again} vs unbroken {first}; "
+          f"params max abs diff {worst_max:.3g} (limit {2.5 * lr}), worst leaf mean "
+          f"{worst_mean:.3g} (limit {0.05 * lr})", flush=True)
+    require(worst_max <= 2.5 * lr and worst_mean <= 0.05 * lr, "resume: params differ")
+    del resumed, unbroken
+    torch.cuda.empty_cache()
+
+    # bf16: 2 more steps, resumed from the checkpoint at step 5; export the EMA
+    bf16 = T.TrainingConfig(compute_dtype="bfloat16")
+    state_config[0] = bf16
+    state = T.run_training(data, config, bf16, ckpt, 7, TRAIN_BATCH, checkpoint_every=100,
+                           output_network=out_net, seed=SEED, device="cuda",
+                           before_step=before, after_step=after)
+    require(state.step == 7 and sorted(seen) == list(range(7)), f"steps run: {sorted(seen)}")
+
+    # split of a step between D, R1, G and PL, by CUDA events (fp32, batch 4)
+    reals = torch.from_numpy(next(data.batches(0, 1, TRAIN_BATCH))[1]).cuda()
+    draws = T.draw_step(SEED, 0, TRAIN_BATCH, config, fp32, "cuda")
+    split = {}
+    for label, fn in (
+        ("D", lambda: T.d_step_gradients(state.g_params, state.d_params, reals, draws, False,
+                                         config, fp32)),
+        ("D+R1", lambda: T.d_step_gradients(state.g_params, state.d_params, reals, draws, True,
+                                            config, fp32)),
+        ("G", lambda: T.g_step_gradients(state.g_params, state.d_params, draws, state.pl_mean,
+                                         False, config, fp32)),
+        ("G+PL", lambda: T.g_step_gradients(state.g_params, state.d_params, draws, state.pl_mean,
+                                            True, config, fp32)),
+    ):
+        split[label] = time_ms(fn, min_total_ms=1.0)
+    print(f"step split fp32 batch {TRAIN_BATCH} (ms, CUDA events): {split}; R1 adds "
+          f"{split['D+R1'] - split['D']:.1f}, PL adds {split['G+PL'] - split['G']:.1f} on {card}",
+          flush=True)
+    fp32_steps = [seen[s]["seconds"] for s in (1, 2, 3)]
+    print(f"train s/step at 1024px batch {TRAIN_BATCH} on {card}: fp32 step 0 (R1+PL) "
+          f"{seen[0]['seconds']:.3f}, steps 1-3 {fp32_steps}, step 4 (PL) {seen[4]['seconds']:.3f}; "
+          f"bf16 steps 5-6 {[round(seen[s]['seconds'], 3) for s in (5, 6)]}; peak "
+          f"{max(v['peak'] for v in seen.values()):.2f} GiB", flush=True)
+
+    # (d) export, load, serve
+    net = SynthesisNetwork.from_pkl(out_net)
+    z = np.random.RandomState(SEED).standard_normal((TRAIN_BATCH, config.latent_size)).astype(np.float32)
+    served = net.images_from_vectors(z)
+    res = config.resolution
+    require(served.shape == (TRAIN_BATCH, res, res, 3) and served.dtype == np.uint8,
+            f"served {served.shape} {served.dtype}")
+    with torch.inference_mode():
+        direct = images_to_uint8(generator_apply(
+            state.ema_params, torch.from_numpy(z).cuda(), config)).cpu().numpy()
+    require_close_frames("served EMA generator vs its params rendered directly", served, direct)
+    require(float(served.std()) > 1.0, "served frames are constant")
+    print("export: the EMA generator written by run_training loads with "
+          "SynthesisNetwork.from_pkl and serves a batch", flush=True)
+    del state, net
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -554,6 +944,13 @@ def main() -> None:
         record["launches"] = launches[record["name"]]
     parity_phase(net, z)
     fps_phase(net, z, smi)
+    del net
+    gradient_phase()
+    train_parity_phase()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+        train_totals = training_phase(Path(tmp), smi)
+    for record in records:
+        record["launches"] += train_totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,12 @@ port's params tree. The files are the same TF-format pickles that
 gance_tpu/models/pickle_loader.py reads and writes, so a pickle written by
 either package loads in the other.
 
-Layout conversions (TF -> port):
+Layout conversions (TF -> port), for the generator and the discriminator:
   * conv weights: (kh, kw, in, out) HWIO -> (out, in, kh, kw) OIHW.
   * 4x4/Const/const (1, C, 4, 4) and noise buffers (1, 1, H, W): kept as TF
     stores them (they are already NCHW).
-  * dense / style-affine weights, biases, dlatent_avg, noise_strength: as-is.
+  * dense / style-affine weights, biases, dlatent_avg, noise_strength: as-is
+    (the discriminator's 4x4/Dense0 too: the port flattens NCHW, as TF does).
 
 The unpickler admits only numpy scalar/array reconstruction, a few builtin
 containers and the captured dnnlib classes; any other global raises.
@@ -156,6 +157,17 @@ def generator_params_from_captured(gs: CapturedNetwork) -> Dict[str, Any]:
         w_dim = params["synthesis"]["4x4"]["Conv"]["mod_weight"].shape[0]
         LOGGER.warning("Pickle lacks dlatent_avg; truncation will be a no-op.")
         params["dlatent_avg"] = np.zeros((w_dim,), np.float32)
+    return params
+
+
+def discriminator_params_from_captured(d: CapturedNetwork) -> Dict[str, Any]:
+    """Convert a captured D network into the port's discriminator params."""
+    params: Dict[str, Any] = {}
+    for name, value in d.variables.items():
+        value = value.astype(np.float32)
+        if name.endswith("/weight") and value.ndim == 4:
+            value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))
+        _nested_set(params, name, value)
     return params
 
 

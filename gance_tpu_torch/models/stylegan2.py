@@ -1,8 +1,8 @@
 """
-StyleGAN2 (config-f family) generator in PyTorch: mapping, synthesis and the
-uint8 output transform.
+StyleGAN2 (config-f family) in PyTorch: the generator (mapping, synthesis and
+the uint8 output transform) and the resnet discriminator.
 
-The counterpart of the generator half of gance_tpu/models/stylegan2.py, with
+The counterpart of gance_tpu/models/stylegan2.py, with
 the same weight semantics (equalized-LR "unit" parameterization,
 modulation/demodulation, binomial resampling FIR, noise injection, skip-
 architecture ToRGB chain) and the same params tree keys
@@ -11,21 +11,24 @@ architecture ToRGB chain) and the same params tree keys
   * activations NCHW, conv weights OIHW (Cout, Cin, kh, kw),
   * 4x4/Const/const (1, C, 4, 4) and noise buffers (1, 1, H, W), both as the
     TF pickle stores them,
-  * dense and style-affine weights (in, out), as in the pickle.
+  * dense and style-affine weights (in, out), as in the pickle; the
+    discriminator's 4x4/Dense0 keeps the pickle's row order, since the port
+    flattens NCHW features as TF does (JAX permutes it to NHWC order).
 
 Functions take a params tree of tensors on one device. The noise-carrying
 layers' epilogue runs through kernel A (`fused_bias_noise_lrelu`), the skip
 chain's upsample through kernel B and the up-conv's blur through kernel C.
 With the polyphase top block (`phase_top_block_mode`, GANCE_TPU_PHASE1024) the
 top block runs in phase space (ops/phase_block.py) and its Conv1, epilogue and
-ToRGB through kernel E.
+ToRGB through kernel E. The discriminator's downsampling blurs run through
+kernel D.
 """
 
 import math
 import os
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +36,7 @@ import torch
 from gance_tpu_torch.ops import phase_block
 from gance_tpu_torch.ops.bias_act import bias_act
 from gance_tpu_torch.ops.cuda.fused_ops import RGB_COLUMNS, fused_bias_noise_lrelu
-from gance_tpu_torch.ops.modulated_conv import dense_layer, modulated_conv2d
+from gance_tpu_torch.ops.modulated_conv import conv2d_layer, dense_layer, modulated_conv2d
 from gance_tpu_torch.ops.precision import apply_conv_precision, exact_fp32
 from gance_tpu_torch.ops.upfirdn2d import upsample_2d_nchw
 
@@ -60,6 +63,9 @@ class GeneratorConfig:
     mapping_fmaps: int = 512
     mapping_lrmul: float = 0.01
     resample_kernel: Tuple[int, ...] = (1, 3, 3, 1)
+    # mbstd settings only matter for the discriminator / training.
+    mbstd_group_size: int = 4
+    mbstd_num_features: int = 1
 
     @property
     def resolution_log2(self) -> int:
@@ -156,6 +162,40 @@ def init_generator_params(seed: int, config: GeneratorConfig) -> Params:
         "synthesis": synthesis,
         "dlatent_avg": np.zeros((config.dlatent_size,), np.float32),
     }
+
+
+def init_discriminator_params(seed: int, config: GeneratorConfig) -> Params:
+    """Random resnet discriminator params (config-f D_stylegan2) as numpy
+    float32: the shapes of gance_tpu's init_discriminator_params in the port's
+    layouts (conv weights OIHW), weights ~ N(0, 1), zero biases."""
+    rng = np.random.RandomState(seed)
+    top = config.resolution_log2
+
+    def conv(kernel: int, cin: int, cout: int, with_bias: bool = True) -> Params:
+        p = {"weight": rng.standard_normal((cout, cin, kernel, kernel)).astype(np.float32)}
+        if with_bias:
+            p["bias"] = np.zeros((cout,), np.float32)
+        return p
+
+    params: Params = {f"{2**top}x{2**top}": {"FromRGB": conv(1, config.num_channels, config.nf(top - 1))}}
+    for res in range(top, 2, -1):
+        block = params.setdefault(f"{2**res}x{2**res}", {})
+        block["Conv0"] = conv(3, config.nf(res - 1), config.nf(res - 1))
+        block["Conv1_down"] = conv(3, config.nf(res - 1), config.nf(res - 2))
+        block["Skip"] = conv(1, config.nf(res - 1), config.nf(res - 2), with_bias=False)
+    params["4x4"] = {
+        "Conv": conv(3, config.nf(1) + config.mbstd_num_features, config.nf(1)),
+        "Dense0": {
+            "weight": rng.standard_normal((config.nf(1) * 16, config.nf(0))).astype(np.float32),
+            "bias": np.zeros((config.nf(0),), np.float32),
+        },
+    }
+    # the final dense is a top-level scope of its own in the TF variable tree
+    params["Output"] = {
+        "weight": rng.standard_normal((config.nf(0), 1)).astype(np.float32),
+        "bias": np.zeros((1,), np.float32),
+    }
+    return params
 
 
 def config_from_params(params: Params) -> GeneratorConfig:
@@ -294,6 +334,7 @@ def synthesis_apply(
     compute_dtype: torch.dtype = torch.float32,
     phase_top_block_mode: Optional[bool] = None,
     uint8_output: bool = False,
+    noise_planes: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """
     G_synthesis (skip architecture): w+ (B, num_style_rows, 512) -> image
@@ -302,7 +343,11 @@ def synthesis_apply(
 
     :param noise_mode: 'const' (the params' noise buffers), 'random' (fresh
         N(0, 1) noise per sample and layer, drawn from `generator`, which must
-        live on the params' device) or 'none'.
+        live on the params' device, or taken from `noise_planes`) or 'none'.
+    :param noise_planes: with noise_mode 'random', the noise of every
+        noise-carrying layer, given instead of drawn: layer i's plane is
+        (B, 1, s, s) with s = 2 ** ((i + 5) // 2) (the trainer draws a step's
+        planes up front, `parallel/training.py::draw_step`).
     :param phase_top_block_mode: True / False force the polyphase top block
         on / off (on only where the top block has fewer than 128 channels and
         the FIR and channel count fit it); None resolves GANCE_TPU_PHASE1024.
@@ -312,8 +357,10 @@ def synthesis_apply(
     """
     if noise_mode not in ("const", "random", "none"):
         raise ValueError(f"bad noise_mode {noise_mode!r}")
-    if noise_mode == "random" and generator is None:
-        raise ValueError("noise_mode='random' requires a torch.Generator")
+    if noise_planes is not None and noise_mode != "random":
+        raise ValueError("noise_planes are the planes of noise_mode='random'")
+    if noise_mode == "random" and generator is None and noise_planes is None:
+        raise ValueError("noise_mode='random' requires a torch.Generator or noise_planes")
     apply_conv_precision()
     synthesis = params["synthesis"]
     noise_buffers = synthesis.get("noise", {})
@@ -322,6 +369,8 @@ def synthesis_apply(
     def layer_noise(layer_idx: int, size: int) -> Optional[torch.Tensor]:
         if noise_mode == "const":
             return noise_buffers.get(f"noise{layer_idx}")
+        if noise_planes is not None:
+            return noise_planes[layer_idx]
         if noise_mode == "random":
             return torch.randn(
                 (batch, 1, size, size), generator=generator, device=dlatents.device
@@ -455,3 +504,65 @@ def images_to_uint8(
     scale = 255.0 / (hi - lo)
     x = images * scale + (0.5 - lo * scale)
     return torch.clamp(torch.floor(x), 0.0, 255.0).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator (resnet architecture), for training
+# ---------------------------------------------------------------------------
+
+
+def minibatch_stddev(
+    x: torch.Tensor, group_size: int = 4, num_new_features: int = 1
+) -> torch.Tensor:
+    """Append the cross-minibatch stddev feature maps to NCHW x (in fp32, as
+    gance_tpu does, then cast back to x's dtype)."""
+    n, c, h, w = x.shape
+    g = min(group_size, n)
+    if n % g != 0:
+        g = 1
+    y = x.reshape(g, n // g, num_new_features, c // num_new_features, h, w).float()
+    y = y - y.mean(dim=0, keepdim=True)
+    y = y.square().mean(dim=0)
+    y = torch.sqrt(y + 1e-8)
+    y = y.mean(dim=(2, 3, 4))  # over the channel split, H and W: (n // g, F)
+    y = y.reshape(n // g, num_new_features, 1, 1).repeat(g, 1, h, w).to(x.dtype)
+    return torch.cat([x, y], dim=1)
+
+
+def discriminator_apply(
+    params: Params,
+    images: torch.Tensor,
+    config: GeneratorConfig,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """
+    D_stylegan2 (resnet): images (B, R, R, 3) NHWC, as synthesis returns them
+    -> fp32 logits (B, 1). Runs NCHW inside; each block's Conv1_down and Skip
+    blur through kernel D.
+    """
+    apply_conv_precision()
+    top = config.resolution_log2
+    # contiguous NCHW: from a permuted NHWC input cuDNN would emit channels-last
+    # activations, which the kernels do not take
+    x = images.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
+    frgb = params[f"{2**top}x{2**top}"]["FromRGB"]
+    x = bias_act(conv2d_layer(x, frgb["weight"]), frgb["bias"], act="lrelu")
+    inv_sqrt2 = 1.0 / math.sqrt(2.0)
+    for res in range(top, 2, -1):
+        block = params[f"{2**res}x{2**res}"]
+        t = x
+        x = bias_act(conv2d_layer(x, block["Conv0"]["weight"]), block["Conv0"]["bias"],
+                     act="lrelu")
+        x = conv2d_layer(x, block["Conv1_down"]["weight"], down=True,
+                         resample_kernel=config.resample_kernel)
+        x = bias_act(x, block["Conv1_down"]["bias"], act="lrelu")
+        t = conv2d_layer(t, block["Skip"]["weight"], down=True,
+                         resample_kernel=config.resample_kernel)
+        x = (x + t) * inv_sqrt2
+    block = params["4x4"]
+    x = minibatch_stddev(x, config.mbstd_group_size, config.mbstd_num_features)
+    x = bias_act(conv2d_layer(x, block["Conv"]["weight"]), block["Conv"]["bias"], act="lrelu")
+    x = x.reshape(x.shape[0], -1)  # NCHW order, the pickle's Dense0 row order
+    x = bias_act(dense_layer(x, block["Dense0"]["weight"]), block["Dense0"]["bias"], act="lrelu")
+    x = bias_act(dense_layer(x, params["Output"]["weight"]), params["Output"]["bias"])
+    return x.float()

@@ -1,5 +1,5 @@
 """
-Build and load the synthesis kernels.
+Build and load the port's kernels.
 
 Each `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into its own
 shared library with a plain C interface, loaded with ctypes. The build runs at
@@ -24,6 +24,7 @@ BUILD_DIR = _HERE / "build"
 
 # source stem -> (C function, its argtypes); restype is int (a cudaError_t)
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
 FUNCTIONS = {
     "fused_bias_noise_lrelu": (
         "gance_fused_bias_noise_lrelu", [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P]
@@ -36,6 +37,9 @@ FUNCTIONS = {
     ),
     "phase_conv1_torgb": (
         "gance_phase_conv1_torgb", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    ),
+    "stencil_blur4_valid": (
+        "gance_stencil_blur4_valid", [_P, _P, _L, _I, _I, _I, _I, _FP, _I, _P]
     ),
 }
 

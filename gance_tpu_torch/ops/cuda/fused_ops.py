@@ -1,30 +1,37 @@
 """
-The four synthesis kernels, each as a wrapper, a plain PyTorch twin and a
-launch count.
+The port's five kernels, each as a wrapper, a plain PyTorch twin and a launch
+count.
 
 A wrapper takes its twin only when the tensor it is given lies on the CPU. For
 a CUDA tensor it launches the hand-written kernel (`csrc/`, built by
 `build.py`) on the current stream or raises; nothing falls back. `LAUNCHES`
-counts kernel launches, one per call that reached a kernel.
+counts kernel launches, one per call that reached a kernel, forward or
+backward.
 
 | wrapper | replaces (in gance_tpu/ops/pallas/) | source (in csrc/) |
 | --- | --- | --- |
 | A fused_bias_noise_lrelu | fused_ops.py (pallas_call :69) | fused_bias_noise_lrelu.cu |
 | B upsample2x_blur | fused_ops.py (pallas_call :152) | upsample2x_blur.cu |
 | C blur4_separable_pad11 | fused_ops.py (pallas_call :333, :350) | blur4_separable.cu |
+| D stencil_blur4_valid | fused_ops.py (pallas_call :447) | stencil_blur4_valid.cu |
 | E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
 
-A, B and C are memory-bound on the H100, E is bound by its operations; each
-source file states its bound and design. Every kernel takes NCHW-contiguous
-fp32 or bf16 activations and sums in fp32.
+The wrappers of A-D go through the `torch.autograd.Function`s of `autograd.py`
+on both devices, so gradients of every order pass through them; E raises
+under grad. A-D are memory-bound on the H100, E is bound by its operations;
+each source file states its bound and design. Every kernel takes
+NCHW-contiguous fp32 or bf16 activations and sums in fp32.
 """
 
+import ctypes
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gance_tpu_torch.ops.cuda import autograd as _autograd
 from gance_tpu_torch.ops.cuda import build
 from gance_tpu_torch.ops.precision import exact_fp32
 
@@ -32,6 +39,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_bias_noise_lrelu": 0,
     "upsample2x_blur": 0,
     "blur4_separable_pad11": 0,
+    "stencil_blur4_valid": 0,
     "phase_conv1_torgb": 0,
 }
 
@@ -109,11 +117,20 @@ def fused_bias_noise_lrelu(
                          f"bias {tuple(bias.shape)}")
     if strength.numel() != 1:
         raise ValueError("strength must hold one value")
+    return _autograd.FusedBiasNoiseLrelu.apply(
+        x, noise.to(torch.float32), bias.to(torch.float32),
+        strength.to(torch.float32).reshape(()),
+    )
+
+
+def _fused_bias_noise_lrelu_run(
+    x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor, strength: torch.Tensor
+) -> torch.Tensor:
+    """A's forward without autograd: the twin on the CPU, else the kernel."""
     if _on_cpu(x):
         return fused_bias_noise_lrelu_plain(x, noise, bias, strength)
-    noise = noise.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    strength = strength.to(torch.float32).reshape(()).contiguous()
+    b, c, h, w = x.shape
+    noise, bias, strength = noise.contiguous(), bias.contiguous(), strength.contiguous()
     _check("fused_bias_noise_lrelu", x, noise, bias, strength)
     out = torch.empty_like(x)
     _launch(
@@ -163,6 +180,11 @@ def upsample2x_blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     taps = _four_taps(taps)
     if x.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
+    return _autograd.Upsample2xBlur.apply(x, taps)
+
+
+def _upsample2x_blur_run(x: torch.Tensor, taps: Tuple[float, ...]) -> torch.Tensor:
+    """B's forward without autograd: the twin on the CPU, else the kernel."""
     if _on_cpu(x):
         return upsample2x_blur_plain(x, taps)
     _check("upsample2x_blur", x)
@@ -212,14 +234,97 @@ def blur4_separable_pad11(
     w_logical = wp if w_logical is None else int(w_logical)
     if not 2 <= w_logical <= wp or h < 2:
         raise ValueError(f"bad w_logical {w_logical} for shape {tuple(x.shape)}")
+    return _autograd.Blur4SeparablePad11.apply(x, taps, w_logical)
+
+
+def _blur4_separable_pad11_run(
+    x: torch.Tensor, taps: Tuple[float, ...], w_logical: int
+) -> torch.Tensor:
+    """C's forward without autograd: the twin on the CPU, else the kernel."""
     if _on_cpu(x):
         return blur4_separable_pad11_plain(x, taps, w_logical)
+    b, c, h, wp = x.shape
     _check("blur4_separable_pad11", x)
     out = torch.empty((b, c, h - 1, w_logical - 1), dtype=x.dtype, device=x.device)
     _launch(
         "blur4_separable_pad11", "blur4_separable",
         x.data_ptr(), out.data_ptr(), b * c, h, wp, w_logical,
         *taps, _DTYPE_CODES[x.dtype],
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# D. general 4x4 FIR as a correlation over an implicitly padded input
+# ---------------------------------------------------------------------------
+
+
+def _sixteen_taps(taps: Sequence) -> Tuple[float, ...]:
+    """A 4x4 FIR (nested or flat, row-major) as 16 fp32-rounded Python floats."""
+    flat = np.asarray(taps, dtype=np.float32).reshape(-1)
+    if flat.size != 16:
+        raise ValueError(f"expected a 4x4 FIR, got {np.shape(taps)}")
+    return tuple(float(v) for v in flat)
+
+
+def _pads(pads: Sequence[int]) -> Tuple[int, int]:
+    p0, p1 = (int(p) for p in pads)
+    if not (0 <= p0 <= 3 and 0 <= p1 <= 3):
+        raise ValueError(f"pads {tuple(pads)} must each lie in [0, 3]")
+    return p0, p1
+
+
+def stencil_blur4_valid_plain(
+    x: torch.Tensor, taps: Sequence, pads: Sequence[int] = (0, 0)
+) -> torch.Tensor:
+    """The twin of kernel D: pad, then the 16 products summed in fp32 in
+    row-major tap order, as the kernel sums them; output in x's dtype."""
+    k = _sixteen_taps(taps)
+    p0, p1 = _pads(pads)
+    xp = F.pad(x.float(), (p0, p1, p0, p1))
+    ho, wo = xp.shape[2] - 3, xp.shape[3] - 3
+    acc = k[0] * xp[:, :, :ho, :wo]
+    for t in range(1, 16):
+        a, b = divmod(t, 4)
+        acc = acc + k[t] * xp[:, :, a:a + ho, b:b + wo]
+    return acc.to(x.dtype)
+
+
+def stencil_blur4_valid(
+    x: torch.Tensor, taps: Sequence, pads: Sequence[int] = (0, 0)
+) -> torch.Tensor:
+    """
+    out[i][j] = sum_a sum_b taps[a][b] * xp[i+a][j+b]: a general 4x4 FIR
+    applied as a correlation, as in the Pallas kernel (for upfirdn2d's true
+    convolution pass the FIR flipped), over x (B, C, H, W) zero-padded by
+    pads[0] before and pads[1] after on both axes, each pad in [0, 3]. The
+    pad is implicit: the padded copy is never made. Returns
+    (B, C, H+p0+p1-3, W+p0+p1-3) in x's dtype. pads (0, 0) is the Pallas
+    function's contract on an input the caller padded.
+    """
+    k = _sixteen_taps(taps)
+    p0, p1 = _pads(pads)
+    if x.ndim != 4:
+        raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
+    if min(x.shape[2], x.shape[3]) + p0 + p1 < 4:
+        raise ValueError(f"input {tuple(x.shape)} with pads {(p0, p1)} is smaller than the FIR")
+    return _autograd.StencilBlur4Valid.apply(x, k, (p0, p1))
+
+
+def _stencil_blur4_valid_run(
+    x: torch.Tensor, taps: Tuple[float, ...], pads: Tuple[int, int]
+) -> torch.Tensor:
+    """D's forward without autograd: the twin on the CPU, else the kernel."""
+    if _on_cpu(x):
+        return stencil_blur4_valid_plain(x, taps, pads)
+    _check("stencil_blur4_valid", x)
+    b, c, h, w = x.shape
+    p0, p1 = pads
+    out = torch.empty((b, c, h + p0 + p1 - 3, w + p0 + p1 - 3), dtype=x.dtype, device=x.device)
+    _launch(
+        "stencil_blur4_valid", "stencil_blur4_valid",
+        x.data_ptr(), out.data_ptr(), b * c, h, w, p0, p1, (ctypes.c_float * 16)(*taps),
+        _DTYPE_CODES[x.dtype],
     )
     return out
 
@@ -284,6 +389,13 @@ def phase_conv1_torgb(
         )
     if c4 % 4 or c4 > MAX_PHASE_CHANNELS:
         raise ValueError(f"C4={c4} must be a multiple of 4 and at most {MAX_PHASE_CHANNELS}")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w4, demod, noise_bias, wrgb)
+    ):
+        raise NotImplementedError(
+            "phase_conv1_torgb has no backward yet (ROADMAP.md Speed work: kernel E's "
+            "backward); run the top block on the standard path under autograd"
+        )
     if _on_cpu(x):
         return phase_conv1_torgb_plain(x, w4, demod, noise_bias, wrgb)
     dtype = x.dtype

@@ -20,7 +20,11 @@ import torch
 import torch.nn.functional as F
 
 from gance_tpu_torch.ops.precision import exact_fp32
-from gance_tpu_torch.ops.upfirdn2d import DEFAULT_RESAMPLE_KERNEL, upsample_conv_2d
+from gance_tpu_torch.ops.upfirdn2d import (
+    DEFAULT_RESAMPLE_KERNEL,
+    conv_downsample_2d,
+    upsample_conv_2d,
+)
 
 
 def runtime_weight_coef(fan_in: int, gain: float = 1.0, lrmul: float = 1.0) -> float:
@@ -56,6 +60,7 @@ def modulated_conv2d(
     demodulate: bool = True,
     resample_kernel: Tuple[int, ...] = DEFAULT_RESAMPLE_KERNEL,
     compute_dtype: Optional[torch.dtype] = None,
+    down: bool = False,
 ) -> torch.Tensor:
     """
     :param x: activations (B, Cin, H, W).
@@ -64,9 +69,12 @@ def modulated_conv2d(
     :param mod_weight: style affine weight (W_DIM, Cin), unit parameterization.
     :param mod_bias: style affine bias (Cin,); +1 applied per StyleGAN2.
     :param up: 2x upsample fused with the conv (transpose conv + FIR).
+    :param down: 2x downsample fused with the conv (FIR + strided conv).
     :param demodulate: apply weight demodulation (off for ToRGB).
     :return: (B, Cout, H', W') in `compute_dtype` (x's dtype by default).
     """
+    if up and down:
+        raise ValueError("up and down are mutually exclusive")
     dtype = compute_dtype or x.dtype
     cout, cin, kh, kw = weight.shape
     styles = style_vector(style_w, mod_weight, mod_bias)  # (B, Cin)
@@ -78,6 +86,8 @@ def modulated_conv2d(
     x = x.to(dtype)
     if up:
         y = upsample_conv_2d(x, w, kernel=resample_kernel)
+    elif down:
+        y = conv_downsample_2d(x, w, kernel=resample_kernel)
     else:
         y = F.conv2d(x, w, padding=kh // 2)  # SAME for the odd kernels used here
     if demod is not None:
@@ -102,3 +112,25 @@ def dense_layer(
     if bias is not None:
         y = y + bias.to(y.dtype) * lrmul
     return y
+
+
+def conv2d_layer(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    up: bool = False,
+    down: bool = False,
+    gain: float = 1.0,
+    lrmul: float = 1.0,
+    resample_kernel: Tuple[int, ...] = DEFAULT_RESAMPLE_KERNEL,
+) -> torch.Tensor:
+    """Plain equalized-LR conv (the discriminator's layers and FromRGB): x
+    (B, Cin, H, W), weight OIHW in the unit parameterization, in x's dtype."""
+    if up and down:
+        raise ValueError("up and down are mutually exclusive")
+    _, cin, kh, kw = weight.shape
+    w = weight.to(x.dtype) * runtime_weight_coef(kh * kw * cin, gain=gain, lrmul=lrmul)
+    if up:
+        return upsample_conv_2d(x, w, kernel=resample_kernel)
+    if down:
+        return conv_downsample_2d(x, w, kernel=resample_kernel)
+    return F.conv2d(x, w, padding=kh // 2)  # SAME for the odd kernels used here

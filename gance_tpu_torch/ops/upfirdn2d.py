@@ -13,7 +13,9 @@ The synthesis path's two separable 4-tap cases go through hand-written
 kernels, as JAX sends them to its polyphase and separable forms: the 2x
 skip-chain upsample (`upsample_2d`, kernel B, with JAX's polyphase taps) and
 the blur after the transpose conv of `upsample_conv_2d` (kernel C, a true
-convolution like JAX's `upfirdn2d`).
+convolution like JAX's `upfirdn2d`). The discriminator's blur before a
+strided conv (`conv_downsample_2d`) and `downsample_2d` run any 4x4 FIR with
+pads in [0, 3] through kernel D, handed the FIR flipped (D correlates).
 """
 
 from typing import Sequence, Tuple, Union
@@ -22,7 +24,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gance_tpu_torch.ops.cuda.fused_ops import blur4_separable_pad11, upsample2x_blur
+from gance_tpu_torch.ops.cuda.fused_ops import (
+    blur4_separable_pad11,
+    stencil_blur4_valid,
+    upsample2x_blur,
+)
 
 KernelLike = Union[Sequence[float], np.ndarray]
 
@@ -163,3 +169,44 @@ def upsample_conv_2d(
     if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
         return blur4_separable_pad11(y, tuple(float(v) for v in _separable_root(k)[::-1]))
     return upfirdn2d(y, k, pad0=pad0, pad1=pad1)
+
+
+def _blur(x: torch.Tensor, k: np.ndarray, pad0: int, pad1: int) -> torch.Tensor:
+    """upfirdn2d(x, k, pad0=pad0, pad1=pad1) with up = down = 1: kernel D for a
+    4x4 FIR with pads in [0, 3] (flipped, since D correlates and upfirdn2d
+    convolves), the generic form otherwise."""
+    if k.shape == (4, 4) and 0 <= pad0 <= 3 and 0 <= pad1 <= 3:
+        return stencil_blur4_valid(x, k[::-1, ::-1], (pad0, pad1))
+    return upfirdn2d(x, k, pad0=pad0, pad1=pad1)
+
+
+def downsample_2d(
+    x: torch.Tensor,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """FIR downsampling of NCHW x, NVlabs `downsample_2d` pad arithmetic: the
+    blur, then every `factor`-th sample."""
+    k = setup_filter_kernel(kernel, gain)
+    p = k.shape[0] - factor
+    return _blur(x, k, (p + 1) // 2, p // 2)[:, :, ::factor, ::factor]
+
+
+def conv_downsample_2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """
+    FIR blur followed by a strided VALID convolution: the discriminator's
+    `Conv1_down` (3x3, blur pad (2, 2)) and `Skip` (1x1, blur pad (1, 1))
+    layers. x is (B, Cin, H, W), w is OIHW.
+    """
+    ck = w.shape[2]
+    k = setup_filter_kernel(kernel, gain)
+    p = (k.shape[0] - factor) + (ck - 1)
+    x = _blur(x, k, (p + 1) // 2, p // 2)
+    return F.conv2d(x, w, stride=factor)

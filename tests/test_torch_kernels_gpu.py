@@ -10,10 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
 
 TAPS = (0.25, 0.75, 0.75, 0.25)
 TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # the root of the non-symmetric FIR (1, 2, 3, 4)
+FIR_1234 = np.outer((1, 2, 3, 4), (1, 2, 3, 4)) / 100.0  # a 4x4 FIR that is not symmetric
 
 
 @pytest.fixture()
@@ -89,3 +92,72 @@ def test_phase_conv1_torgb_matches_twin_on_gpu(cuda_device, batch, c4, h, w, nb_
     rel = 1e-4 if dtype == torch.float32 else 1e-2
     err = float((got.float() - want.float()).abs().max())
     assert err <= rel * float(want.float().abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pads", [(0, 0), (2, 2), (1, 1), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_blur4_valid_matches_twin_on_gpu(cuda_device, pads, dtype):
+    """Kernel D and its twin sum the 16 products in one order: exact. The
+    shape has partial tiles in both axes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((2, 5, 70, 131), generator=gen, device=cuda_device).to(dtype)
+    k = FIR_1234 + np.random.RandomState(0).randn(4, 4) * 0.01
+    before = K.LAUNCHES["stencil_blur4_valid"]
+    got = K.stencil_blur4_valid(x, k, pads)
+    want = K.stencil_blur4_valid_plain(x, k, pads)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 5, 67 + sum(pads), 128 + sum(pads)) and got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert K.LAUNCHES["stencil_blur4_valid"] == before + 1
+
+
+def _grad_case(name, device):
+    rng = np.random.RandomState(3)
+
+    def t(*shape):
+        return torch.tensor(np.asarray(rng.randn(*shape), np.float32), device=device)
+
+    if name == "A":
+        return K.fused_bias_noise_lrelu, [t(2, 8, 33, 40), t(2, 1, 33, 40), t(8), t()]
+    if name == "B":
+        return lambda x: K.upsample2x_blur(x, TAPS_1234), [t(2, 8, 33, 40)]
+    if name == "C":
+        return lambda x: K.blur4_separable_pad11(x, TAPS_1234, 33), [t(2, 8, 33, 40)]
+    return lambda x: K.stencil_blur4_valid(x, FIR_1234, (2, 1)), [t(2, 8, 33, 40)]
+
+
+def gradients(name, device):
+    """First order d sum(f(x)^2 w) / d inputs and second order d sum(first * u)
+    / d inputs, through the Function on `device`."""
+    fn, inputs = _grad_case(name, device)
+    inputs = [v.requires_grad_(True) for v in inputs]
+    y = fn(*inputs)
+    gen = torch.Generator().manual_seed(4)
+    w = torch.randn(y.shape, generator=gen).to(device)
+    first = torch.autograd.grad((y.float().square() * w).sum(), inputs, create_graph=True)
+    u = [torch.randn(v.shape, generator=gen).to(device) for v in inputs]
+    second = torch.autograd.grad(sum((g * v).sum() for g, v in zip(first, u)), inputs,
+                                 allow_unused=True)
+    second = [torch.zeros_like(v) if g is None else g for v, g in zip(inputs, second)]
+    return [g.detach().cpu() for g in first], [g.detach().cpu() for g in second]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["A", "B", "C", "D"])
+def test_function_gradients_on_gpu_match_cpu(cuda_device, name):
+    """First- and second-order gradients through the Function on the card
+    against the same gradients through the twin on the CPU, within 1e-4 of
+    each gradient's scale; a cut gradient would give zeros. C's and D's
+    backward launch kernel D."""
+    before = K.LAUNCHES["stencil_blur4_valid"]
+    got = gradients(name, cuda_device)
+    torch.cuda.synchronize()
+    want = gradients(name, torch.device("cpu"))
+    for order in (0, 1):
+        for g, r in zip(got[order], want[order]):
+            scale = float(r.abs().max())
+            assert float((g - r).abs().max()) <= 1e-4 * max(scale, 1e-6)
+    assert all(float(g.abs().max()) > 0 for g in got[0])
+    if name in ("C", "D"):
+        assert K.LAUNCHES["stencil_blur4_valid"] > before

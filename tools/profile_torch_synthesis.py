@@ -32,8 +32,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
-    ("port kernels", ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel", "phase_f32_kernel",
-                      "phase_bf16_kernel")),
+    ("port kernels", ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel", "stencil_kernel",
+                      "phase_f32_kernel", "phase_bf16_kernel")),
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "sm80", "winograd")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "where", "clamp", "floor")),
     ("copy", ("memcpy", "memset", "copy")),
