@@ -14,12 +14,14 @@ in order (any failure exits non-zero; no phase's failure is caught):
    the kernel, the twin, one PyTorch library call that computes the same
    function where there is one, and the least time the card could take
    (bound). A, B and C round like their twins: fp32 max abs error at most 1e-5
-   of the output's scale, bf16 at most 2 bf16 ulps. E sums 1024 conv terms and
-   256 ToRGB terms in another order than its twin: fp32 at most 1e-4 of the
-   output's scale, bf16 at most 1e-2 (z and the output round to bf16). B is
-   also checked at the non-symmetric FIR (1, 2, 3, 4). E's bound counts the
-   products its folded weights need (36 of the 64 blocks of the dense
-   folded contraction are non-zero); the dense bound is printed beside it.
+   of the output's scale, bf16 at most 2 bf16 ulps. E takes the nine taps of
+   its folded Conv1 weight (576 conv terms per output) and 256 ToRGB terms,
+   its twin the dense fold (1024 terms), summed in another order: fp32 at
+   most 1e-4 of the output's scale, bf16 at most 1e-2 (z and the output
+   round to bf16). B is also checked at the non-symmetric FIR (1, 2, 3, 4).
+   E's bound counts the products its folded weights need (36 of the 64
+   blocks of the dense folded contraction are non-zero); the dense bound is
+   printed beside it.
    D is held at the training path's shapes at batch 4 (every blur of one
    discriminator forward, C's input gradient at the top block, the FIR
    (1, 2, 3, 4)) with A-C's limits; its library call is a depthwise conv2d;

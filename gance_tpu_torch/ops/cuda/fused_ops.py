@@ -334,6 +334,49 @@ def _stencil_blur4_valid_run(
 # ---------------------------------------------------------------------------
 
 
+def fold_conv1_weights(v: torch.Tensor) -> torch.Tensor:
+    """
+    Fold a 3x3 SAME conv on the fine grid into a 2x2 conv on the phase planes:
+    OIHW (cout, cin, 3, 3) -> (4*cout, 4*cin, 2, 2). Output sigma=0 planes hold
+    fine rows 2m, sigma=1 planes fine rows 2m-1; with padding 1 the output is
+    (H/2+1) x (W/2+1).
+
+    Per axis, output phase sigma at position m (fine 2m - sigma) takes tap d
+    from fine 2m - sigma + d - 1 = 2 (m + kh - 1) + delta: input phase delta
+    at kernel row kh, where 2 kh + delta = d + 1 - sigma. So on the 4 x 4 grid
+    of (2 kh + delta_h, 2 kw + delta_w), phase sigma's blocks are v shifted by
+    1 - sigma and zero elsewhere: each block is one tap or zero (28 of 64).
+
+    :param v: OIHW (cout, cin, 3, 3), already runtime-scaled.
+    """
+    cout, cin, kh, kw = v.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError("phase conv1 fold requires a 3x3 conv weight")
+    grids = torch.stack([F.pad(v, (1 - sig_w, sig_w, 1 - sig_h, sig_h))
+                         for sig_h in range(2) for sig_w in range(2)])
+    grids = grids.reshape(4, cout, cin, 2, 2, 2, 2)  # (out_ph, o, c, kh, delta_h, kw, delta_w)
+    return grids.permute(0, 1, 4, 6, 2, 3, 5).reshape(4 * cout, 4 * cin, 2, 2)
+
+
+def unfold_conv1_weights(w4: torch.Tensor) -> torch.Tensor:
+    """The nine taps of a Conv1 fold, (4*cout, 4*cin, 2, 2) -> OIHW (cout, cin,
+    3, 3): exact copies of output phase 0's nine non-zero blocks, which sit at
+    2 kh + delta = d + 1 on each axis. For a w4 that is not a fold,
+    `fold_conv1_weights` of the result differs from w4."""
+    cout, cin = w4.shape[0] // 4, w4.shape[1] // 4
+    grid = w4[:cout].reshape(cout, 2, 2, cin, 2, 2).permute(0, 3, 4, 1, 5, 2)
+    return grid.reshape(cout, cin, 4, 4)[:, :, 1:, 1:]  # (o, c, kh, delta_h, kw, delta_w)
+
+
+def _phase_epilogue_torgb(acc: torch.Tensor, demod: torch.Tensor, noise_bias: torch.Tensor,
+                          wrgb: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """E's epilogue on fp32 sums acc (B, 4C, H+1, W+1): z = lrelu(acc * demod +
+    noise_bias) rounded to `dtype`, then the ToRGB product in fp32."""
+    z = acc * demod.float()[:, :, None, None] + noise_bias.to(dtype).float()
+    z = torch.maximum(z, z * 0.2).to(dtype).float()
+    return torch.einsum("bchw,bck->bkhw", z, wrgb.to(dtype).float()).to(dtype)
+
+
 def phase_conv1_torgb_plain(
     x: torch.Tensor,
     w4: torch.Tensor,
@@ -345,14 +388,48 @@ def phase_conv1_torgb_plain(
     The twin of kernel E, in the kernel's arithmetic: the operands are taken in
     x's dtype, the conv and the ToRGB product sum in fp32 (never TF32), z is
     rounded to x's dtype before the ToRGB product, and the output is in x's
-    dtype.
+    dtype. The conv is the dense folded one, for any w4.
     """
     dtype = x.dtype
     with exact_fp32():
         acc = F.conv2d(x.float(), w4.to(dtype).float(), padding=1)
-        z = acc * demod.float()[:, :, None, None] + noise_bias.to(dtype).float()
-        z = torch.maximum(z, z * 0.2).to(dtype).float()
-        return torch.einsum("bchw,bck->bkhw", z, wrgb.to(dtype).float()).to(dtype)
+        return _phase_epilogue_torgb(acc, demod, noise_bias, wrgb, dtype)
+
+
+def phase_conv1_torgb_taps_plain(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    demod: torch.Tensor,
+    noise_bias: torch.Tensor,
+    wrgb: torch.Tensor,
+) -> torch.Tensor:
+    """
+    Kernel E's index map in plain PyTorch: the nine taps v (C, C, 3, 3) of the
+    fold, applied as the kernel applies them. The phase planes interleave to
+    the fine grid, padded by 2: halo[i][j] = x[(i%2)*2 + j%2][i//2 - 1][j//2 - 1].
+    Fine pixel a of the 3x3 conv over it reads halo[a + dh], and output phase
+    sigma at position m is fine pixel a = 2m + 1 - sigma. Equals the twin on
+    `fold_conv1_weights(v)` up to the order of the fp32 sums.
+    """
+    b, c4, h, w = x.shape
+    c = c4 // 4
+    dtype = x.dtype
+    fine = x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2).reshape(b, c, 2 * h, 2 * w)
+    with exact_fp32():
+        acc_fine = F.conv2d(F.pad(fine.float(), (2, 2, 2, 2)), v.to(dtype).float())
+        acc = torch.cat([acc_fine[:, :, 1 - sig_h::2, 1 - sig_w::2]
+                         for sig_h in range(2) for sig_w in range(2)], dim=1)
+        return _phase_epilogue_torgb(acc, demod, noise_bias, wrgb, dtype)
+
+
+# Kernel E's padding of the taps (csrc/phase_conv1_torgb.cu): input channels
+# to whole chunks, output channels to whole slabs.
+_PHASE_CHUNK = {torch.float32: 8, torch.bfloat16: 16}
+_PHASE_SLAB = 64
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def phase_conv1_torgb(
@@ -365,6 +442,17 @@ def phase_conv1_torgb(
     """
     rgb[b] = lrelu(conv2d(x[b], w4, pad 1) * demod[b] + noise_bias, 0.2) @ wrgb[b]
     in one pass; the activated (B, C4, H+1, W+1) tensor is never stored.
+
+    w4 must be a Conv1 fold, `fold_conv1_weights(v)` of a 3x3 weight v: the
+    kernel takes only v's nine taps (`unfold_conv1_weights`), shared by the
+    four output phases, and never reads the 28 zero blocks of 64. A w4 that
+    is not a fold raises ValueError on the CPU; on the card a device-side
+    assert (no host sync) stops the stream. The CPU runs the dense twin.
+    The kernel reads NCHW x itself in both dtypes (bf16 transposes its halo
+    to pixel-major on the way into shared memory); the wrapper only lays the
+    taps out as (C, 9, C), padded to whole chunks and slabs. Bound: the
+    9C-term conv and the ToRGB product, 6.2e11 flops at 1024px batch 8
+    (csrc/phase_conv1_torgb.cu).
 
     :param x: (B, C4, H, W) phase planes, activated and scaled by Conv1's style.
     :param w4: (C4, C4, 2, 2) OIHW, Conv1 folded into phase space.
@@ -396,18 +484,27 @@ def phase_conv1_torgb(
             "phase_conv1_torgb has no backward yet (ROADMAP.md Speed work: kernel E's "
             "backward); run the top block on the standard path under autograd"
         )
-    if _on_cpu(x):
+    on_cpu = _on_cpu(x)
+    v = unfold_conv1_weights(w4)
+    if on_cpu:
+        if not torch.equal(fold_conv1_weights(v), w4):
+            raise ValueError("phase_conv1_torgb: w4 is not a Conv1 fold "
+                             "(fold_conv1_weights of a 3x3 weight)")
         return phase_conv1_torgb_plain(x, w4, demod, noise_bias, wrgb)
     dtype = x.dtype
-    wt = w4.to(dtype).permute(1, 2, 3, 0).contiguous()  # [in][kh][kw][out]
     demod = demod.to(torch.float32).contiguous()
     noise_bias = noise_bias.to(dtype).contiguous()
     wrgb = wrgb.to(dtype).contiguous()
-    _check("phase_conv1_torgb", x, wt, demod, noise_bias, wrgb)
+    _check("phase_conv1_torgb", x, w4.contiguous(), demod, noise_bias, wrgb)
+    c = c4 // 4
+    cin_pad, cout_pad = _round_up(c, _PHASE_CHUNK[dtype]), _round_up(c, _PHASE_SLAB)
+    wv = v.to(dtype).permute(1, 2, 3, 0).reshape(c, 9, c)  # [in][dh * 3 + dw][out]
+    wv = F.pad(wv, (0, cout_pad - c, 0, 0, 0, cin_pad - c)).contiguous()
+    torch._assert_async((fold_conv1_weights(v) == w4).all())  # w4 is a fold; no host sync
     out = torch.empty((b, RGB_COLUMNS, h + 1, w + 1), dtype=dtype, device=x.device)
     _launch(
         "phase_conv1_torgb", "phase_conv1_torgb",
-        x.data_ptr(), wt.data_ptr(), demod.data_ptr(), noise_bias.data_ptr(),
+        x.data_ptr(), wv.data_ptr(), demod.data_ptr(), noise_bias.data_ptr(),
         wrgb.data_ptr(), out.data_ptr(), b, c4, h, w, int(noise_bias.shape[0] != 1),
         _DTYPE_CODES[dtype],
     )

@@ -32,7 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from gance_tpu_torch.ops.bias_act import bias_act
-from gance_tpu_torch.ops.cuda.fused_ops import RGB_COLUMNS, phase_conv1_torgb
+from gance_tpu_torch.ops.cuda.fused_ops import (
+    RGB_COLUMNS,
+    fold_conv1_weights,
+    phase_conv1_torgb,
+)
 from gance_tpu_torch.ops.modulated_conv import demod_vector, runtime_weight_coef, style_vector
 from gance_tpu_torch.ops.upfirdn2d import (
     _separable_root,
@@ -95,38 +99,6 @@ def fold_upconv_blur_weights(w: torch.Tensor, k1d: np.ndarray) -> torch.Tensor:
     # phase (dh, dw) kernel = G2[(1-dh)::2, (1-dw)::2]
     phases = [g2[:, :, 1 - ph_h::2, 1 - ph_w::2] for ph_h in range(2) for ph_w in range(2)]
     return torch.cat(phases, dim=0)
-
-
-# 1-D tap map for the Conv1 fold: _CONV1_TAPS[sigma] = [(kh, delta, d), ...]
-# with kh in {0,1} the folded kernel row (input coarse row m + kh - 1), delta
-# the input phase, d the original 3-tap index.
-_CONV1_TAPS = {
-    0: [(0, 1, 0), (1, 0, 1), (1, 1, 2)],  # z[2m]   = v0*y[2m-1] + v1*y[2m] + v2*y[2m+1]
-    1: [(0, 0, 0), (0, 1, 1), (1, 0, 2)],  # z[2m-1] = v0*y[2m-2] + v1*y[2m-1] + v2*y[2m]
-}
-
-
-def fold_conv1_weights(v: torch.Tensor) -> torch.Tensor:
-    """
-    Fold a 3x3 SAME conv on the fine grid into a 2x2 conv on the phase planes:
-    OIHW (cout, cin, 3, 3) -> (4*cout, 4*cin, 2, 2). Output sigma=0 planes hold
-    fine rows 2m, sigma=1 planes fine rows 2m-1; with padding 1 the output is
-    (H/2+1) x (W/2+1).
-
-    :param v: OIHW (cout, cin, 3, 3), already runtime-scaled.
-    """
-    cout, cin, kh, kw = v.shape
-    if (kh, kw) != (3, 3):
-        raise ValueError("phase conv1 fold requires a 3x3 conv weight")
-    folded = v.new_zeros((4 * cout, 4 * cin, 2, 2))
-    for sig_h in range(2):
-        for kh_i, delta_h, dh in _CONV1_TAPS[sig_h]:
-            for sig_w in range(2):
-                for kw_i, delta_w, dw in _CONV1_TAPS[sig_w]:
-                    in_ph, out_ph = delta_h * 2 + delta_w, sig_h * 2 + sig_w
-                    folded[out_ph * cout:(out_ph + 1) * cout,
-                           in_ph * cin:(in_ph + 1) * cin, kh_i, kw_i] += v[:, :, dh, dw]
-    return folded
 
 
 def _check_fine(fine: torch.Tensor) -> None:

@@ -57,32 +57,41 @@ def test_kernel_matches_twin_on_gpu(cuda_device, kernel, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,c4,h,w,nb_batch", [(2, 20, 5, 7, 2), (1, 256, 512, 512, 1)])
+@pytest.mark.parametrize("batch,c4,h,w,nb_batch",
+                         [(2, 20, 5, 7, 2), (1, 256, 512, 512, 1), (2, 512, 33, 40, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_phase_conv1_torgb_matches_twin_on_gpu(cuda_device, batch, c4, h, w, nb_batch, dtype):
     """
-    Kernel E against its twin, at a small ragged shape (C4 not a multiple of
-    16, per-sample noise_bias, partial tiles) and at the 1024px block's 512^2
-    planes with C4 = 256. The twin sums the 4*C4-term conv and the C4-term
-    ToRGB product in fp32 in another order, so the tolerance is relative to the
-    output's scale: fp32 1e-4 (a K-term fp32 sum may be off by K * 6e-8 of its
-    terms' magnitudes, K = 1024); bf16 1e-2 (z rounds to bf16 before the ToRGB
-    product, and a z on a rounding boundary may round the other way; the output
-    itself rounds to bf16, 2^-8 relative).
+    Kernel E against its twin on a Conv1 fold, at a small ragged shape (C = 5,
+    per-sample noise_bias, partial tiles), at the 1024px block's 512^2 planes
+    with C4 = 256, and at the contract's largest C4 = 512 (two slabs of
+    output channels). The wrapper launches without a host sync. The twin sums
+    the dense folded conv and the C4-term ToRGB product in fp32 in another
+    order, so the tolerance is relative to the output's scale: fp32 1e-4 (a
+    K-term fp32 sum may be off by K * 6e-8 of its terms' magnitudes, K =
+    1024); bf16 1e-2 (z rounds to bf16 before the ToRGB product, and a z on a
+    rounding boundary may round the other way; the output itself rounds to
+    bf16, 2^-8 relative).
     """
     gen = torch.Generator(device=cuda_device).manual_seed(1)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=cuda_device) * scale
 
+    c = c4 // 4
     x = randn(batch, c4, h, w, scale=0.5).to(dtype)
-    w4 = randn(c4, c4, 2, 2, scale=c4 ** -0.5)
+    w4 = K.fold_conv1_weights(randn(c, c, 3, 3, scale=(9 * c) ** -0.5))
     demod = randn(batch, c4).abs() + 0.5
     noise_bias = randn(nb_batch, c4, h + 1, w + 1, scale=0.1)
     wrgb = randn(batch, c4, 16, scale=c4 ** -0.5)
     wrgb[:, :, 12:] = 0.0
     before = K.LAUNCHES.copy()
-    got = K.phase_conv1_torgb(x, w4, demod, noise_bias, wrgb)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = K.phase_conv1_torgb(x, w4, demod, noise_bias, wrgb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     want = K.phase_conv1_torgb_plain(x, w4, demod, noise_bias, wrgb)
     torch.cuda.synchronize()
     assert K.LAUNCHES["phase_conv1_torgb"] == before["phase_conv1_torgb"] + 1
@@ -92,6 +101,48 @@ def test_phase_conv1_torgb_matches_twin_on_gpu(cuda_device, batch, c4, h, w, nb_
     rel = 1e-4 if dtype == torch.float32 else 1e-2
     err = float((got.float() - want.float()).abs().max())
     assert err <= rel * float(want.float().abs().max()), err
+
+
+_NOT_A_FOLD = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+from gance_tpu_torch.ops.cuda import fused_ops as K
+cuda = torch.device("cuda")
+x = torch.randn(1, 8, 4, 4, device=cuda)
+w4 = torch.randn(8, 8, 2, 2, device=cuda)  # dense: not a Conv1 fold
+torch.cuda.synchronize()
+torch.cuda.set_sync_debug_mode("error")
+try:
+    K.phase_conv1_torgb(x, w4, torch.ones(1, 8, device=cuda),
+                        torch.zeros(1, 8, 5, 5, device=cuda), torch.zeros(1, 8, 16, device=cuda))
+except RuntimeError as error:  # the assert may already have failed when E launches
+    if "synchroniz" in str(error):
+        raise
+    print(f"launch refused: {{error}}", flush=True)
+print("no host sync", flush=True)
+torch.cuda.set_sync_debug_mode("default")
+torch.cuda.synchronize()
+print("not refused", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_phase_conv1_torgb_refuses_a_non_fold_on_gpu(cuda_device):
+    """On the card the wrapper checks that w4 is a fold with a device-side
+    assert, without a host sync; the stream then fails (at E's launch, if the
+    assert has already fired, or at the next sync). A failed device assert
+    ends the CUDA context, so this runs in its own process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    proc = subprocess.run([sys.executable, "-c", _NOT_A_FOLD.format(root=root)],
+                          capture_output=True, text=True, timeout=600)
+    assert "no host sync" in proc.stdout, proc.stderr[-2000:]
+    assert "not refused" not in proc.stdout
+    assert proc.returncode != 0
 
 
 @pytest.mark.gpu

@@ -123,52 +123,107 @@ def test_upsample2x_phases_match_kernel_b_bit_for_bit(rng, dtype):
 
 
 def _e_inputs(rng, b, h, c4, nb_batch=1):
+    """E's operands in JAX's layouts; v is the HWIO Conv1 weight whose fold is
+    E's w4 (JAX's `fold_conv1_weights` for the Pallas function, the port's for
+    its wrapper)."""
     x = (rng.randn(b, h, h, c4) * 0.5).astype(np.float32)
-    w4 = (rng.randn(2, 2, c4, c4) * 0.05).astype(np.float32)
+    v = (rng.randn(3, 3, c4 // 4, c4 // 4) * 0.1).astype(np.float32)
     wrgb = (rng.randn(b, c4, 16) * 0.1).astype(np.float32)
     wrgb[:, :, 12:] = 0.0
     demod = (rng.rand(b, c4) + 0.5).astype(np.float32)
     nb = (rng.randn(nb_batch, h + 1, h + 1, c4) * 0.1).astype(np.float32)
-    return x, w4, wrgb, demod, nb
+    return x, v, wrgb, demod, nb
 
 
-def _e_port(x, w4, wrgb, demod, nb):
-    return K.phase_conv1_torgb(nchw(x), oihw(w4), torch.from_numpy(demod), nchw(nb),
-                               torch.from_numpy(wrgb))
+def _e_port(x, v, wrgb, demod, nb):
+    return K.phase_conv1_torgb(nchw(x), port_pb.fold_conv1_weights(oihw(v)),
+                               torch.from_numpy(demod), nchw(nb), torch.from_numpy(wrgb))
 
 
 def test_phase_conv1_torgb_twin_matches_pallas(rng):
     """E's twin (through its wrapper's CPU dispatch) against the Pallas kernel
     in interpret mode, at the kernel's 512^2 shape with C4 = 8."""
-    x, w4, wrgb, demod, nb = _e_inputs(rng, 1, 512, 8)
+    x, v, wrgb, demod, nb = _e_inputs(rng, 1, 512, 8)
+    w4 = jax_pb.fold_conv1_weights(jnp.asarray(v))
     want = np.asarray(phase_conv1_torgb_fused(
-        jnp.asarray(x), jnp.asarray(w4), jnp.asarray(wrgb), jnp.asarray(demod),
+        jnp.asarray(x), w4, jnp.asarray(wrgb), jnp.asarray(demod),
         jnp.asarray(nb), interpret=True))
     before = dict(K.LAUNCHES)
-    got = _e_port(x, w4, wrgb, demod, nb)
+    got = _e_port(x, v, wrgb, demod, nb)
     assert K.LAUNCHES == before
     assert tuple(got.shape) == (1, 16, 513, 513)
     np.testing.assert_allclose(nhwc(got), want, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(got, K.phase_conv1_torgb_plain(
-        nchw(x), oihw(w4), torch.from_numpy(demod), nchw(nb), torch.from_numpy(wrgb)),
-        rtol=0, atol=0)
+        nchw(x), port_pb.fold_conv1_weights(oihw(v)), torch.from_numpy(demod), nchw(nb),
+        torch.from_numpy(wrgb)), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("h,c4", [(5, 12), (8, 8)])
 def test_phase_conv1_torgb_twin_per_sample_noise_bias(rng, h, c4):
     """A (B, ...) noise_bias gives each image its own; (1, ...) is shared. Both
     agree with the composed formulation of tests/test_phase_fused.py."""
-    x, w4, wrgb, demod, nb = _e_inputs(rng, 3, h, c4, nb_batch=3)
-    got = _e_port(x, w4, wrgb, demod, nb)
-    z = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(w4), (1, 1), ((1, 1), (1, 1)),
+    x, v, wrgb, demod, nb = _e_inputs(rng, 3, h, c4, nb_batch=3)
+    got = _e_port(x, v, wrgb, demod, nb)
+    w4 = jax_pb.fold_conv1_weights(jnp.asarray(v))
+    z = jax.lax.conv_general_dilated(jnp.asarray(x), w4, (1, 1), ((1, 1), (1, 1)),
                                      dimension_numbers=("NHWC", "HWIO", "NHWC"))
     z = z * jnp.asarray(demod)[:, None, None, :] + jnp.asarray(nb)
     z = jnp.maximum(z, z * 0.2)
     want = np.asarray(jnp.einsum("bmnc,bck->bmnk", z, jnp.asarray(wrgb)))
     np.testing.assert_allclose(nhwc(got), want, atol=2e-4, rtol=1e-4)
-    shared = _e_port(x, w4, wrgb, demod, nb[1:2])
+    shared = _e_port(x, v, wrgb, demod, nb[1:2])
     torch.testing.assert_close(shared[1], got[1], rtol=0, atol=0)
     assert float((shared[0] - got[0]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("cout,cin", [(4, 4), (5, 3), (64, 64)])
+def test_unfold_conv1_weights_recovers_the_taps_exactly(rng, cout, cin):
+    """Kernel E's nine taps are exact slices of the fold: unfold(fold(v)) == v."""
+    v = torch.from_numpy(rng.randn(cout, cin, 3, 3).astype(np.float32))
+    w4 = port_pb.fold_conv1_weights(v)
+    torch.testing.assert_close(K.unfold_conv1_weights(w4), v, rtol=0, atol=0)
+    # 28 of the 64 (out-phase, in-phase, kh, kw) blocks are zero
+    blocks = w4.reshape(4, cout, 4, cin, 2, 2).permute(0, 2, 4, 5, 1, 3).reshape(64, -1)
+    assert int((blocks.abs().amax(dim=1) == 0).sum()) == 28
+
+
+@pytest.mark.parametrize("breakage", ["dense", "zero_block", "phase_tap"])
+def test_phase_conv1_torgb_refuses_a_w4_that_is_not_a_fold(rng, breakage):
+    """E takes only the nine taps, so any other w4 would be computed wrongly:
+    a random dense w4, a fold with one entry of a zero block set, and a fold
+    whose output phase 3 disagrees with phase 0 on one tap all raise."""
+    x, v, wrgb, demod, nb = _e_inputs(rng, 1, 4, 8)
+    w4 = port_pb.fold_conv1_weights(oihw(v))
+    if breakage == "dense":
+        w4 = torch.from_numpy(rng.randn(8, 8, 2, 2).astype(np.float32))
+    elif breakage == "zero_block":
+        w4[0, 0, 0, 0] = 0.5  # out-phase 0, in-phase 0, (kh, kw) = (0, 0): no tap
+    else:
+        w4[6, 1, 1, 1] += 0.5  # out-phase 3's copy of tap (2, 2), from in-phase 0
+    with pytest.raises(ValueError, match="not a Conv1 fold"):
+        K.phase_conv1_torgb(nchw(x), w4, torch.from_numpy(demod), nchw(nb),
+                            torch.from_numpy(wrgb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_phase_conv1_torgb_taps_mirror_matches_twin(rng, dtype):
+    """Kernel E's index map (nine taps over the fine-grid halo, four output
+    phases read back at a = 2m + 1 - sigma) against the dense twin on the
+    fold, at a ragged shape (C = 5, H != W, per-sample noise_bias). fp32: the
+    same terms in another order, 1e-5 of the output's scale; bf16: z rounds
+    to bf16 before ToRGB and may round the other way, 1e-2 of the scale."""
+    b, c4, h, w = 2, 20, 5, 7
+    x = torch.from_numpy((rng.randn(b, c4, h, w) * 0.5).astype(np.float32)).to(dtype)
+    v = torch.from_numpy((rng.randn(c4 // 4, c4 // 4, 3, 3) * 0.2).astype(np.float32))
+    demod = torch.from_numpy((rng.rand(b, c4) + 0.5).astype(np.float32))
+    nb = torch.from_numpy((rng.randn(b, c4, h + 1, w + 1) * 0.1).astype(np.float32))
+    wrgb = torch.from_numpy((rng.randn(b, c4, 16) * 0.2).astype(np.float32))
+    got = K.phase_conv1_torgb_taps_plain(x, v, demod, nb, wrgb)
+    want = K.phase_conv1_torgb_plain(x, port_pb.fold_conv1_weights(v), demod, nb, wrgb)
+    assert got.shape == want.shape == (b, 16, h + 1, w + 1) and got.dtype == dtype
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max()), err
 
 
 def test_phase_conv1_torgb_rejects_bad_inputs():
