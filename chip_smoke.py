@@ -46,9 +46,12 @@ in order (any failure exits non-zero; no phase's failure is caught):
    both paths;
 5. prints fp32 and bf16 frames/s at batch 8 with the phase path off and on,
    timed with CUDA events;
-6. holds the gradients of kernels A-D (their autograd Functions) on the card
+6. holds the gradients of kernels A-E (their autograd Functions) on the card
    against the same gradients through the twins on the CPU, first and second
    order, within 1e-4 of each gradient's scale (a cut gradient gives zeros);
+   E at (2, 256, 64, 64), through w4 = fold_conv1_weights(v), with every
+   pre-activation held 0.05 from the lrelu's kink so that both devices take
+   the same slope;
 7. drives training (gance_tpu_torch/parallel/training.py): (a) one step's
    losses and gradients with R1 and path length, at a 32px config with
    config-f's widths, on the card and on the port's CPU path with the same
@@ -64,7 +67,11 @@ in order (any failure exits non-zero; no phase's failure is caught):
    with PL only), then 2 bf16 steps resumed from the checkpoint, each with
    finite losses, its A/B/C/D launches checked against counts derived from
    the architecture, seconds per step by CUDA events and peak memory; G, D
-   and EMA must have moved; the split of a step between G, D, R1 and PL by
+   and EMA must have moved; after the fp32 steps, one G step's gradients
+   with PL on the standard path and on the phase path
+   (GANCE_TPU_PHASE1024=on: E forward, E's backward and PL's second order
+   through it), losses within 1e-3 relative, launches (E's included)
+   checked; the split of a step between G, D, R1 and PL by
    CUDA events; (c) the checkpoint written after step 3, loaded, runs step 4
    again and matches the unbroken run (the D step's losses within 1e-5
    relative, the G step's within 1e-3, since cuDNN's weight gradients are
@@ -75,7 +82,8 @@ in order (any failure exits non-zero; no phase's failure is caught):
    serves one batch that matches the EMA params rendered directly.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
-discriminator forward at batch 4, its launches are the training run's); the
+discriminator forward at batch 4, its launches are the training run's; E's
+launches include the phase-path G step's); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
 and prints no result.
 """
@@ -180,6 +188,14 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
+def print_sums(name: str, unit: str, sums: Dict[str, Dict[str, float]]) -> None:
+    """One line per kernel: its ms, twin's ms, library call's ms and bound
+    summed over the path's shapes, in fp32 and in bf16."""
+    parts = [f"{dtype} ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms "
+             f"{t['library_ms'] or None} bound_ms {t['bound_ms']:.4f}" for dtype, t in sums.items()]
+    print(f"kernel {name} per {unit}: " + "; ".join(parts), flush=True)
+
+
 def path_shapes(config) -> Dict[str, List[Tuple[tuple, int]]]:
     """Each kernel's input shapes on the synthesis path at BATCH, with launches
     per forward: A, B and C on the standard path, E on the phase path (the
@@ -225,7 +241,9 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
             cases.append(((b, c, h, h + 15), 0, h))
         if name == "upsample2x_blur":
             cases.append((shapes[-1][0], 0, TAPS_1234))  # a FIR that is not symmetric
-        totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        sums = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+                for d in ("float32", "bfloat16")}
+        totals = sums["float32"]
         max_err, bound_by = 0.0, "bytes"
         for shape, per_forward, option in cases:
             for dtype in (torch.float32, torch.bfloat16):
@@ -313,14 +331,17 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                 print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms "
                       f"{plain_ms:.4f} library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
                       f"bound_ms {bms:.4f} ({by}){note}", flush=True)
+                if per_forward:
+                    t = sums[str(dtype)[6:]]
+                    t["ms"] += per_forward * ms
+                    t["plain_ms"] += per_forward * plain_ms
+                    t["bound_ms"] += per_forward * bms
+                    t["library_ms"] += per_forward * (lib_ms or 0.0)
                 if dtype == torch.float32 and per_forward:
                     bound_by = by
                     max_err = max(max_err, err)
-                    totals["ms"] += per_forward * ms
-                    totals["plain_ms"] += per_forward * plain_ms
-                    totals["bound_ms"] += per_forward * bms
-                    totals["library_ms"] += per_forward * (lib_ms or 0.0)
                 del x, got, want
+        print_sums(name, "synthesis forward at batch 8", sums)
         records.append({
             "name": name,
             "route": "cuda",
@@ -353,7 +374,8 @@ def stencil_phase(config, randn: Callable) -> dict:
     cases = [(shape, n, pads, binomial, "") for shape, n, pads in discriminator_shapes(config)]
     cases += [(top, 0, (2, 2), np.outer(TAPS, TAPS)[::-1, ::-1], " (C's input gradient)"),
               (top, 0, (2, 2), FIR_1234, " FIR (1,2,3,4)")]
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    sums = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+            for d in ("float32", "bfloat16")}
     max_err = 0.0
     for shape, per_forward, pads, fir, note in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -377,15 +399,17 @@ def stencil_phase(config, randn: Callable) -> dict:
             bms, by = bound_ms(moved, flops)
             print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"library_ms {lib_ms:.4f} bound_ms {bms:.4f} ({by})", flush=True)
-            if dtype == torch.float32 and per_forward:
-                max_err = max(max_err, err)
+            if per_forward:
                 for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
                                    ("library_ms", lib_ms)):
-                    totals[key] += per_forward * value
+                    sums[str(dtype)[6:]][key] += per_forward * value
+            if dtype == torch.float32 and per_forward:
+                max_err = max(max_err, err)
             del x, got, want
+    print_sums("stencil_blur4_valid", "discriminator forward at batch 4", sums)
     return {"name": "stencil_blur4_valid", "route": "cuda",
             "source": SOURCES["stencil_blur4_valid"], "replaces": REPLACES["stencil_blur4_valid"],
-            "launches": 0, "max_abs_err": max_err, "bound_by": "bytes", **totals}
+            "launches": 0, "max_abs_err": max_err, "bound_by": "bytes", **sums["float32"]}
 
 
 def smoke_params(seed: int, config) -> dict:
@@ -617,11 +641,40 @@ def fps_phase(net, z: np.ndarray, card: str) -> None:
     set_phase("off")
 
 
-def gradient_phase() -> None:
-    """First- and second-order gradients through the Functions of A-D on the
-    card against the same gradients through the twins on the CPU (the
-    wrappers take the twins for CPU tensors), at (4, 64, 128, 128)."""
+def phase_conv1_inputs() -> List[np.ndarray]:
+    """Kernel E's operands (x, v, demod, noise_bias, wrgb) at (2, 256, 64, 64),
+    w4 being fold_conv1_weights(v). The per-sample noise_bias puts every
+    pre-activation at least 0.05 from the lrelu's kink (the conv sums are
+    taken on the host first), so the card and the CPU, whose fp32 sums differ
+    in order, take the same slope everywhere."""
     from gance_tpu_torch.ops.cuda import fused_ops as K
+    from gance_tpu_torch.ops.precision import exact_fp32
+
+    rng = np.random.RandomState(5)
+    b, c4, h = 2, 256, 64
+    c = c4 // 4
+    x = (rng.randn(b, c4, h, h) * 0.5).astype(np.float32)
+    v = (rng.randn(c, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
+    demod = (rng.rand(b, c4) + 0.5).astype(np.float32)
+    wrgb = (rng.randn(b, c4, 16) * c4 ** -0.5).astype(np.float32)
+    wrgb[:, :, 12:] = 0.0
+    with exact_fp32():
+        acc = F.conv2d(torch.from_numpy(x), K.fold_conv1_weights(torch.from_numpy(v)),
+                       padding=1).numpy()
+    s = rng.randn(b, c4, h + 1, h + 1) * 0.3
+    pre = np.sign(s) * (0.05 + np.abs(s))
+    noise_bias = (pre - acc * demod[:, :, None, None]).astype(np.float32)
+    return [x, v, demod, noise_bias, wrgb]
+
+
+def gradient_phase() -> None:
+    """First- and second-order gradients through the Functions of A-E on the
+    card against the same gradients through the twins on the CPU (the
+    wrappers take the twins for CPU tensors): A-D at (4, 64, 128, 128), E at
+    (2, 256, 64, 64) with w4 = fold_conv1_weights(v) and v differentiated."""
+    from gance_tpu_torch.ops.cuda import fused_ops as K
+
+    e_inputs = phase_conv1_inputs()
 
     def case(name: str, device: str):
         rng = np.random.RandomState(3)
@@ -629,6 +682,10 @@ def gradient_phase() -> None:
         def t(*shape: int) -> torch.Tensor:
             return torch.tensor(np.asarray(rng.randn(*shape), np.float32), device=device)
 
+        if name == "phase_conv1_torgb":
+            def e_fn(x, v, demod, noise_bias, wrgb):
+                return K.phase_conv1_torgb(x, K.fold_conv1_weights(v), demod, noise_bias, wrgb)
+            return e_fn, [torch.tensor(a, device=device) for a in e_inputs]
         shape = (TRAIN_BATCH, 64, 128, 128)
         if name == "fused_bias_noise_lrelu":
             return K.fused_bias_noise_lrelu, [t(*shape), t(shape[0], 1, 128, 128), t(64), t()]
@@ -652,7 +709,7 @@ def gradient_phase() -> None:
         return [g.detach().cpu() for g in first], [g.detach().cpu() for g in second]
 
     for name in ("fused_bias_noise_lrelu", "upsample2x_blur", "blur4_separable_pad11",
-                 "stencil_blur4_valid"):
+                 "stencil_blur4_valid", "phase_conv1_torgb"):
         got, want = gradients(name, "cuda"), gradients(name, "cpu")
         worst = 0.0
         for order, label in ((0, "first"), (1, "second")):
@@ -685,6 +742,61 @@ def train_launches(config, apply_r1: bool, apply_pl: bool) -> Dict[str, int]:
     return {"fused_bias_noise_lrelu": a * forwards, "upsample2x_blur": bc * forwards,
             "blur4_separable_pad11": bc * forwards, "stencil_blur4_valid": d_launches,
             "phase_conv1_torgb": 0}
+
+
+def g_step_launches(config, apply_pl: bool, phase: bool) -> Dict[str, int]:
+    """Kernel launches of one G step's gradients (`g_step_gradients`): G and,
+    with path length, G on half the batch, forward; D forward and back; C's
+    input gradients (one D each) and path length's second order (one D per
+    C, twice). On the phase path the top block runs E and not C or its two
+    A epilogues; E's backward is plain PyTorch."""
+    blocks = config.resolution_log2 - 2
+    forwards = 1 + apply_pl
+    c = blocks - phase
+    return {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
+            "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": c * forwards,
+            "stencil_blur4_valid": 4 * blocks + c + 3 * c * apply_pl,
+            "phase_conv1_torgb": int(phase) * forwards}
+
+
+def phase_g_step_phase(state, config, train_config, card: str) -> Dict[str, int]:
+    """One fp32 G step with path length at 1024px (its gradients and losses,
+    `g_step_gradients`), standard path and then phase path
+    (GANCE_TPU_PHASE1024=on: kernel E forward, E's Function backward, PL's
+    second order through it) with the same state and draws: losses within
+    1e-3 relative, launches as derived. Returns the phase path's launches."""
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.parallel import training as T
+
+    draws = T.draw_step(SEED, 5, TRAIN_BATCH, config, train_config, "cuda")
+    results = {}
+    for mode in ("off", "on"):
+        set_phase(mode)
+        reset_launch_counts()
+        start = time.perf_counter()
+        grads, metrics = T.g_step_gradients(state.g_params, state.d_params, draws, state.pl_mean,
+                                            True, config, train_config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = dict(LAUNCHES)
+        values = {k: float(v) for k, v in metrics.items()}
+        norm = float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
+        del grads
+        want = g_step_launches(config, True, mode == "on")
+        print(f"G step with PL, fp32 batch {TRAIN_BATCH}, phase {mode}: {seconds:.3f} s, losses "
+              f"{values}, gradient norm {norm:.6g}, launches {counts} on {card}", flush=True)
+        require(counts == want, f"G step phase {mode}: launches {counts} != {want}")
+        require(all(math.isfinite(v) for v in values.values()) and math.isfinite(norm),
+                f"G step phase {mode}: {values}, norm {norm}")
+        results[mode] = values, counts
+    set_phase("off")
+    (off, _), (on, counts) = results["off"], results["on"]
+    for name in ("g_loss", "pl", "pl_length"):
+        err = abs(on[name] - off[name]) / max(abs(off[name]), 1e-30)
+        require(off[name] != 0 and err <= 1e-3, f"G step {name}: phase path {on[name]} vs "
+                f"standard {off[name]}")
+    print("G step with PL: the phase path's losses within 1e-3 of the standard path's", flush=True)
+    return counts
 
 
 class SeededImages:
@@ -816,6 +928,8 @@ def training_phase(workdir: Path, card: str) -> Dict[str, int]:
     state_config = [fp32]
     state = T.run_training(data, config, fp32, ckpt, 5, TRAIN_BATCH, checkpoint_every=4,
                            seed=SEED, device="cuda", before_step=before, after_step=after)
+    for k, v in phase_g_step_phase(state, config, fp32, card).items():
+        totals[k] = totals.get(k, 0) + v
     g0, d0 = init_generator_params(SEED, config), init_discriminator_params(SEED + 1, config)
     top = f"{config.resolution}x{config.resolution}"
 

@@ -1,5 +1,5 @@
 """
-Gradients through kernels A-D: one `torch.autograd.Function` per kernel.
+Gradients through kernels A-E: one `torch.autograd.Function` per kernel.
 
 The public wrappers in `fused_ops.py` go through these Functions on both
 devices. A Function's forward runs the kernel on a CUDA tensor and its plain
@@ -18,6 +18,11 @@ synthesis) works and, on the card, launches the kernels again:
   * A (noise + bias + lrelu * sqrt(2)): gradients for x, noise, bias and
     strength from the saved output y alone (lrelu * sqrt(2) keeps the sign,
     so the slope is sqrt(2) where y >= 0 and 0.2 * sqrt(2) elsewhere).
+  * E (the phase top block's Conv1 + epilogue + ToRGB): the backward
+    recomputes the pre-activation from the nine taps on the fine grid
+    (cuDNN on the card) for the lrelu slope, then takes the conv's input and
+    weight gradients in one `convolution_backward`; no kernel, as in the JAX
+    package, which differentiates its XLA phase path.
 
 Output gradients may arrive non-contiguous (a `permute` downstream); they are
 made contiguous before a kernel launch.
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from gance_tpu_torch.ops.cuda import fused_ops as K
+from gance_tpu_torch.ops.precision import exact_fp32
 
 _SQRT2 = 2.0 ** 0.5
 
@@ -125,3 +131,62 @@ class StencilBlur4Valid(torch.autograd.Function):
         p0, p1 = ctx.pads
         gx = K.stencil_blur4_valid(g.contiguous(), _flipped(ctx.taps), (3 - p0, 3 - p1))
         return gx, None, None
+
+
+def _unfold_adjoint(gv: torch.Tensor, c4_out: int) -> torch.Tensor:
+    """The adjoint of `unfold_conv1_weights`: the taps' gradient (C, C, 3, 3)
+    written into output phase 0's tap blocks of a zero (4C, 4C, 2, 2)."""
+    cout, cin = gv.shape[:2]
+    grid = F.pad(gv, (1, 0, 1, 0)).reshape(cout, cin, 2, 2, 2, 2)  # (o, c, kh, dh, kw, dw)
+    block = grid.permute(0, 3, 5, 1, 2, 4).reshape(cout, 4 * cin, 2, 2)
+    return F.pad(block, (0, 0, 0, 0, 0, 0, 0, c4_out - cout))
+
+
+class PhaseConv1Torgb(torch.autograd.Function):
+    """
+    Kernel E: rgb = lrelu(conv2d(x, w4, pad 1) * demod + noise_bias) @ wrgb
+    over the phase planes, z rounded to x's dtype before the ToRGB product.
+
+    E reads only the nine taps of the fold w4 (`unfold_conv1_weights`, output
+    phase 0's copy), so w4's gradient is the taps' gradient written back
+    there: the derivative of what E computes. Through `fold_conv1_weights`
+    it gives the 3x3 weight the same gradient as the dense twin does.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w4, demod, noise_bias, wrgb):  # pylint: disable=arguments-differ
+        ctx.save_for_backward(x, w4, demod, noise_bias, wrgb)
+        return K._phase_conv1_torgb_run(x, w4, demod, noise_bias, wrgb)
+
+    @staticmethod
+    def backward(ctx, g):  # pylint: disable=arguments-differ
+        x, w4, demod, noise_bias, wrgb = ctx.saved_tensors
+        need_x, need_w4, need_demod, need_nb, need_rgb = ctx.needs_input_grad
+        dtype = x.dtype
+        v = K.unfold_conv1_weights(w4).to(dtype).float()
+        fine = K.phases_to_fine(x).float()
+        with exact_fp32():
+            acc = K._conv_phases_of_fine(F.conv2d(fine, v, padding=2))
+            pre = acc * demod.float()[:, :, None, None] + noise_bias.to(dtype).float()
+            gf = g.float()
+            gz = torch.einsum("bkhw,bck->bchw", gf, wrgb.to(dtype).float())
+            gpre = torch.where(pre >= 0, gz, gz * 0.2)
+            gwrgb = gdemod = gnb = gx = gw4 = None
+            if need_rgb:
+                z = torch.maximum(pre, pre * 0.2).to(dtype).float()
+                gwrgb = torch.einsum("bchw,bkhw->bck", z, gf).to(wrgb.dtype)
+            if need_demod:
+                gdemod = (gpre * acc).sum(dim=(2, 3)).to(demod.dtype)
+            if need_nb:
+                gnb = gpre if noise_bias.shape[0] == gpre.shape[0] else gpre.sum(0, keepdim=True)
+                gnb = gnb.to(noise_bias.dtype)
+            if need_x or need_w4:
+                gacc = K._fine_of_conv_phases(gpre * demod.float()[:, :, None, None])
+                gfine, gv, _ = torch.ops.aten.convolution_backward(
+                    gacc, fine, v, None, (1, 1), (2, 2), (1, 1), False, (0, 0), 1,
+                    (need_x, need_w4, False))
+                if need_x:
+                    gx = K.fine_to_phases(gfine).to(dtype)
+                if need_w4:
+                    gw4 = _unfold_adjoint(gv, w4.shape[0]).to(w4.dtype)
+        return gx, gw4, gdemod, gnb, gwrgb

@@ -16,9 +16,10 @@ backward.
 | D stencil_blur4_valid | fused_ops.py (pallas_call :447) | stencil_blur4_valid.cu |
 | E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
 
-The wrappers of A-D go through the `torch.autograd.Function`s of `autograd.py`
-on both devices, so gradients of every order pass through them; E raises
-under grad. A-D are memory-bound on the H100, E is bound by its operations;
+Every wrapper goes through its `torch.autograd.Function` in `autograd.py` on
+both devices, so gradients of every order pass through the kernels (E's
+backward is plain PyTorch, as in the JAX package, whose phase path is XLA
+under grad). A-D are memory-bound on the H100, E is bound by its operations;
 each source file states its bound and design. Every kernel takes
 NCHW-contiguous fp32 or bf16 activations and sums in fp32.
 """
@@ -396,6 +397,36 @@ def phase_conv1_torgb_plain(
         return _phase_epilogue_torgb(acc, demod, noise_bias, wrgb, dtype)
 
 
+def phases_to_fine(t: torch.Tensor) -> torch.Tensor:
+    """Phase planes (B, 4C, H, W), channel (dh * 2 + dw) * C + c, interleaved
+    to the fine grid (B, C, 2H, 2W): fine[2m + dh][2n + dw] = t[dh, dw][m][n]."""
+    b, c4, h, w = t.shape
+    return t.reshape(b, 2, 2, c4 // 4, h, w).permute(0, 3, 4, 1, 5, 2).reshape(
+        b, c4 // 4, 2 * h, 2 * w)
+
+
+def fine_to_phases(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of `phases_to_fine`: (B, C, 2H, 2W) -> (B, 4C, H, W)."""
+    b, c, h2, w2 = t.shape
+    return t.reshape(b, c, h2 // 2, 2, w2 // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(
+        b, 4 * c, h2 // 2, w2 // 2)
+
+
+def _conv_phases_of_fine(acc_fine: torch.Tensor) -> torch.Tensor:
+    """E's output phases from the 3x3 conv on the fine grid padded by 2
+    (B, C, 2H+2, 2W+2): phase sigma at m is fine pixel 2m + 1 - sigma, the
+    phases of `fine_to_phases` in reverse order."""
+    b, c, h2, w2 = acc_fine.shape
+    return fine_to_phases(acc_fine).reshape(b, 4, c, h2 // 2, w2 // 2).flip(1).reshape(
+        b, 4 * c, h2 // 2, w2 // 2)
+
+
+def _fine_of_conv_phases(acc: torch.Tensor) -> torch.Tensor:
+    """The inverse of `_conv_phases_of_fine`."""
+    b, c4, h, w = acc.shape
+    return phases_to_fine(acc.reshape(b, 4, c4 // 4, h, w).flip(1).reshape(b, c4, h, w))
+
+
 def phase_conv1_torgb_taps_plain(
     x: torch.Tensor,
     v: torch.Tensor,
@@ -411,15 +442,11 @@ def phase_conv1_torgb_taps_plain(
     sigma at position m is fine pixel a = 2m + 1 - sigma. Equals the twin on
     `fold_conv1_weights(v)` up to the order of the fp32 sums.
     """
-    b, c4, h, w = x.shape
-    c = c4 // 4
     dtype = x.dtype
-    fine = x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2).reshape(b, c, 2 * h, 2 * w)
     with exact_fp32():
-        acc_fine = F.conv2d(F.pad(fine.float(), (2, 2, 2, 2)), v.to(dtype).float())
-        acc = torch.cat([acc_fine[:, :, 1 - sig_h::2, 1 - sig_w::2]
-                         for sig_h in range(2) for sig_w in range(2)], dim=1)
-        return _phase_epilogue_torgb(acc, demod, noise_bias, wrgb, dtype)
+        acc_fine = F.conv2d(phases_to_fine(x).float(), v.to(dtype).float(), padding=2)
+        return _phase_epilogue_torgb(_conv_phases_of_fine(acc_fine), demod, noise_bias, wrgb,
+                                     dtype)
 
 
 # Kernel E's padding of the taps (csrc/phase_conv1_torgb.cu): input channels
@@ -477,13 +504,18 @@ def phase_conv1_torgb(
         )
     if c4 % 4 or c4 > MAX_PHASE_CHANNELS:
         raise ValueError(f"C4={c4} must be a multiple of 4 and at most {MAX_PHASE_CHANNELS}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, w4, demod, noise_bias, wrgb)
-    ):
-        raise NotImplementedError(
-            "phase_conv1_torgb has no backward yet (ROADMAP.md Speed work: kernel E's "
-            "backward); run the top block on the standard path under autograd"
-        )
+    return _autograd.PhaseConv1Torgb.apply(x, w4, demod, noise_bias, wrgb)
+
+
+def _phase_conv1_torgb_run(
+    x: torch.Tensor,
+    w4: torch.Tensor,
+    demod: torch.Tensor,
+    noise_bias: torch.Tensor,
+    wrgb: torch.Tensor,
+) -> torch.Tensor:
+    """E's forward without autograd: the twin on the CPU, else the kernel."""
+    b, c4, h, w = x.shape
     on_cpu = _on_cpu(x)
     v = unfold_conv1_weights(w4)
     if on_cpu:

@@ -7,7 +7,8 @@ JAX's polyphase form; D at the binomial and the (1, 2, 3, 4) FIR and at its
 implicit pads; the gradients of the autograd Functions of A-D, first and
 second order, against autograd through the twins and against jax.grad of the
 JAX operation each kernel replaces (the Pallas kernels have no autodiff rule;
-their XLA formulations do); E's refusal under grad; the wrappers' CPU
+their XLA formulations do); E's first and second order gradients against
+autograd through its dense twin; the wrappers' CPU
 dispatch and input checks; and the ctypes binding of all five kernels
 against the C signatures in csrc/. Kernel E's twin is held against its
 Pallas kernel in tests/test_torch_phase_block.py. The kernels themselves run
@@ -370,11 +371,426 @@ def test_noncontiguous_output_gradient(rng):
     torch.testing.assert_close(gx, want, rtol=1e-5, atol=1e-5)
 
 
-def test_phase_conv1_torgb_refuses_grad():
-    """E has no backward: under grad it raises instead of cutting gradients."""
-    x = torch.zeros(1, 4, 3, 3, requires_grad=True)
-    args = (torch.zeros(4, 4, 2, 2), torch.ones(1, 4), torch.zeros(1, 4, 4, 4), torch.zeros(1, 4, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.phase_conv1_torgb(x, *args)
-    with torch.no_grad():
-        assert K.phase_conv1_torgb(x, *args).shape == (1, 16, 4, 4)
+# ---------------------------------------------------------------------------
+# E. gradients through PhaseConv1Torgb
+# ---------------------------------------------------------------------------
+
+
+def _e_inputs(rng, nb_batch, b=2, c=5, h=5, w=7):
+    """E's operands (x, v, demod, noise_bias, wrgb) at a ragged shape; w4 is
+    the fold of the 3x3 weight v, as on the main path."""
+    wrgb = (rng.randn(b, 4 * c, 16) * 0.2).astype(np.float32)
+    wrgb[:, :, 12:] = 0.0
+    return [(rng.randn(b, 4 * c, h, w) * 0.5).astype(np.float32),
+            (rng.randn(c, c, 3, 3) * 0.2).astype(np.float32),
+            (rng.rand(b, 4 * c) + 0.5).astype(np.float32),
+            (rng.randn(nb_batch, 4 * c, h + 1, w + 1) * 0.1).astype(np.float32),
+            wrgb]
+
+
+def _e_port(x, v, demod, nb, wrgb):
+    return K.phase_conv1_torgb(x, K.fold_conv1_weights(v), demod, nb, wrgb)
+
+
+def _e_twin(x, v, demod, nb, wrgb):
+    return K.phase_conv1_torgb_plain(x, K.fold_conv1_weights(v), demod, nb, wrgb)
+
+
+@pytest.mark.parametrize("nb_batch", [1, 2])
+def test_phase_conv1_torgb_gradients_match_twin(rng, nb_batch):
+    """First and second order gradients of every operand through
+    PhaseConv1Torgb (x, w4 through its 3x3 taps v, demod, a shared or
+    per-sample noise_bias, wrgb) against autograd through the dense twin,
+    within 1e-5 of each gradient's scale: the backward recomputes the conv
+    from the nine taps, so the fp32 sums differ in order only."""
+    inputs = _e_inputs(rng, nb_batch)
+    y = _e_port(*[torch.tensor(v) for v in inputs])
+    w = rng.randn(*y.shape).astype(np.float32)
+    u = [np.asarray(rng.randn(*np.shape(v)), np.float32) for v in inputs]
+    before = dict(K.LAUNCHES)
+    got = _torch_grads(_e_port, inputs, w, u)
+    assert K.LAUNCHES == before
+    want = _torch_grads(_e_twin, inputs, w, u)
+    for order in (0, 1):
+        for g, t in zip(got[order], want[order]):
+            scale = float(np.abs(t).max())
+            assert g.shape == t.shape and scale > 0
+            np.testing.assert_allclose(g, t, rtol=0, atol=1e-5 * scale)
+
+
+def test_phase_conv1_torgb_w4_gradient_is_its_taps(rng):
+    """w4's gradient lands on output phase 0's nine tap blocks, the entries E
+    reads, and maps back through the fold to the 3x3 weight's gradient."""
+    x, v, demod, nb, wrgb = (torch.tensor(a) for a in _e_inputs(rng, 1))
+    w4 = K.fold_conv1_weights(v).requires_grad_(True)
+    probe = torch.from_numpy(rng.randn(2, 16, 6, 8).astype(np.float32))
+    (gw4,) = torch.autograd.grad((K.phase_conv1_torgb(x, w4, demod, nb, wrgb) * probe).sum(), w4)
+    vv = v.clone().requires_grad_(True)
+    (gv,) = torch.autograd.grad((_e_twin(x, vv, demod, nb, wrgb) * probe).sum(), vv)
+    taps = K.unfold_conv1_weights(gw4)
+    torch.testing.assert_close(taps, gv, rtol=0, atol=1e-5 * float(gv.abs().max()))
+    rest = gw4.clone()
+    rest[:5].zero_()
+    assert float(rest.abs().max()) == 0.0
+    assert int(torch.count_nonzero(gw4[:5])) == int(torch.count_nonzero(K.fold_conv1_weights(gv)[:5]))
+
+
+# ---------------------------------------------------------------------------
+# The row-streaming engine of kernels C and D (csrc/stencil4.cuh), emulated
+# ---------------------------------------------------------------------------
+
+STAGES, MAX_UNIT_THREADS, BLOCK_THREADS = 4, 512, 128  # stencil4.cuh's constants
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def stencil4_split(elem_bytes, w_out):
+    """stencil4.cuh::split_column: the first column of the second launch (a
+    few columns past a multiple of a warp's), or w_out."""
+    v = 16 // elem_bytes
+    need = _ceil(w_out, v)
+    if need <= 16:
+        return w_out
+    base = need // 32 * 32 if need >= 32 else 16
+    return base * v if 0 < need - base <= max(base // 8, 1) else w_out
+
+
+def stencil4_plan(elem_bytes, planes, h_out, j_base, w_end, block_threads=BLOCK_THREADS):
+    """stencil4.cuh::plan for output columns [j_base, w_end) in blocks of at
+    least `block_threads`: threads per unit, units per block, column tiles,
+    strip rows."""
+    v = 16 // elem_bytes
+    need = _ceil(w_end - j_base, v)
+    if need <= 16:
+        tpr = 1
+        while tpr < need:
+            tpr *= 2
+    else:
+        tpr = min(_ceil(need, 32) * 32, MAX_UNIT_THREADS)
+    col_tiles = _ceil(need, tpr)
+    units = block_threads // tpr if tpr < block_threads else 1
+    units = min(units, 48 * 1024 // (STAGES * (tpr + 2) * 16))  # rings that fit 48 KB
+    blocks_x = _ceil(planes * col_tiles, units)
+    want = 132 * (2048 // (tpr * units)) * 4
+    min_rows = 8 if j_base > 0 else 32  # a row's second column launch: short strips
+    strips = max(min(_ceil(want, blocks_x), _ceil(h_out, min_rows)), _ceil(h_out, 256), 1)
+    rh = _ceil(h_out, strips)
+    return dict(v=v, tpr=tpr, units=units, col_tiles=col_tiles, tile_w=tpr * v, rh=rh,
+                j_base=j_base, w_end=w_end,
+                grid=(blocks_x, _ceil(h_out, rh)),
+                smem=units * STAGES * (tpr + 2) * 16)
+
+
+def _d_rows(taps):
+    """Kernel D's Stencil16::row on (lanes, V+3) fp32 values: tap row a of
+    output row k - a, partial sums in row-major tap order."""
+    k = [np.float32(t) for t in taps]
+
+    def row(acc, r, v, n_out):
+        o = np.empty((v.shape[0], n_out), np.float32)
+        for m in range(n_out):
+            s = [None] * 4
+            s[0] = k[0] * v[:, m]
+            for a in range(4):
+                if a:
+                    s[a] = acc[(r - a) % 4][:, m]
+                for b in range(int(a == 0), 4):
+                    s[a] = s[a] + k[4 * a + b] * v[:, m + b]
+            acc[r][:, m], acc[(r + 3) % 4][:, m], acc[(r + 2) % 4][:, m] = s[0], s[1], s[2]
+            o[:, m] = s[3]
+        return o
+
+    return row
+
+
+def _c_rows(taps):
+    """Kernel C's Separable4::row: vertical partial sums of V+3 columns, then
+    the horizontal 4-tap on the finished row."""
+    t = [np.float32(v) for v in taps]
+
+    def row(acc, r, v, n_out):
+        for m in range(n_out + 3):
+            for a in (3, 2, 1):
+                acc[(r - a) % 4][:, m] = acc[(r - a) % 4][:, m] + t[a] * v[:, m]
+        s = acc[(r + 1) % 4]
+        o = np.empty((v.shape[0], n_out), np.float32)
+        for m in range(n_out):
+            o[:, m] = t[0] * s[:, m] + t[1] * s[:, m + 1] + t[2] * s[:, m + 2] + t[3] * s[:, m + 3]
+        acc[r][:, :n_out + 3] = t[0] * v[:, :n_out + 3]
+        return o
+
+    return row
+
+
+def stencil4_emulate(x, elem_bytes, row_op, pad0, w_in, h_out, w_out, misalign=0,
+                     planes=None, blocks=None):
+    """
+    stencil4.cuh::stream_strip in numpy, lanes vectorised: the plan, strip
+    starts, ring slots (loads issued 3 rows ahead into the slot of row k-1),
+    16-byte chunks aligned down from each row's first needed element, chunks
+    skipped outside [0, w_in), the element-wise copy of chunks that cross the
+    tensor's ends, the alignment offset, the three shared loads per thread,
+    the pad zeros and the stores realigned across lanes. x (P, h, ld) holds
+    fp32 values (bf16 ones
+    exactly); element 0 sits `misalign` elements past a 16-byte boundary.
+    Slots start as NaN and every skipped chunk is NaN, so a value read but
+    not zeroed shows in the output. Returns (out with NaN where nothing was
+    stored, the plan, a count of chunk copies by kind).
+    """
+    n_planes, h, ld = x.shape
+    flat = x.reshape(-1)
+    n = flat.size
+    base = 4096 + misalign * elem_bytes  # address of element 0
+    end = base + n * elem_bytes
+    out = np.full((n_planes, h_out, w_out), np.nan, np.float32)
+    stored = np.zeros(out.shape, np.int32)
+    copies = {"cp.async": 0, "guarded": 0}
+    split = stencil4_split(elem_bytes, w_out)
+    plans = [stencil4_plan(elem_bytes, planes or n_planes, h_out, 0, split)]
+    if split < w_out:  # the second part, in blocks of the first part's size
+        threads = plans[0]["tpr"] * plans[0]["units"]
+        plans.append(stencil4_plan(elem_bytes, planes or n_planes, h_out, split, w_out, threads))
+    for g in plans:
+        _emulate_launch(g, flat, base, end, elem_bytes, row_op, pad0, w_in, h, ld, h_out, w_out,
+                        planes or n_planes, out, stored, copies,
+                        blocks if blocks is not None else
+                        [(bx, by) for by in range(g["grid"][1]) for bx in range(g["grid"][0])])
+    assert stored.max() <= 1, "an output was stored twice"
+    return out, plans[0], copies
+
+
+def _emulate_launch(g, flat, base, end, elem_bytes, row_op, pad0, w_in, h, ld, h_out, w_out,
+                    planes, out, stored, copies, blocks):
+    """One launch of stream_strip over `blocks`, into out and stored."""
+    v, tpr, chunks = g["v"], g["tpr"], g["tpr"] + 2
+    w_end, n = g["w_end"], flat.size
+    lanes = np.arange(tpr)
+
+    def store_row(o, plane, i, unit, jt):
+        """stencil4.cuh::store_row: the output row's alignment a (the output
+        starts on a 16-byte boundary); a lane with a previous lane in its warp
+        and unit stores that lane's last a values, one at a warp's or unit's
+        end stores its own."""
+        def put(col, value):
+            assert 0 <= col < w_out
+            out[plane, i, col] = value
+            stored[plane, i, col] += 1
+
+        for lane in np.nonzero(jt < w_end)[0]:
+            warp_lane = (unit * tpr + lane) % 32
+            has_prev = warp_lane != 0 and lane != 0
+            tail_self = warp_lane == 31 or lane == tpr - 1 or jt[lane] + v >= w_end
+            count = w_end - jt[lane]
+            a = ((plane * h_out + i) * w_out + jt[lane]) % v
+            if has_prev:
+                for m in range(a):
+                    put(jt[lane] - a + m, o[lane - 1, v - a + m])
+            for m in range(min(v - a, count)):
+                put(jt[lane] + m, o[lane, m])
+            if tail_self or a == 0:
+                for m in range(v - a, min(v, count)):
+                    put(jt[lane] + m, o[lane, m])
+
+    for bx, by in blocks:
+        for unit in range(g["units"]):
+            unit_id = bx * g["units"] + unit
+            if unit_id >= planes * g["col_tiles"] or bx >= g["grid"][0] or by >= g["grid"][1]:
+                continue
+            plane, tile = divmod(unit_id, g["col_tiles"])
+            if plane * h * ld >= n:
+                continue  # a plane the caller left out
+            j0 = g["j_base"] + tile * g["tile_w"]
+            cs = j0 - pad0
+            i0 = by * g["rh"]
+            nk = min(g["rh"], h_out - i0) + 3
+            ring = np.full((STAGES, chunks, v), np.nan, np.float32)
+
+            def row_in(k):
+                return k < nk and 0 <= i0 - pad0 + k < h
+
+            def first(k):
+                return base + ((plane * h + i0 - pad0 + k) * ld + cs) * elem_bytes
+
+            def load(k):
+                if not row_in(k):
+                    return
+                f = first(k)
+                a = f & ~15
+                off = (f - a) // elem_bytes
+                stage = ring[k % STAGES]
+                stage[:] = np.nan  # what the slot held before: never to be used
+                for c in range(chunks):
+                    col = cs - off + c * v
+                    if col + v <= 0 or col >= w_in:
+                        continue
+                    src = a + 16 * c
+                    e0 = (src - base) // elem_bytes
+                    if src >= base and src + 16 <= end:
+                        stage[c] = flat[e0:e0 + v]
+                        copies["cp.async"] += 1
+                    else:
+                        idx = e0 + np.arange(v)
+                        ok = (idx >= 0) & (idx < n)
+                        stage[c] = np.where(ok, flat[np.clip(idx, 0, n - 1)], 0.0)
+                        copies["guarded"] += 1
+
+            jt = j0 + lanes * v
+            c_first = cs + lanes * v
+            cols = c_first[:, None] + np.arange(v + 3)
+            acc = [np.zeros((tpr, v + 3), np.float32) for _ in range(4)]
+            for k in range(STAGES - 1):
+                load(k)
+            for k in range(nk):
+                load(k + STAGES - 1)
+                if row_in(k):
+                    off = (first(k) & 15) // elem_bytes
+                    words = np.concatenate([ring[k % STAGES, lanes + d] for d in range(3)], axis=1)
+                    vals = words[:, off:off + v + 3]
+                    vals = np.where((cols < 0) | (cols >= w_in), np.float32(0), vals)
+                else:
+                    vals = np.zeros((tpr, v + 3), np.float32)
+                o = row_op(acc, k % 4, vals, v)
+                if k >= 3:
+                    store_row(o, plane, i0 + k - 3, unit, jt)
+
+
+def _bits(values, dtype):
+    return torch.from_numpy(np.ascontiguousarray(values)).to(dtype)
+
+
+def _d_case(rng, h, w, pads, dtype, misalign, planes=2, taps=None):
+    x = _bits(rng.randn(planes, h, w).astype(np.float32), dtype)
+    taps = np.asarray(FIR_1234 + rng.randn(4, 4) * 0.01, np.float32) if taps is None else taps
+    p0, p1 = pads
+    h_out, w_out = h + p0 + p1 - 3, w + p0 + p1 - 3
+    elem = x.element_size()
+    got, g, copies = stencil4_emulate(x.float().numpy(), elem, _d_rows(taps.reshape(-1)), p0, w,
+                                      h_out, w_out, misalign)
+    want = K.stencil_blur4_valid_plain(x[None], taps, pads)[0]
+    return _bits(got, dtype), want, g, copies
+
+
+def _c_case(rng, h, wp, w_logical, dtype, misalign, planes=2, taps=TAPS_1234):
+    x = rng.randn(planes, h, wp).astype(np.float32)
+    x[..., w_logical:] = np.nan  # junk columns: never used
+    x = _bits(x, dtype)
+    got, g, copies = stencil4_emulate(x.float().numpy(), x.element_size(), _c_rows(taps), 1,
+                                      w_logical, h - 1, w_logical - 1, misalign)
+    want = K.blur4_separable_pad11_plain(x[None], taps, w_logical)[0]
+    return _bits(got, dtype), want, g, copies
+
+
+ENGINE_WIDTHS = {"1-9": range(1, 10), "63-67": range(63, 68), "1023-1025": range(1023, 1026),
+                 "2049": range(2049, 2050)}  # 2049: a 512-thread unit and a capped second part
+
+
+@pytest.mark.parametrize("widths", sorted(ENGINE_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil4_emulation_of_d_matches_twin_bit_for_bit(rng, widths, dtype):
+    """Kernel D's index map and arithmetic through the emulated engine, at
+    ragged widths, every pad pair on the path and the one-sided ones, a
+    height below one strip and one of several strips (whose rows are no
+    multiple of 4), and rows starting at every alignment: bit for bit with
+    the twin, each output stored once, both kinds of chunk copy exercised."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    copies = {"cp.async": 0, "guarded": 0}
+    for w in ENGINE_WIDTHS[widths]:
+        for pads in [(0, 3), (3, 0), (2, 2), (1, 1), (0, 0), (3, 3)]:
+            for h in (5, 75) if w < 100 else (6,):
+                if h + sum(pads) < 4 or w + sum(pads) < 4:
+                    continue
+                got, want, g, c = _d_case(rng, h, w, pads, dtype, misalign=(w + h) % vec)
+                assert g["tile_w"] * g["col_tiles"] >= g["w_end"] - g["j_base"]
+                assert torch.equal(got, want), (w, h, pads, dtype)
+                copies = {k: copies[k] + c[k] for k in c}
+    assert copies["cp.async"] > 0 and copies["guarded"] > 0
+
+
+@pytest.mark.parametrize("widths", sorted(ENGINE_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil4_emulation_of_c_matches_twin_bit_for_bit(rng, widths, dtype):
+    """Kernel C through the emulated engine: ragged w_logical with NaN junk
+    columns up to the row stride, heights below and above one strip, every
+    row alignment; bit for bit with the twin."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    for w_logical in ENGINE_WIDTHS[widths]:
+        if w_logical < 2:
+            continue
+        for extra in (0, 5):
+            for h in (2, 4, 71) if w_logical < 100 else (5,):
+                got, want, _, _ = _c_case(rng, h, w_logical + extra, w_logical, dtype,
+                                          misalign=(w_logical + h + extra) % vec)
+                assert torch.equal(got, want), (w_logical, extra, h, dtype)
+
+
+@pytest.mark.parametrize("misalign", range(8))
+def test_stencil4_emulation_bf16_every_row_alignment(rng, misalign):
+    """bf16 rows starting at every 2-byte offset mod 16, for D and C."""
+    got, want, _, _ = _d_case(rng, 9, 37, (2, 1), torch.bfloat16, misalign)
+    assert torch.equal(got, want)
+    got, want, _, _ = _c_case(rng, 9, 40, 37, torch.bfloat16, misalign)
+    assert torch.equal(got, want)
+
+
+def _path_shapes():
+    """(kernel, batch * channels, h, w, pads) of every C and D launch on the
+    1024px config-f path (chip_smoke.py's shapes)."""
+    def nf(stage):
+        return min(int(32768 / 2.0 ** stage), 512)
+
+    shapes = [("C", 8 * nf(res - 1), 2 ** res + 1, 2 ** res + 1, (1, 1)) for res in range(3, 11)]
+    shapes += [("D", 4 * nf(res - 1), 2 ** res, 2 ** res, pads)
+               for res in range(10, 2, -1) for pads in ((2, 2), (1, 1))]
+    return shapes + [("D", 4 * 64, 1024, 1024, (2, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil4_plan_at_path_shapes(dtype):
+    """At every path shape the plan fits a launch (48 KB of shared memory, the
+    grid's limits, at most 512 threads), takes one column tile (the 1023- to
+    1025-wide planes included; a width a few columns past a multiple of a
+    warp's sends those columns to a second part of the launch, in blocks of
+    the same size), gives under half of a unit's columns to idle lanes, and
+    uses strips of at most 256 rows."""
+    elem = 4 if dtype == torch.float32 else 2
+    for kernel, planes, h, w, (p0, p1) in _path_shapes():
+        h_out, w_out = h + p0 + p1 - 3, w + p0 + p1 - 3
+        split = stencil4_split(elem, w_out)
+        threads = None
+        for lo, hi in ((0, split), (split, w_out)):
+            if lo == hi:
+                continue
+            g = stencil4_plan(elem, planes, h_out, lo, hi, threads or BLOCK_THREADS)
+            threads = threads or g["tpr"] * g["units"]
+            assert g["tpr"] * g["units"] <= threads <= MAX_UNIT_THREADS and g["smem"] <= 48 * 1024
+            assert g["grid"][0] < 2 ** 31 and g["grid"][1] <= 65535
+            assert g["col_tiles"] == 1 and g["tile_w"] >= hi - lo
+            assert g["tpr"] * g["v"] - (hi - lo) < max(g["v"], g["tile_w"] // 2), (kernel, w, g)
+            assert g["rh"] <= 256 and g["grid"][1] * g["rh"] >= h_out
+
+
+@pytest.mark.parametrize("kernel", ["C", "D"])
+def test_stencil4_emulation_at_the_top_path_shapes(rng, kernel):
+    """The largest planes of the path (1025 columns) in fp32 and bf16, the
+    first plane with the plans of the whole launches (both column ranges
+    where the width is split): bit for bit with the twin."""
+    for dtype in (torch.float32, torch.bfloat16):
+        elem = 4 if dtype == torch.float32 else 2
+        if kernel == "C":
+            planes, h, pads = 8 * 64, 1025, (1, 1)
+            h_out, w_out = 1024, 1024
+        else:
+            planes, h, pads = 4 * 64, 1024, (2, 2)
+            h_out, w_out = 1025, 1025
+        x = _bits(rng.randn(1, h, h).astype(np.float32), dtype)
+        if kernel == "C":
+            got, _, _ = stencil4_emulate(x.float().numpy(), elem, _c_rows(TAPS), 1, h, h_out,
+                                         w_out, planes=planes)
+            want = K.blur4_separable_pad11_plain(x[None], TAPS)[0]
+        else:
+            got, _, _ = stencil4_emulate(x.float().numpy(), elem, _d_rows(FIR_1234.reshape(-1)),
+                                         2, h, h_out, w_out, planes=planes)
+            want = K.stencil_blur4_valid_plain(x[None], FIR_1234, pads)[0]
+        assert torch.equal(_bits(got, dtype), want)

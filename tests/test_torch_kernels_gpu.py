@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
+from gance_tpu_torch.ops.precision import exact_fp32  # noqa: E402
 
 TAPS = (0.25, 0.75, 0.75, 0.25)
 TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # the root of the non-symmetric FIR (1, 2, 3, 4)
@@ -212,3 +213,108 @@ def test_function_gradients_on_gpu_match_cpu(cuda_device, name):
     assert all(float(g.abs().max()) > 0 for g in got[0])
     if name in ("C", "D"):
         assert K.LAUNCHES["stencil_blur4_valid"] > before
+
+
+RAGGED_WIDTHS = list(range(1, 10)) + list(range(63, 68)) + list(range(1023, 1026)) + [2049]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_blur4_valid_ragged_on_gpu(cuda_device, dtype):
+    """Kernel D bit for bit against its twin at the engine's ragged cases:
+    widths 1-9, 63-67 and 1023-1025 (below one thread's 16 bytes, below a
+    warp, one past a power of two), heights below one strip and over several,
+    every pad pair (p0, p1) in {0..3}^2 and a non-symmetric FIR."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    k = FIR_1234 + np.random.RandomState(1).randn(4, 4) * 0.01
+    launches = K.LAUNCHES["stencil_blur4_valid"]
+    count = 0
+    for w in RAGGED_WIDTHS:
+        for h in (3, 7, 300) if w < 100 else (4, 130):
+            x = torch.randn((2, 3, h, w), generator=gen, device=cuda_device).to(dtype)
+            for p0 in range(4):
+                for p1 in range(4):
+                    if h + p0 + p1 < 4 or w + p0 + p1 < 4:
+                        continue
+                    got = K.stencil_blur4_valid(x, k, (p0, p1))
+                    want = K.stencil_blur4_valid_plain(x, k, (p0, p1))
+                    assert torch.equal(got, want), (h, w, p0, p1)
+                    count += 1
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["stencil_blur4_valid"] == launches + count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blur4_separable_pad11_ragged_on_gpu(cuda_device, dtype):
+    """Kernel C bit for bit against its twin at ragged w_logical (2-9, 63-67,
+    1023-1025), with NaN junk columns up to the row stride, heights below one
+    strip and over several, the binomial and the non-symmetric FIR."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    for w_logical in RAGGED_WIDTHS[1:]:
+        for extra in (0, 3, 9):
+            for h in (2, 5, 300) if w_logical < 100 else (3, 130):
+                x = torch.randn((2, 3, h, w_logical + extra), generator=gen,
+                                device=cuda_device).to(dtype)
+                x[..., w_logical:] = float("nan")
+                for taps in (TAPS, TAPS_1234):
+                    got = K.blur4_separable_pad11(x, taps, w_logical)
+                    want = K.blur4_separable_pad11_plain(x, taps, w_logical)
+                    assert torch.equal(got, want), (h, w_logical, extra, taps)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", range(8))
+def test_stencils_bf16_at_every_row_alignment_on_gpu(cuda_device, offset):
+    """bf16 inputs that start `offset` elements (2 bytes each) past a 16-byte
+    boundary, with odd widths, so that rows start at every alignment; the
+    outputs land misaligned too. C and D bit for bit against their twins."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    shape = (2, 4, 37, 41)
+    n = int(np.prod(shape))
+    buf = torch.randn(n + 16, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x = buf[offset:offset + n].view(shape)
+    assert x.data_ptr() % 16 == 2 * offset
+    for pads in [(2, 2), (1, 1), (0, 3), (3, 0)]:
+        assert torch.equal(K.stencil_blur4_valid(x, FIR_1234, pads),
+                           K.stencil_blur4_valid_plain(x, FIR_1234, pads)), pads
+    for w_logical in (41, 38):
+        assert torch.equal(K.blur4_separable_pad11(x, TAPS_1234, w_logical),
+                           K.blur4_separable_pad11_plain(x, TAPS_1234, w_logical)), w_logical
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_phase_conv1_torgb_gradients_on_gpu_match_cpu(cuda_device):
+    """First and second order gradients through E's Function on the card (the
+    forward launches kernel E) against the same through the dense twin on
+    the CPU, within 1e-4 of each gradient's scale (E's fp32 sums and cuDNN's
+    take another order than the CPU's)."""
+    rng = np.random.RandomState(8)
+    b, c, h = 2, 16, 9
+    arrays = [(rng.randn(b, 4 * c, h, h) * 0.5), rng.randn(c, c, 3, 3) * (9 * c) ** -0.5,
+              rng.rand(b, 4 * c) + 0.5, rng.randn(1, 4 * c, h + 1, h + 1) * 0.1,
+              rng.randn(b, 4 * c, 16) * (4 * c) ** -0.5]
+    arrays[4][:, :, 12:] = 0.0
+
+    def grads(device):
+        ts = [torch.tensor(np.asarray(a, np.float32), device=device, requires_grad=True)
+              for a in arrays]
+        fn = K.phase_conv1_torgb if device != "cpu" else K.phase_conv1_torgb_plain
+        y = fn(ts[0], K.fold_conv1_weights(ts[1]), *ts[2:])
+        gen = torch.Generator().manual_seed(9)
+        w = torch.randn(y.shape, generator=gen).to(device)
+        first = torch.autograd.grad((y.square() * w).sum(), ts, create_graph=True)
+        u = [torch.randn(t.shape, generator=gen).to(device) for t in ts]
+        second = torch.autograd.grad(sum((g * v).sum() for g, v in zip(first, u)), ts)
+        return [g.detach().cpu() for g in first + second]
+
+    launches = K.LAUNCHES["phase_conv1_torgb"]
+    with exact_fp32():  # the double backward's convolutions too: no TF32
+        got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["phase_conv1_torgb"] == launches + 1
+    for g, r in zip(got, grads("cpu")):
+        scale = float(r.abs().max())
+        assert scale > 0 and float((g - r).abs().max()) <= 1e-4 * scale

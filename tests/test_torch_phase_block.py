@@ -14,7 +14,10 @@ Tolerances, each with its reason:
   * uint8 frames: within 1 step on at least 99.9% of pixels (a float that
     differs in its last bits may floor to the neighbouring step);
   * resize_images: 1e-5 (the same weights; JAX contracts the two axes in one
-    einsum, the port in two products).
+    einsum, the port in two products);
+  * the dlatent gradient through the phase path (kernel E's Function)
+    against jax.grad of JAX's phase path and the port's standard path: 1e-4
+    of the gradient's scale (the same operator, reassociated).
 """
 
 import pytest
@@ -416,6 +419,37 @@ def test_phase_path_matches_standard_path(small_network):
                                             phase_top_block_mode=True))
     got = port_g.synthesis_apply(tparams, dl, port_config, phase_top_block_mode=True)
     np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("noise_mode", ["const", "none"])
+def test_phase_path_dlatent_gradient_matches_jax_and_standard_path(small_network, noise_mode):
+    """The gradient of sum(images * probe) with respect to the dlatents
+    through the port's phase path (kernel E's Function) against jax.grad of
+    JAX's phase path (XLA's phase_top_block) on the same params, and against
+    the port's standard path: within 1e-4 of the gradient's scale (the same
+    operator, reassociated)."""
+    _, params, config = small_network
+    port_config = port_g.GeneratorConfig(**SMALL)
+    tparams = params_to_device(params_from_reference(params), CPU)
+    rng = np.random.RandomState(6)
+    dl = rng.randn(2, 8, 32).astype(np.float32)
+    probe = rng.randn(2, 32, 32, 3).astype(np.float32)
+
+    def port_grad(phase):
+        d = torch.tensor(dl, requires_grad=True)
+        images = port_g.synthesis_apply(tparams, d, port_config, noise_mode=noise_mode,
+                                        phase_top_block_mode=phase)
+        (grad,) = torch.autograd.grad((images * torch.from_numpy(probe)).sum(), d)
+        return grad.numpy()
+
+    want = np.asarray(jax.grad(lambda d: jnp.sum(jax_g.synthesis_apply(
+        params, d, config, noise_mode=noise_mode, phase_top_block_mode=True) * probe))(
+            jnp.asarray(dl)))
+    got = port_grad(True)
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(got, port_grad(False), rtol=0, atol=1e-4 * scale)
 
 
 def test_multi_network_passes_output_side_length(monkeypatch, small_network):

@@ -21,6 +21,10 @@ gance_tpu's, on the CPU.
     0 may move by anything up to 2 lr on a gradient difference far below
     fp32 noise; such elements (|JAX update| < 0.99 lr while non-zero) are held
     only to 2 lr, and must be under 1% of a leaf;
+  * a train step on the phase path (GANCE_TPU_PHASE1024=on, path length
+    differentiating through kernel E's Function twice) against the standard
+    path with the same draws, at the 32px golden config: losses within 1e-4
+    relative, G's gradients within 1e-3 of each leaf's norm;
   * a bf16 step (finite, losses within 5e-2 relative of fp32), checkpoint
     resume (2 + 2 steps equal 4 bit for bit), the draws, the dataset, and the
     CLI with `--device cpu` (resume, then an export that loads in both
@@ -412,6 +416,59 @@ def test_checkpoint_resume_is_bit_exact(tmp_path):
         for (_, x), (_, y) in zip(port_training.tree_leaves(a["nu"]),
                                   port_training.tree_leaves(b["nu"])):
             assert np.array_equal(x, y)
+
+
+GOLDEN_KW = dict(resolution=32, fmap_base=512, fmap_max=64, latent_size=32, dlatent_size=32,
+                 mapping_layers=2, mapping_fmaps=32)  # tests/test_golden_image.py's config
+
+
+def test_phase_path_train_step_matches_standard_path(monkeypatch):
+    """One train step with R1 and path length, GANCE_TPU_PHASE1024=on against
+    off, with the same state and draws, at the 32px golden config (a 32-channel
+    top block, so the phase path applies): the phase path runs kernel E's
+    Function in the three syntheses (fakes for D, fakes for G, PL's batch)
+    and PL differentiates through E twice. Losses within 1e-4 relative; the
+    G step's gradients within 1e-3 of each leaf's norm (the same operator,
+    reassociated)."""
+    config = port_g.GeneratorConfig(**GOLDEN_KW)
+    assert port_g.resolve_phase_top_block(config, True)
+    reals = torch.from_numpy(np.random.RandomState(8).uniform(-1, 1, (BATCH, 32, 32, 3))
+                             .astype(np.float32))
+    draws = port_training.draw_step(6, 0, BATCH, config, PORT_TC, CPU)
+    from gance_tpu_torch.ops.cuda import fused_ops as K
+
+    runs = []
+    real_run = K._phase_conv1_torgb_run
+
+    def counted(*args):
+        runs.append(args[0].shape)
+        return real_run(*args)
+
+    monkeypatch.setattr(K, "_phase_conv1_torgb_run", counted)
+    results = {}
+    for mode in ("off", "on"):
+        monkeypatch.setenv("GANCE_TPU_PHASE1024", mode)
+        runs.clear()
+        state = port_training.init_training_state(2, config, PORT_TC, CPU)
+        grads, _ = port_training.g_step_gradients(state.g_params, state.d_params, draws,
+                                                  state.pl_mean, True, config, PORT_TC)
+        _, metrics = port_training.make_train_step(config, PORT_TC)(state, reals, draws)
+        results[mode] = grads, {k: float(v) for k, v in metrics.items()}
+        # g_step_gradients: G's fakes and PL's batch; the step: D's fakes too
+        assert [r[0] for r in runs] == ([BATCH, BATCH // 2, BATCH, BATCH, BATCH // 2]
+                                        if mode == "on" else [])
+    (g_off, m_off), (g_on, m_on) = results["off"], results["on"]
+    for name in ("d_loss", "g_loss", "r1", "pl", "pl_length"):
+        assert m_off[name] != 0.0, name
+        assert abs(m_on[name] - m_off[name]) <= 1e-4 * abs(m_off[name]), name
+    leaves = port_training.tree_leaves(port_training.init_training_state(
+        2, config, PORT_TC, CPU).g_params)
+    for (path, _), a, b in zip(leaves, g_on, g_off):
+        norm = float(b.norm())
+        if norm == 0.0:
+            assert float(a.abs().max()) == 0.0, path
+            continue
+        assert float((a - b).norm()) <= 1e-3 * norm, path
 
 
 def test_draw_step_is_a_function_of_seed_and_step():
