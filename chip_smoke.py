@@ -13,8 +13,11 @@ in order (any failure exits non-zero; no phase's failure is caught):
    the 1024px config-f path gives it at batch 8, in fp32 and bf16, and times
    the kernel, the twin, one PyTorch library call that computes the same
    function where there is one, and the least time the card could take
-   (bound). A, B and C round like their twins: fp32 max abs error at most 1e-5
-   of the output's scale, bf16 at most 2 bf16 ulps. E takes the nine taps of
+   (bound). A and B must equal their twins bit for bit; C rounds like its
+   twin: fp32 max abs error at most 1e-5 of the output's scale, bf16 at most
+   2 bf16 ulps. A is also held with
+   per-sample noise at training's (4, 64, 1024, 1024), and A and B with x
+   one element past a 16-byte boundary (their scalar paths). E takes the nine taps of
    its folded Conv1 weight (576 conv terms per output) and 256 ToRGB terms,
    its twin the dense fold (1024 terms), summed in another order: fp32 at
    most 1e-4 of the output's scale, bf16 at most 1e-2 (z and the output
@@ -233,21 +236,32 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
     k2d = torch.tensor(np.outer(TAPS, TAPS), dtype=torch.float32, device="cuda")
     records = []
     for name, shapes in path_shapes(config).items():
-        # (shape, launches per forward, option): option is C's w_logical or B's taps
-        cases = [(s, n, TAPS if name == "upsample2x_blur" else None) for s, n in shapes]
+        # (shape, launches per forward, option, offset): option is C's w_logical,
+        # B's taps or A's noise batch; offset puts x's base that many elements
+        # past a 16-byte boundary (a contiguous view with a storage offset)
+        cases = [(s, n, TAPS if name == "upsample2x_blur" else None, 0) for s, n in shapes]
+        if name == "fused_bias_noise_lrelu":
+            top = shapes[-1][0]
+            cases.append(((TRAIN_BATCH,) + top[1:], 0, TRAIN_BATCH, 0))  # per-sample noise
+            cases.append((top, 0, None, 1))  # a misaligned base: A's scalar path
         if name == "blur4_separable_pad11":
             # junk columns past an odd w_logical, filled with NaN: never read
             b, c, h, _ = shapes[-1][0]
-            cases.append(((b, c, h, h + 15), 0, h))
+            cases.append(((b, c, h, h + 15), 0, h, 0))
         if name == "upsample2x_blur":
-            cases.append((shapes[-1][0], 0, TAPS_1234))  # a FIR that is not symmetric
+            cases.append((shapes[-1][0], 0, TAPS_1234, 0))  # a FIR that is not symmetric
+            cases.append((shapes[-1][0], 0, TAPS, 1))  # a misaligned base: B's scalar path
         sums = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
                 for d in ("float32", "bfloat16")}
         totals = sums["float32"]
         max_err, bound_by = 0.0, "bytes"
-        for shape, per_forward, option in cases:
+        for shape, per_forward, option, offset in cases:
             for dtype in (torch.float32, torch.bfloat16):
-                x = randn(shape, dtype)
+                if offset:
+                    count = math.prod(shape)
+                    x = randn((count + 16,), dtype)[offset:offset + count].view(shape)
+                else:
+                    x = randn(shape, dtype)
                 b, c, h, w = shape
                 size = x.element_size()
                 library: Optional[Callable[[], torch.Tensor]] = None
@@ -255,7 +269,8 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                 tolerance: Dict[str, float] = {}
                 flops_per_s = FP32_FLOPS_PER_S
                 if name == "fused_bias_noise_lrelu":
-                    noise, bias = randn((1, 1, h, w), torch.float32), randn((c,), torch.float32)
+                    noise = randn((option or 1, 1, h, w), torch.float32)
+                    bias = randn((c,), torch.float32)
                     strength = torch.tensor(0.37, device="cuda")
                     run = lambda: K.fused_bias_noise_lrelu(x, noise, bias, strength)  # noqa: E731
                     plain = lambda: K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)  # noqa: E731
@@ -314,13 +329,20 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                     outs = b * c * (h - 1) * (wl - 1)
                     moved, flops = (b * c * h * wl + outs) * size, 16 * outs
                 label = f"{name} {tuple(shape)} {str(dtype)[6:]}"
-                if option is not None and name != "upsample2x_blur":
+                if name == "fused_bias_noise_lrelu" and option:
+                    label += f" noise {tuple(noise.shape)}"
+                elif option is not None and name == "blur4_separable_pad11":
                     label += f" w_logical={option}"
                 elif name == "upsample2x_blur" and option != TAPS:
                     label += f" taps={option}"
+                if offset:
+                    label += f" x at {offset} element past a 16-byte boundary"
                 got, want = run(), plain()
                 torch.cuda.synchronize()
-                err = check_close(label, got, want, **tolerance)
+                if name in ("fused_bias_noise_lrelu", "upsample2x_blur"):  # bit for bit
+                    err = check_close(label, got, want, fp32_rel=0.0, bf16_rel=0.0)
+                else:
+                    err = check_close(label, got, want, **tolerance)
                 lib_ms = None
                 if library is not None:
                     if dtype == torch.float32:  # the yardstick computes the same function

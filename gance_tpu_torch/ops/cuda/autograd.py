@@ -2,8 +2,10 @@
 Gradients through kernels A-E: one `torch.autograd.Function` per kernel.
 
 The public wrappers in `fused_ops.py` go through these Functions on both
-devices. A Function's forward runs the kernel on a CUDA tensor and its plain
-twin on a CPU tensor; its backward is built only from differentiable calls,
+devices wherever a gradient may be asked for (grad enabled and an input that
+requires it); otherwise they call the forward's `_*_run` directly. A
+Function's forward runs the kernel on a CUDA tensor and its plain twin on a
+CPU tensor; its backward is built only from differentiable calls,
 so a double backward (R1 through the discriminator, path length through
 synthesis) works and, on the card, launches the kernels again:
 

@@ -16,15 +16,22 @@ backward.
 | D stencil_blur4_valid | fused_ops.py (pallas_call :447) | stencil_blur4_valid.cu |
 | E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
 
-Every wrapper goes through its `torch.autograd.Function` in `autograd.py` on
-both devices, so gradients of every order pass through the kernels (E's
+Where a gradient may be asked for (grad enabled and an input that requires
+it), every wrapper goes through its `torch.autograd.Function` in `autograd.py`
+on both devices, so gradients of every order pass through the kernels (E's
 backward is plain PyTorch, as in the JAX package, whose phase path is XLA
-under grad). A-D are memory-bound on the H100, E is bound by its operations;
-each source file states its bound and design. Every kernel takes
+under grad). Otherwise (`torch.inference_mode`, `torch.no_grad`, or no input
+that requires grad) it calls the Function's forward, `_*_run`, directly: the
+same output without the Function's per-call cost. The launch path is kept
+lean for the small layers, whose time is host time: no device object is
+built, and the stream is PyTorch's current raw stream. A-D are memory-bound
+on the H100, E is bound by its operations; each source file states its bound
+and design. Every kernel takes
 NCHW-contiguous fp32 or bf16 activations and sums in fp32.
 """
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -57,28 +64,44 @@ def reset_launch_counts() -> None:
 
 def _on_cpu(x: torch.Tensor) -> bool:
     """True for a CPU tensor (use the twin); False for CUDA; raises otherwise."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return True
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"unsupported device {x.device}")
     return False
 
 
-def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> None:
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd may ask for a gradient of the result: grad enabled
+    and some input requires grad. The wrappers take their Function then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _float32(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32; t itself when it is (`Tensor.to` costs microseconds even then)."""
+    return t if t.dtype == torch.float32 else t.to(torch.float32)
+
+
+def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; return x's device index."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
-    if x.device.index != torch.cuda.current_device():
+    device = x.get_device()
+    if device != torch._C._cuda_getDevice():
         raise ValueError(f"{name}: tensor on {x.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
     for t in (x, *others):
-        if t.device != x.device:
+        if t.get_device() != device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    return device
 
 
-def _launch(name: str, library: str, *args) -> None:
-    rc = build.load(library)(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, library: str, device: int, *args) -> None:
+    """Launch on PyTorch's current stream of `device` (its raw handle, no
+    Stream object)."""
+    rc = build.load(library)(*args, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
@@ -118,10 +141,12 @@ def fused_bias_noise_lrelu(
                          f"bias {tuple(bias.shape)}")
     if strength.numel() != 1:
         raise ValueError("strength must hold one value")
-    return _autograd.FusedBiasNoiseLrelu.apply(
-        x, noise.to(torch.float32), bias.to(torch.float32),
-        strength.to(torch.float32).reshape(()),
-    )
+    strength = _float32(strength)
+    args = (x, _float32(noise), _float32(bias),
+            strength.reshape(()) if strength.dim() else strength)
+    if _needs_grad(*args):
+        return _autograd.FusedBiasNoiseLrelu.apply(*args)
+    return _fused_bias_noise_lrelu_run(*args)
 
 
 def _fused_bias_noise_lrelu_run(
@@ -132,10 +157,10 @@ def _fused_bias_noise_lrelu_run(
         return fused_bias_noise_lrelu_plain(x, noise, bias, strength)
     b, c, h, w = x.shape
     noise, bias, strength = noise.contiguous(), bias.contiguous(), strength.contiguous()
-    _check("fused_bias_noise_lrelu", x, noise, bias, strength)
+    device = _check("fused_bias_noise_lrelu", x, noise, bias, strength)
     out = torch.empty_like(x)
     _launch(
-        "fused_bias_noise_lrelu", "fused_bias_noise_lrelu",
+        "fused_bias_noise_lrelu", "fused_bias_noise_lrelu", device,
         x.data_ptr(), noise.data_ptr(), bias.data_ptr(), strength.data_ptr(),
         out.data_ptr(), b * c, c, h * w, int(noise.shape[0] != 1),
         _DTYPE_CODES[x.dtype],
@@ -181,18 +206,20 @@ def upsample2x_blur(x: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     taps = _four_taps(taps)
     if x.ndim != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
-    return _autograd.Upsample2xBlur.apply(x, taps)
+    if _needs_grad(x):
+        return _autograd.Upsample2xBlur.apply(x, taps)
+    return _upsample2x_blur_run(x, taps)
 
 
 def _upsample2x_blur_run(x: torch.Tensor, taps: Tuple[float, ...]) -> torch.Tensor:
     """B's forward without autograd: the twin on the CPU, else the kernel."""
     if _on_cpu(x):
         return upsample2x_blur_plain(x, taps)
-    _check("upsample2x_blur", x)
+    device = _check("upsample2x_blur", x)
     b, c, h, w = x.shape
-    out = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    out = x.new_empty((b, c, 2 * h, 2 * w))
     _launch(
-        "upsample2x_blur", "upsample2x_blur",
+        "upsample2x_blur", "upsample2x_blur", device,
         x.data_ptr(), out.data_ptr(), b * c, h, w, *taps, _DTYPE_CODES[x.dtype],
     )
     return out
@@ -235,7 +262,9 @@ def blur4_separable_pad11(
     w_logical = wp if w_logical is None else int(w_logical)
     if not 2 <= w_logical <= wp or h < 2:
         raise ValueError(f"bad w_logical {w_logical} for shape {tuple(x.shape)}")
-    return _autograd.Blur4SeparablePad11.apply(x, taps, w_logical)
+    if _needs_grad(x):
+        return _autograd.Blur4SeparablePad11.apply(x, taps, w_logical)
+    return _blur4_separable_pad11_run(x, taps, w_logical)
 
 
 def _blur4_separable_pad11_run(
@@ -245,10 +274,10 @@ def _blur4_separable_pad11_run(
     if _on_cpu(x):
         return blur4_separable_pad11_plain(x, taps, w_logical)
     b, c, h, wp = x.shape
-    _check("blur4_separable_pad11", x)
-    out = torch.empty((b, c, h - 1, w_logical - 1), dtype=x.dtype, device=x.device)
+    device = _check("blur4_separable_pad11", x)
+    out = x.new_empty((b, c, h - 1, w_logical - 1))
     _launch(
-        "blur4_separable_pad11", "blur4_separable",
+        "blur4_separable_pad11", "blur4_separable", device,
         x.data_ptr(), out.data_ptr(), b * c, h, wp, w_logical,
         *taps, _DTYPE_CODES[x.dtype],
     )
@@ -261,11 +290,28 @@ def _blur4_separable_pad11_run(
 
 
 def _sixteen_taps(taps: Sequence) -> Tuple[float, ...]:
-    """A 4x4 FIR (nested or flat, row-major) as 16 fp32-rounded Python floats."""
+    """A 4x4 FIR (nested or flat, row-major) as 16 fp32-rounded Python floats.
+    A flat tuple (the resample plans' and the backward passes' form) is
+    converted once and kept."""
+    if isinstance(taps, tuple) and len(taps) == 16:
+        return _sixteen_taps_kept(taps)
+    return _sixteen_taps_of(taps)
+
+
+def _sixteen_taps_of(taps: Sequence) -> Tuple[float, ...]:
     flat = np.asarray(taps, dtype=np.float32).reshape(-1)
     if flat.size != 16:
         raise ValueError(f"expected a 4x4 FIR, got {np.shape(taps)}")
     return tuple(float(v) for v in flat)
+
+
+_sixteen_taps_kept = functools.lru_cache(maxsize=256)(_sixteen_taps_of)
+
+
+@functools.lru_cache(maxsize=256)
+def _c_taps(taps: Tuple[float, ...]) -> ctypes.Array:
+    """The 16 taps as the C array kernel D reads (during the call only)."""
+    return (ctypes.c_float * 16)(*taps)
 
 
 def _pads(pads: Sequence[int]) -> Tuple[int, int]:
@@ -309,7 +355,9 @@ def stencil_blur4_valid(
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
     if min(x.shape[2], x.shape[3]) + p0 + p1 < 4:
         raise ValueError(f"input {tuple(x.shape)} with pads {(p0, p1)} is smaller than the FIR")
-    return _autograd.StencilBlur4Valid.apply(x, k, (p0, p1))
+    if _needs_grad(x):
+        return _autograd.StencilBlur4Valid.apply(x, k, (p0, p1))
+    return _stencil_blur4_valid_run(x, k, (p0, p1))
 
 
 def _stencil_blur4_valid_run(
@@ -318,13 +366,13 @@ def _stencil_blur4_valid_run(
     """D's forward without autograd: the twin on the CPU, else the kernel."""
     if _on_cpu(x):
         return stencil_blur4_valid_plain(x, taps, pads)
-    _check("stencil_blur4_valid", x)
+    device = _check("stencil_blur4_valid", x)
     b, c, h, w = x.shape
     p0, p1 = pads
-    out = torch.empty((b, c, h + p0 + p1 - 3, w + p0 + p1 - 3), dtype=x.dtype, device=x.device)
+    out = x.new_empty((b, c, h + p0 + p1 - 3, w + p0 + p1 - 3))
     _launch(
-        "stencil_blur4_valid", "stencil_blur4_valid",
-        x.data_ptr(), out.data_ptr(), b * c, h, w, p0, p1, (ctypes.c_float * 16)(*taps),
+        "stencil_blur4_valid", "stencil_blur4_valid", device,
+        x.data_ptr(), out.data_ptr(), b * c, h, w, p0, p1, _c_taps(taps),
         _DTYPE_CODES[x.dtype],
     )
     return out
@@ -504,7 +552,9 @@ def phase_conv1_torgb(
         )
     if c4 % 4 or c4 > MAX_PHASE_CHANNELS:
         raise ValueError(f"C4={c4} must be a multiple of 4 and at most {MAX_PHASE_CHANNELS}")
-    return _autograd.PhaseConv1Torgb.apply(x, w4, demod, noise_bias, wrgb)
+    if _needs_grad(x, w4, demod, noise_bias, wrgb):
+        return _autograd.PhaseConv1Torgb.apply(x, w4, demod, noise_bias, wrgb)
+    return _phase_conv1_torgb_run(x, w4, demod, noise_bias, wrgb)
 
 
 def _phase_conv1_torgb_run(
@@ -527,15 +577,15 @@ def _phase_conv1_torgb_run(
     demod = demod.to(torch.float32).contiguous()
     noise_bias = noise_bias.to(dtype).contiguous()
     wrgb = wrgb.to(dtype).contiguous()
-    _check("phase_conv1_torgb", x, w4.contiguous(), demod, noise_bias, wrgb)
+    device = _check("phase_conv1_torgb", x, w4.contiguous(), demod, noise_bias, wrgb)
     c = c4 // 4
     cin_pad, cout_pad = _round_up(c, _PHASE_CHUNK[dtype]), _round_up(c, _PHASE_SLAB)
     wv = v.to(dtype).permute(1, 2, 3, 0).reshape(c, 9, c)  # [in][dh * 3 + dw][out]
     wv = F.pad(wv, (0, cout_pad - c, 0, 0, 0, cin_pad - c)).contiguous()
     torch._assert_async((fold_conv1_weights(v) == w4).all())  # w4 is a fold; no host sync
-    out = torch.empty((b, RGB_COLUMNS, h + 1, w + 1), dtype=dtype, device=x.device)
+    out = x.new_empty((b, RGB_COLUMNS, h + 1, w + 1))
     _launch(
-        "phase_conv1_torgb", "phase_conv1_torgb",
+        "phase_conv1_torgb", "phase_conv1_torgb", device,
         x.data_ptr(), wv.data_ptr(), demod.data_ptr(), noise_bias.data_ptr(),
         wrgb.data_ptr(), out.data_ptr(), b, c4, h, w, int(noise_bias.shape[0] != 1),
         _DTYPE_CODES[dtype],

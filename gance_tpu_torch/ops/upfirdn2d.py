@@ -16,9 +16,15 @@ the blur after the transpose conv of `upsample_conv_2d` (kernel C, a true
 convolution like JAX's `upfirdn2d`). The discriminator's blur before a
 strided conv (`conv_downsample_2d`) and `downsample_2d` run any 4x4 FIR with
 pads in [0, 3] through kernel D, handed the FIR flipped (D correlates).
+
+Which form a resample call takes, and its taps and pads, depend only on the
+FIR, the gain, the factor and the conv's size. The analysis (normalising the
+FIR, testing it for a separable 4-tap root) is numpy work of tens of
+microseconds, so each resample function computes it once per key and keeps
+it (`_plan`): a synthesis forward then runs no numpy on its resample calls.
 """
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, Hashable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,6 +60,38 @@ def _separable_root(k: np.ndarray) -> np.ndarray:
 def _separable_4tap(k: np.ndarray) -> bool:
     root = _separable_root(k)
     return k.shape == (4, 4) and np.allclose(np.outer(root, root), k)
+
+
+_PLANS: Dict[Hashable, tuple] = {}
+
+
+def _kernel_key(kernel: KernelLike) -> Hashable:
+    """A hashable form of a FIR that equal FIRs share: the tuple itself (nested
+    tuples of numbers included), else the values, shape and dtype of its
+    numpy form (arrays, lists)."""
+    if not isinstance(kernel, np.ndarray):
+        try:
+            key = tuple(kernel)
+            hash(key)
+            return key
+        except TypeError:
+            pass
+    k = np.asarray(kernel)
+    return (k.dtype.str, k.shape, k.tobytes())
+
+
+def _plan(kind: str, kernel: KernelLike, args: tuple, make: Callable[..., tuple]) -> tuple:
+    """make(kernel, *args), computed once per (kind, FIR, args) and kept.
+    Arrays in a plan are read-only: every later call shares them."""
+    key = (kind, _kernel_key(kernel), args)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = make(kernel, *args)
+        for part in plan:
+            if isinstance(part, np.ndarray):
+                part.setflags(write=False)
+        _PLANS[key] = plan
+    return plan
 
 
 def upfirdn2d(
@@ -98,11 +136,20 @@ def upsample_2d(
     with a separable 4-tap FIR runs kernel B in JAX's polyphase form
     (gance_tpu/ops/upfirdn2d.py::upsample_2d), whose even phase is
     k0*x[m-1] + k2*x[m] for the root k."""
+    plan = _plan("up", kernel, (factor, gain), _upsample_plan)
+    if plan[0] == "B":
+        return upsample2x_blur(x, plan[1])
+    _, k, pad0, pad1 = plan
+    return upfirdn2d(x, k, up=factor, pad0=pad0, pad1=pad1)
+
+
+def _upsample_plan(kernel: KernelLike, factor: int, gain: float) -> tuple:
+    """("B", polyphase taps) or ("upfirdn2d", FIR, pad0, pad1) for `upsample_2d`."""
     k = setup_filter_kernel(kernel, gain * (factor**2))
     if factor == 2 and _separable_4tap(k):
-        return upsample2x_blur(x, tuple(float(v) for v in _separable_root(k)))
+        return "B", tuple(float(v) for v in _separable_root(k))
     p = k.shape[0] - factor
-    return upfirdn2d(x, k, up=factor, pad0=(p + 1) // 2 + factor - 1, pad1=p // 2)
+    return "upfirdn2d", k, (p + 1) // 2 + factor - 1, p // 2
 
 
 def upsample_2d_nchw(
@@ -161,22 +208,42 @@ def upsample_conv_2d(
     JAX; kernel C correlates, so a separable FIR reaches it with its root
     reversed.
     """
-    ck = w.shape[2]
-    k = setup_filter_kernel(kernel, gain * (factor**2))
-    p = (k.shape[0] - factor) - (ck - 1)
-    pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
+    plan = _plan("up_conv", kernel, (factor, gain, w.shape[2]), _upsample_conv_plan)
     y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=factor)
-    if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
-        return blur4_separable_pad11(y, tuple(float(v) for v in _separable_root(k)[::-1]))
+    if plan[0] == "C":
+        return blur4_separable_pad11(y, plan[1])
+    _, k, pad0, pad1 = plan
     return upfirdn2d(y, k, pad0=pad0, pad1=pad1)
 
 
-def _blur(x: torch.Tensor, k: np.ndarray, pad0: int, pad1: int) -> torch.Tensor:
-    """upfirdn2d(x, k, pad0=pad0, pad1=pad1) with up = down = 1: kernel D for a
-    4x4 FIR with pads in [0, 3] (flipped, since D correlates and upfirdn2d
-    convolves), the generic form otherwise."""
-    if k.shape == (4, 4) and 0 <= pad0 <= 3 and 0 <= pad1 <= 3:
-        return stencil_blur4_valid(x, k[::-1, ::-1], (pad0, pad1))
+def _upsample_conv_plan(kernel: KernelLike, factor: int, gain: float, ck: int) -> tuple:
+    """("C", reversed root) or ("upfirdn2d", FIR, pad0, pad1) for the blur of
+    `upsample_conv_2d` after a (ck x ck) transpose conv."""
+    k = setup_filter_kernel(kernel, gain * (factor**2))
+    p = (k.shape[0] - factor) - (ck - 1)
+    pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
+    if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
+        return "C", tuple(float(v) for v in _separable_root(k)[::-1])
+    return "upfirdn2d", k, pad0, pad1
+
+
+def _blur_plan(kernel: KernelLike, factor: int, gain: float, ck: int) -> tuple:
+    """The blur before a stride-`factor` (ck x ck) conv, NVlabs pad arithmetic,
+    as upfirdn2d(x, k, pad0, pad1) with up = down = 1: ("D", k flipped as 16
+    row-major floats, pads) for a 4x4 FIR with pads in [0, 3] (D correlates
+    and upfirdn2d convolves), else ("upfirdn2d", k, pads)."""
+    k = setup_filter_kernel(kernel, gain)
+    p = (k.shape[0] - factor) + (ck - 1)
+    pads = ((p + 1) // 2, p // 2)
+    if k.shape == (4, 4) and 0 <= pads[0] <= 3 and 0 <= pads[1] <= 3:
+        return "D", tuple(float(v) for v in k[::-1, ::-1].reshape(-1)), pads
+    return "upfirdn2d", k, pads
+
+
+def _blur(x: torch.Tensor, plan: tuple) -> torch.Tensor:
+    kind, k, (pad0, pad1) = plan
+    if kind == "D":
+        return stencil_blur4_valid(x, k, (pad0, pad1))
     return upfirdn2d(x, k, pad0=pad0, pad1=pad1)
 
 
@@ -188,9 +255,8 @@ def downsample_2d(
 ) -> torch.Tensor:
     """FIR downsampling of NCHW x, NVlabs `downsample_2d` pad arithmetic: the
     blur, then every `factor`-th sample."""
-    k = setup_filter_kernel(kernel, gain)
-    p = k.shape[0] - factor
-    return _blur(x, k, (p + 1) // 2, p // 2)[:, :, ::factor, ::factor]
+    plan = _plan("down", kernel, (factor, gain, 1), _blur_plan)
+    return _blur(x, plan)[:, :, ::factor, ::factor]
 
 
 def conv_downsample_2d(
@@ -205,8 +271,5 @@ def conv_downsample_2d(
     `Conv1_down` (3x3, blur pad (2, 2)) and `Skip` (1x1, blur pad (1, 1))
     layers. x is (B, Cin, H, W), w is OIHW.
     """
-    ck = w.shape[2]
-    k = setup_filter_kernel(kernel, gain)
-    p = (k.shape[0] - factor) + (ck - 1)
-    x = _blur(x, k, (p + 1) // 2, p // 2)
-    return F.conv2d(x, w, stride=factor)
+    plan = _plan("down", kernel, (factor, gain, w.shape[2]), _blur_plan)
+    return F.conv2d(_blur(x, plan), w, stride=factor)

@@ -142,6 +142,52 @@ def test_wrappers_use_the_twins_on_cpu(rng, dtype):
     assert K.LAUNCHES == before
 
 
+def _wrapper_calls(rng):
+    """name -> (public wrapper, its Function, NCHW fp32 inputs) for A-E."""
+    from gance_tpu_torch.ops.cuda import autograd as A
+
+    v = rng.randn(3, 3, 3, 3).astype(np.float32) * 0.2
+    e_inputs = [rng.randn(2, 12, 4, 5).astype(np.float32), K.fold_conv1_weights(
+        torch.from_numpy(v)).numpy(), np.abs(rng.randn(2, 12)).astype(np.float32) + 0.5,
+        rng.randn(1, 12, 5, 6).astype(np.float32) * 0.1,
+        rng.randn(2, 12, 16).astype(np.float32) * 0.2]
+    return {
+        "A": (K.fused_bias_noise_lrelu, A.FusedBiasNoiseLrelu, _a_inputs(rng, 2)),
+        "B": (lambda x: K.upsample2x_blur(x, TAPS_1234), A.Upsample2xBlur,
+              [rng.randn(2, 3, 5, 6).astype(np.float32)]),
+        "C": (lambda x: K.blur4_separable_pad11(x, TAPS_1234, 9), A.Blur4SeparablePad11,
+              [rng.randn(2, 3, 9, 12).astype(np.float32)]),
+        "D": (lambda x: K.stencil_blur4_valid(x, FIR_1234, (2, 1)), A.StencilBlur4Valid,
+              [rng.randn(2, 3, 9, 10).astype(np.float32)]),
+        "E": (K.phase_conv1_torgb, A.PhaseConv1Torgb, e_inputs),
+    }
+
+
+@pytest.mark.parametrize("name", ["A", "B", "C", "D", "E"])
+def test_wrappers_skip_the_function_where_no_gradient_is_wanted(rng, name, monkeypatch):
+    """Each public wrapper gives the same output with grad enabled and inputs
+    that require it (through its autograd Function, whose node the output
+    carries), with grad enabled and none that requires it, under
+    `torch.no_grad` and under `torch.inference_mode` (the last three without
+    the Function)."""
+    fn, function, inputs = _wrapper_calls(rng)[name]
+    with_grad = fn(*[torch.tensor(v, requires_grad=True) for v in inputs])
+    assert type(with_grad.grad_fn).__name__ == function.__name__ + "Backward"
+    plain = [torch.tensor(v) for v in inputs]
+
+    def refuse(*args):
+        raise AssertionError("the Function ran where no gradient is wanted")
+
+    monkeypatch.setattr(function, "apply", refuse)
+    outputs = [fn(*plain)]
+    with torch.no_grad():
+        outputs.append(fn(*plain))
+    with torch.inference_mode():
+        outputs.append(fn(*plain))
+    for out in outputs:
+        assert out.grad_fn is None and torch.equal(out, with_grad.detach())
+
+
 def test_wrappers_reject_bad_inputs():
     x = torch.zeros(1, 2, 4, 4)
     with pytest.raises(ValueError, match="bad shapes"):
@@ -734,14 +780,16 @@ def test_stencil4_emulation_bf16_every_row_alignment(rng, misalign):
     assert torch.equal(got, want)
 
 
+def _nf(stage):
+    """config-f's channel count at a stage (GeneratorConfig.nf)."""
+    return min(int(32768 / 2.0 ** stage), 512)
+
+
 def _path_shapes():
     """(kernel, batch * channels, h, w, pads) of every C and D launch on the
     1024px config-f path (chip_smoke.py's shapes)."""
-    def nf(stage):
-        return min(int(32768 / 2.0 ** stage), 512)
-
-    shapes = [("C", 8 * nf(res - 1), 2 ** res + 1, 2 ** res + 1, (1, 1)) for res in range(3, 11)]
-    shapes += [("D", 4 * nf(res - 1), 2 ** res, 2 ** res, pads)
+    shapes = [("C", 8 * _nf(res - 1), 2 ** res + 1, 2 ** res + 1, (1, 1)) for res in range(3, 11)]
+    shapes += [("D", 4 * _nf(res - 1), 2 ** res, 2 ** res, pads)
                for res in range(10, 2, -1) for pads in ((2, 2), (1, 1))]
     return shapes + [("D", 4 * 64, 1024, 1024, (2, 2))]
 
@@ -794,3 +842,246 @@ def test_stencil4_emulation_at_the_top_path_shapes(rng, kernel):
                                          2, h, h_out, w_out, planes=planes)
             want = K.stencil_blur4_valid_plain(x[None], FIR_1234, pads)[0]
         assert torch.equal(_bits(got, dtype), want)
+
+
+# ---------------------------------------------------------------------------
+# Kernels A and B's index maps, emulated in numpy against the twins
+# ---------------------------------------------------------------------------
+
+A_THREADS, A_MAX_CHANNELS_PER_THREAD, A_MIN_BLOCKS = 256, 16, 2 * 132  # fused_bias_noise_lrelu.cu
+B_THREADS, B_ROWS, B_UNIT_BYTES = 256, 4, 8  # upsample2x_blur.cu
+SQRT2_F32 = np.float32(np.sqrt(2.0))
+
+
+def _pow2_ceil(n):
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def a_plan(batch, channels, units):
+    """fused_bias_noise_lrelu.cu::plan: threads per block side by side over a
+    plane's 16-byte units and over channels, channels per thread, grid."""
+    unit_threads = A_THREADS if units >= A_THREADS else _pow2_ceil(units)
+    lanes = min(A_THREADS // unit_threads, _pow2_ceil(channels))
+    tiles = _ceil(units, unit_threads)
+    cpt = min(A_MAX_CHANNELS_PER_THREAD, _ceil(channels, lanes))
+    while cpt > 1 and tiles * _ceil(channels, lanes * cpt) * batch < A_MIN_BLOCKS:
+        cpt //= 2
+    return dict(unit_threads=unit_threads, lanes=lanes, cpt=cpt, tiles=tiles,
+                groups=_ceil(channels, lanes * cpt))
+
+
+def a_unit(elem_bytes, hw, x_offset=0, noise_offset=0):
+    """fused_bias_noise_lrelu.cu::dispatch: 16 bytes of x per unit where x,
+    noise (element offsets of their base pointers) and out (always aligned)
+    are 16-byte aligned and H*W is a multiple of the unit; 1 element else."""
+    v = 16 // elem_bytes
+    aligned = (x_offset * elem_bytes) % 16 == 0 and (noise_offset * 4) % 16 == 0
+    return v if aligned and hw % v == 0 else 1
+
+
+def a_emulate(x, noise, bias, strength, elem_bytes, x_offset=0, noise_offset=0, plan_batch=None):
+    """
+    bias_noise_lrelu_kernel over x (B, C, H*W) and noise (1 or B, H*W) as
+    fp32 values: the plan, each thread's unit and channels, the noise read
+    once per unit and kept, the arithmetic in fp32 in the kernel's order.
+    Returns the fp32 output (to be rounded to x's dtype), the plan and the
+    unit. `plan_batch` plans the launch for a larger batch of which x is the
+    first samples (blockIdx.z only picks the sample).
+    """
+    b, c, hw = x.shape
+    v = a_unit(elem_bytes, hw, x_offset, noise_offset)
+    g = a_plan(plan_batch or b, c, hw // v)
+    assert g["unit_threads"] * g["lanes"] <= A_THREADS
+    assert g["tiles"] < 2 ** 31 and g["groups"] <= 65535
+    out = np.full(b * c * hw, np.nan, np.float32)
+    xf, nf = x.reshape(-1), noise.reshape(-1)
+    units = (np.arange(g["tiles"])[:, None] * g["unit_threads"]
+             + np.arange(g["unit_threads"])[None, :]).reshape(-1)
+    units = units[units * v < hw]  # the early return
+    pixels = (units[:, None] * v + np.arange(v)[None, :]).reshape(-1)
+    writes = 0
+    for bz in range(b):
+        ns = nf[(bz if noise.shape[0] > 1 else 0) * hw + pixels] * np.float32(strength)
+        for gy in range(g["groups"]):
+            for ty in range(g["lanes"]):
+                for k in range(g["cpt"]):
+                    ch = gy * g["lanes"] * g["cpt"] + ty + k * g["lanes"]
+                    if ch >= c:
+                        continue
+                    idx = (bz * c + ch) * hw + pixels
+                    val = (xf[idx] + ns) + np.float32(bias[ch])
+                    out[idx] = np.where(val >= 0, val, val * np.float32(0.2)) * SQRT2_F32
+                    writes += idx.size
+    assert writes == out.size and not np.isnan(out).any()  # each output written once
+    return out.reshape(x.shape), g, v
+
+
+def _normal(rng, shape):
+    """fp32 normals in bulk (RandomState makes float64 first)."""
+    return np.random.default_rng(rng.randint(2 ** 31)).standard_normal(shape, dtype=np.float32)
+
+
+def _a_emulation_case(rng, shape, dtype, noise_batch=1, x_offset=0, noise_offset=0,
+                      plan_batch=None):
+    b, c, h, w = shape
+    x = _bits(_normal(rng, shape), dtype)
+    noise = torch.from_numpy(_normal(rng, (noise_batch, 1, h, w)))
+    bias = torch.from_numpy(_normal(rng, c))
+    strength = torch.tensor(0.37)
+    got, g, v = a_emulate(x.float().numpy().reshape(b, c, h * w), noise.numpy().reshape(-1, h * w),
+                          bias.numpy(), 0.37, x.element_size(), x_offset, noise_offset, plan_batch)
+    got = _bits(got, dtype).reshape(shape)
+    for c0 in range(0, c, 16):  # the twin is elementwise: compare in slices of channels
+        want = K.fused_bias_noise_lrelu_plain(x[:, c0:c0 + 16], noise, bias[c0:c0 + 16], strength)
+        assert torch.equal(got[:, c0:c0 + 16], want), (shape, dtype, c0)
+    return g, v
+
+
+def _a_path_shapes():
+    """(C, r) of kernel A's launches on the 1024px config-f path."""
+    return [(_nf(1), 4)] + [(_nf(res - 1), 2 ** res) for res in range(3, 11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_emulation_at_path_shapes(rng, dtype):
+    """Every A launch of the path at batch 1, planned as the batch-8 launch:
+    bit for bit with the twin, each output written once, the 16-byte unit;
+    the layers up to 64x64 launch at most one wave of threads."""
+    for c, r in _a_path_shapes():
+        g, v = _a_emulation_case(rng, (1, c, r, r), dtype, plan_batch=8)
+        assert v == 16 // (4 if dtype == torch.float32 else 2)
+        threads = g["tiles"] * g["groups"] * 8 * g["unit_threads"] * g["lanes"]
+        if r <= 64:
+            assert threads <= 132 * 2048, (c, r, g)
+        else:
+            assert g["unit_threads"] == A_THREADS and 8 <= g["lanes"] * g["cpt"] <= 32, (c, r, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_emulation_ragged(rng, dtype):
+    """Odd H*W, C = 1, C not a multiple of the channel group, per-sample
+    noise, and x and noise bases at every element offset mod 16 bytes (each
+    offset other than 0 takes the scalar path): bit for bit with the twin."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    cases = [((2, 3, 5, 7), 1), ((1, 1, 9, 9), 1), ((3, 37, 8, 8), 3), ((2, 1, 1, 1), 2),
+             ((2, 19, 33, 64), 2), ((1, 300, 2, 2), 1), ((4, 5, 16, 16), 4)]
+    units = set()
+    for shape, noise_batch in cases:
+        units.add(_a_emulation_case(rng, shape, dtype, noise_batch)[1])
+    for offset in range(vec):
+        _, v = _a_emulation_case(rng, (2, 21, 8, 8), dtype, 2, x_offset=offset)
+        assert v == (vec if offset == 0 else 1)
+    for offset in range(4):
+        _, v = _a_emulation_case(rng, (2, 21, 8, 8), dtype, 2, noise_offset=offset)
+        assert v == (vec if offset == 0 else 1)
+    assert units == {1, vec}
+
+
+def b_plan(h, w, v):
+    """upsample2x_blur.cu::plan: V-column units side by side, row strips side
+    by side, grid."""
+    units = _ceil(w, v)
+    col_threads = min(_pow2_ceil(units), B_THREADS)
+    strips = B_THREADS // col_threads
+    return dict(col_threads=col_threads, strips=strips, col_tiles=_ceil(units, col_threads),
+                row_tiles=_ceil(h, strips * B_ROWS))
+
+
+def b_emulate(x, taps, elem_bytes, x_offset=0):
+    """
+    upsample2x_blur_kernel over x (P, H, W) as fp32 values: the plan, each
+    thread's V columns and its strip of B_ROWS rows walked with a three-row
+    window of horizontal phases, zeros outside the image, the stores of the
+    vector path (asserted inside the image) or the scalar path's guarded
+    ones. Returns the fp32 output (P, 2H, 2W), the plan and whether the
+    vector path was taken.
+    """
+    p, h, w = x.shape
+    v = B_UNIT_BYTES // elem_bytes
+    vec = w % v == 0 and (x_offset * elem_bytes) % B_UNIT_BYTES == 0
+    g = b_plan(h, w, v)
+    assert p * g["col_tiles"] < 2 ** 31 and g["row_tiles"] <= 65535
+    k0, k1, k2, k3 = (np.float32(t) for t in taps)
+    j0 = ((np.arange(g["col_tiles"])[:, None] * g["col_threads"]
+           + np.arange(g["col_threads"])[None, :]).reshape(-1) * v)
+    r0 = ((np.arange(g["row_tiles"])[:, None] * g["strips"]
+           + np.arange(g["strips"])[None, :]).reshape(-1) * B_ROWS)
+    j0, r0 = j0[j0 < w], r0[r0 < h]  # the early return
+    cols = j0[:, None] - 1 + np.arange(v + 2)[None, :]  # (J, V+2): columns j0-1 .. j0+V
+
+    def horizontal(rows):
+        inside = ((rows >= 0) & (rows < h))[:, None, None] & ((cols >= 0) & (cols < w))[None]
+        vals = x[:, np.clip(rows, 0, h - 1)][:, :, np.clip(cols, 0, w - 1)]  # (P, R, J, V+2)
+        vals = np.where(inside[None], vals, np.float32(0))
+        he = k0 * vals[..., :v] + k2 * vals[..., 1:v + 1]
+        ho = k1 * vals[..., 1:v + 1] + k3 * vals[..., 2:]
+        return he, ho
+
+    out = np.full((p, 2 * h, 2 * w), np.nan, np.float32)
+    writes = 0
+    out_cols = j0[:, None] + np.arange(v)[None, :]  # (J, V)
+    in_image = out_cols < w
+    if vec:
+        assert in_image.all()  # the vector path stores every column unguarded
+    he_up, ho_up = horizontal(r0 - 1)
+    he, ho = horizontal(r0)
+    for t in range(B_ROWS):
+        rows = r0 + t
+        live = rows < h  # the loop's break
+        he_dn, ho_dn = horizontal(rows + 1)
+        for orow, a, b, e0, o0, e1, o1 in ((2 * rows, k0, k2, he_up, ho_up, he, ho),
+                                           (2 * rows + 1, k1, k3, he, ho, he_dn, ho_dn)):
+            even, odd = a * e0 + b * e1, a * o0 + b * o1  # (P, R, J, V)
+            for parity, vals in ((0, even), (1, odd)):
+                rr = np.broadcast_to(orow[:, None, None], in_image.shape[:0] + (len(rows),)
+                                     + in_image.shape)
+                cc = np.broadcast_to(2 * out_cols + parity, rr.shape)
+                keep = live[:, None, None] & in_image[None]
+                out[:, rr[keep], cc[keep]] = vals[:, keep]
+                writes += int(keep.sum()) * p
+        he_up, ho_up, he, ho = he, ho, he_dn, ho_dn
+    assert writes == out.size and not np.isnan(out).any()  # each output written once
+    return out, g, vec
+
+
+def _b_emulation_case(rng, shape, dtype, taps, x_offset=0):
+    x = _bits(_normal(rng, shape), dtype)
+    b, c, h, w = shape
+    got, g, vec = b_emulate(x.float().numpy().reshape(b * c, h, w), taps, x.element_size(),
+                            x_offset)
+    want = K.upsample2x_blur_plain(x, taps)
+    assert torch.equal(_bits(got, dtype).reshape(want.shape), want), (shape, dtype, taps)
+    return g, vec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b_emulation_at_path_shapes(rng, dtype):
+    """Every B launch of the path at batch 1, (1, 3, r/2, r/2) for r = 8 ..
+    1024, at the binomial and the (1, 2, 3, 4) taps: bit for bit with the
+    twin, each output written once; widths of whole 8-byte units take the
+    vector path."""
+    vec = B_UNIT_BYTES // (4 if dtype == torch.float32 else 2)
+    for res in range(3, 11):
+        side = 2 ** (res - 1)
+        for taps in (TAPS, TAPS_1234):
+            _, vector = _b_emulation_case(rng, (1, 3, side, side), dtype, taps)
+            assert vector == (side % vec == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b_emulation_ragged(rng, dtype):
+    """Widths 1-9, 63-65 and 513, heights that end a strip early, and x at
+    every element offset mod 16 bytes: bit for bit with the twin, the scalar
+    path for ragged widths and bases off an 8-byte unit."""
+    elem = 4 if dtype == torch.float32 else 2
+    paths = set()
+    for w in list(range(1, 10)) + [63, 64, 65, 513]:
+        for h in (1, 3, 11) if w < 100 else (5,):
+            paths.add(_b_emulation_case(rng, (1, 2, h, w), dtype, TAPS_1234)[1])
+    for offset in range(16 // elem):
+        _, vector = _b_emulation_case(rng, (2, 1, 7, 16), dtype, TAPS_1234, x_offset=offset)
+        assert vector == (offset * elem % B_UNIT_BYTES == 0)
+    assert paths == {True, False}

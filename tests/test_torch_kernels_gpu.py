@@ -318,3 +318,62 @@ def test_phase_conv1_torgb_gradients_on_gpu_match_cpu(cuda_device):
     for g, r in zip(got, grads("cpu")):
         scale = float(r.abs().max())
         assert scale > 0 and float((g - r).abs().max()) <= 1e-4 * scale
+
+
+def _at_offset(shape, offset, dtype, gen, device):
+    """A contiguous tensor of `shape` whose base lies `offset` elements past a
+    16-byte boundary: a slice of a larger one, as a view with a storage offset."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + 16, generator=gen, device=device).to(dtype)
+    t = buf[offset:offset + n].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == offset * t.element_size() % 16
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_noise_lrelu_ragged_on_gpu(cuda_device, dtype):
+    """Kernel A bit for bit against its twin (atol 0) where its 16-byte path
+    does not apply or its plan is ragged: odd H*W, C = 1, C not a multiple of
+    the channel group, per-sample noise, x and noise at every element offset
+    mod 16 bytes; and at training's (4, 64, 64, 64) with per-sample noise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    strength = torch.tensor(0.37, device=cuda_device)
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    cases = [((2, 3, 5, 7), 1, 0, 0), ((1, 1, 9, 9), 1, 0, 0), ((3, 37, 8, 8), 3, 0, 0),
+             ((2, 1, 1, 1), 2, 0, 0), ((2, 19, 33, 64), 2, 0, 0), ((1, 300, 2, 2), 1, 0, 0),
+             ((4, 64, 64, 64), 4, 0, 0)]
+    cases += [((2, 21, 8, 8), 2, off, 0) for off in range(1, vec)]
+    cases += [((2, 21, 8, 8), 2, 0, off) for off in range(1, 4)]
+    cases += [((2, 21, 9, 9), 1, 3, 1)]
+    launches = K.LAUNCHES["fused_bias_noise_lrelu"]
+    for shape, noise_batch, x_off, noise_off in cases:
+        b, c, h, w = shape
+        x = _at_offset(shape, x_off, dtype, gen, cuda_device)
+        noise = _at_offset((noise_batch, 1, h, w), noise_off, torch.float32, gen, cuda_device)
+        bias = torch.randn((c,), generator=gen, device=cuda_device)
+        got = K.fused_bias_noise_lrelu(x, noise, bias, strength)
+        want = K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)
+        assert torch.equal(got, want), (shape, noise_batch, x_off, noise_off)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_bias_noise_lrelu"] == launches + len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample2x_blur_ragged_on_gpu(cuda_device, dtype):
+    """Kernel B bit for bit against its twin (atol 0) with the (1, 2, 3, 4)
+    taps at widths 1, 2, 3, 5 and 513 (below one 16-byte unit, odd), heights
+    that end a strip early, and x at every element offset mod 16 bytes."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    cases = [((2, 3, h, w), 0) for w in (1, 2, 3, 5, 513) for h in (1, 6, 37)]
+    cases += [((2, 3, 7, 64), off) for off in range(vec)]
+    launches = K.LAUNCHES["upsample2x_blur"]
+    for shape, offset in cases:
+        x = _at_offset(shape, offset, dtype, gen, cuda_device)
+        for taps in (TAPS_1234, TAPS):
+            got, want = K.upsample2x_blur(x, taps), K.upsample2x_blur_plain(x, taps)
+            assert torch.equal(got, want), (shape, offset, taps)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["upsample2x_blur"] == launches + 2 * len(cases)

@@ -135,6 +135,89 @@ def test_separable_fir_orientation_matches_jax(rng, resample_kernel):
     assert float(np.abs(got - want).max()) <= 1e-5
 
 
+def _analysis_today(kernel, factor, gain, ck, kind):
+    """The per-call tap analysis of the resample functions as written before
+    their plans were kept, from the same helpers: the branch and its taps."""
+    if kind == "up":
+        k = port_up.setup_filter_kernel(kernel, gain * factor ** 2)
+        if factor == 2 and port_up._separable_4tap(k):
+            return "B", tuple(float(v) for v in port_up._separable_root(k))
+        p = k.shape[0] - factor
+        return "upfirdn2d", k, (p + 1) // 2 + factor - 1, p // 2
+    if kind == "up_conv":
+        k = port_up.setup_filter_kernel(kernel, gain * factor ** 2)
+        p = (k.shape[0] - factor) - (ck - 1)
+        pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
+        if pad0 == 1 and pad1 == 1 and port_up._separable_4tap(k):
+            return "C", tuple(float(v) for v in port_up._separable_root(k)[::-1])
+        return "upfirdn2d", k, pad0, pad1
+    k = port_up.setup_filter_kernel(kernel, gain)
+    p = (k.shape[0] - factor) + (ck - 1)
+    pad0, pad1 = (p + 1) // 2, p // 2
+    if k.shape == (4, 4) and 0 <= pad0 <= 3 and 0 <= pad1 <= 3:
+        return "D", k[::-1, ::-1], pad0, pad1
+    return "upfirdn2d", k, pad0, pad1
+
+
+RESAMPLE_FIRS = {
+    "binomial": (1, 3, 3, 1),
+    "1234": (1, 2, 3, 4),
+    "non-separable 4x4": ((1.0, 2.0, 0.0, 1.0), (0.5, 1.0, 3.0, 1.0), (2.0, 0.0, 1.0, 1.0),
+                          (1.0, 1.0, 1.0, 4.0)),
+    "1-D numpy": np.array([1.0, 3.0, 3.0, 1.0], np.float32),
+    "2-D numpy": np.outer((1, 2, 3, 4), (4, 3, 2, 1)).astype(np.float64),
+}
+
+
+def _record_resample_kernels(m, seen):
+    """Wrap the four forms a resample call may take to record their arguments."""
+    for name in ("upsample2x_blur", "blur4_separable_pad11", "stencil_blur4_valid", "upfirdn2d"):
+        real = getattr(port_up, name)
+        m.setattr(port_up, name, lambda *a, _n=name, _r=real, **kw: (
+            seen.append((_n, a[1:], kw)), _r(*a, **kw))[1])
+
+
+@pytest.mark.parametrize("fir", sorted(RESAMPLE_FIRS))
+def test_resample_plans_equal_the_per_call_analysis(rng, fir, monkeypatch):
+    """Each resample function's kept plan takes today's branch (B, C, D or
+    the plain upfirdn2d) with today's taps, FIR and pads, on its first call
+    and again from the cache, with the FIR as a tuple, a nested tuple or a
+    numpy array; the second call runs no analysis."""
+    kernel = RESAMPLE_FIRS[fir]
+    kernel_of = {"B": "upsample2x_blur", "C": "blur4_separable_pad11", "D": "stencil_blur4_valid",
+                 "upfirdn2d": "upfirdn2d"}
+    monkeypatch.setattr(port_up, "_PLANS", {})
+    x = torch.from_numpy(rng.randn(1, 2, 6, 6).astype(np.float32))
+    w3 = torch.from_numpy(rng.randn(2, 2, 3, 3).astype(np.float32))
+    w1 = torch.from_numpy(rng.randn(2, 2, 1, 1).astype(np.float32))
+    calls = [("up", 2, 1.0, None, lambda: port_up.upsample_2d(x, kernel)),
+             ("up", 2, 2.0, None, lambda: port_up.upsample_2d(x, kernel, gain=2.0)),
+             ("up_conv", 2, 1.0, 3, lambda: port_up.upsample_conv_2d(x, w3, kernel)),
+             ("down", 2, 1.0, 1, lambda: port_up.downsample_2d(x, kernel)),
+             ("down", 2, 1.0, 3, lambda: port_up.conv_downsample_2d(x, w3, kernel)),
+             ("down", 2, 1.0, 1, lambda: port_up.conv_downsample_2d(x, w1, kernel))]
+    for kind, factor, gain, ck, call in calls:
+        want = _analysis_today(kernel, factor, gain, ck, kind)
+        outs = []
+        for cached in (False, True):
+            seen = []
+            with monkeypatch.context() as m:
+                _record_resample_kernels(m, seen)
+                if cached:
+                    m.setattr(port_up, "setup_filter_kernel", None)  # no analysis now
+                outs.append(call())
+            name, args, kw = seen[0]
+            assert name == kernel_of[want[0]], (kind, name)
+            if want[0] == "upfirdn2d":
+                assert np.array_equal(args[0], want[1])
+                assert (kw["pad0"], kw["pad1"]) == want[2:], (kind, kw)
+            elif want[0] == "D":
+                assert np.array_equal(np.reshape(args[0], (4, 4)), want[1]) and args[1] == want[2:]
+            else:
+                assert args[0] == want[1]
+        assert torch.equal(outs[0], outs[1])
+
+
 def test_style_and_demod_vectors_match_jax(rng):
     style_w = rng.randn(3, 16).astype(np.float32)
     mod_w = rng.randn(16, 8).astype(np.float32)
