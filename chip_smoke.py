@@ -8,7 +8,8 @@ It builds the port's CUDA kernels from `gance_tpu_torch/ops/cuda/csrc/` and then
 in order (any failure exits non-zero; no phase's failure is caught):
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, the TF32 flags and the kernel build time;
+   versions, the TF32 flags, the kernel build time and the native AVI
+   muxer's build time (g++);
 2. holds each kernel against its plain PyTorch twin on the card, at the shapes
    the 1024px config-f path gives it at batch 8, in fp32 and bf16, and times
    the kernel, the twin, one PyTorch library call that computes the same
@@ -82,15 +83,44 @@ in order (any failure exits non-zero; no phase's failure is caught):
    lr everywhere and 5% of lr on average over every leaf, where a cut
    gradient would give about lr); (d) the EMA generator, exported with
    `save_generator_pickle`, is loaded with `SynthesisNetwork.from_pkl` and
-   serves one batch that matches the EMA params rendered directly.
+   serves one batch that matches the EMA params rendered directly;
+8. drives the noise-blend pipeline, WAV in and video out
+   (gance_tpu_torch/pipelines/noise_blend.py): (a) a 4 s percussive WAV
+   (44.1 kHz int16, `fabricate_percussive_wav`) turned into the pipeline's
+   inputs at vector length 512 and 30 fps, alpha 0.25, amplitude range
+   (-1, 1), FFT roll off and on, on the card and on the port's CPU path:
+   spectrogram, noise and combined vectors within 1e-4 with non-finite
+   entries in the same places, network indices equal, and no scaled RMS on
+   the CPU side within 1e-4 of a half-integer (else the check cannot be
+   exact, and it says so); (b) `noise_blend_api` with phase 3's two config-f
+   1024px networks, side 1024, 30 fps, fp32, standard path, with
+   GANCE_TPU_EGRESS=raw-spill (the lossless egress: one uncompressed AVI with
+   the audio interleaved, whatever encoders the host has): the AVI is parsed
+   by a RIFF reader written here; its frames number the index stream and lie within 1
+   uint8 step on at least 99.9% of pixels of `vector_synthesis` run directly
+   on the same inputs, its audio chunks concatenate to the WAV's samples,
+   both networks are used, and A / B / C launch 17 / 8 / 8 times per forward,
+   forwards counted from the indices with `synthesize_stream`'s windows and
+   buckets; (c) the same in bf16 with GANCE_TPU_PHASE1024=on at side 512:
+   the frame count and 15 / 8 / 7 / 1 launches per forward (E included);
+   (d) (b) again with the default egress (GANCE_TPU_EGRESS=auto: ffmpeg, else
+   cv2 mp4v then the native MJPEG mux, else the raw AVI): the frame count
+   and the audio are checked, and its time shows what the host's encoder
+   costs.
+   Each run prints its wall seconds split into loading, audio features and
+   synthesis plus write, the frames/s end to end, the AVI's bytes and MB/s,
+   the synthesis stream's own seconds and, for the raw AVI, the time to
+   write the same frames and audio again through the same writer alone.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's; E's
-launches include the phase-path G step's); the
-last line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
-and prints no result.
+launches include the phase-path G step's; A, B, C and E's include phase
+8's); the last line is {"ok": true, "device": {...}}. Without a CUDA device
+it exits 1 and prints no result.
 """
 
+import collections
+import importlib.util
 import json
 import math
 import os
@@ -118,6 +148,10 @@ FIR_1234 = np.outer((1, 2, 3, 4), (1, 2, 3, 4)) / 100.0  # a 4x4 FIR that is not
 TRAIN_BATCH = 4  # NVlabs config-f's per-GPU minibatch
 RESIZE_SIDE = 512
 PHASE_ENV = "GANCE_TPU_PHASE1024"
+PIPELINE_SECONDS = 4.0  # the phase-8 WAV
+PIPELINE_FPS = 30.0
+PIPELINE_VECTOR = 512  # config-f's latent length, the pipeline's vector length
+PIPELINE_ALPHA = 0.25
 
 REPLACES = {
     "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
@@ -1048,10 +1082,254 @@ def training_phase(workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+def read_avi(path: Path) -> Tuple[List[np.ndarray], int, np.ndarray]:
+    """(uncompressed frames as (H, W, 3) RGB views, the count of compressed
+    frames, the concatenated PCM16 samples) of an AVI, by walking its RIFF
+    chunks: 'avih' gives the size, '00db' an uncompressed frame (BI_RGB,
+    top-down BGR rows padded to 4 bytes), '00dc' a compressed one, '01wb'
+    audio."""
+    data = memoryview(path.read_bytes())
+    require(bytes(data[:4]) == b"RIFF" and bytes(data[8:12]) == b"AVI ", f"{path}: not an AVI")
+    frames: List[np.ndarray] = []
+    audio: List[np.ndarray] = []
+    size = {"compressed": 0}
+
+    def walk(offset: int, end: int) -> None:
+        while offset + 8 <= end:
+            cid = bytes(data[offset:offset + 4])
+            length = int.from_bytes(data[offset + 4:offset + 8], "little")
+            body = offset + 8
+            if cid == b"LIST":
+                walk(body + 4, body + length)
+            elif cid == b"avih":
+                size["w"] = int.from_bytes(data[body + 32:body + 36], "little")
+                size["h"] = int.from_bytes(data[body + 36:body + 40], "little")
+            elif cid == b"00db":
+                w, h = size["w"], size["h"]
+                rows = np.frombuffer(data, np.uint8, length, body).reshape(h, (w * 3 + 3) & ~3)
+                frames.append(rows[:, :w * 3].reshape(h, w, 3)[..., ::-1])
+            elif cid == b"00dc":
+                size["compressed"] += 1
+            elif cid == b"01wb":
+                audio.append(np.frombuffer(data, "<i2", length // 2, body))
+            offset = body + length + (length & 1)
+
+    walk(12, len(data))
+    return frames, size["compressed"], (np.concatenate(audio) if audio else np.zeros(0, np.int16))
+
+
+def stream_batches(indices: np.ndarray) -> List[int]:
+    """The batch size of each generator forward of
+    `MultiNetwork.synthesize_stream` at its default batch and lookahead: per
+    window of batch * lookahead frames, each network index present takes
+    full batches, then its remainder padded to the next power of two."""
+    from gance_tpu_torch.synthesis.runtime import DEFAULT_BATCH_SIZE, DEFAULT_STREAM_LOOKAHEAD
+
+    window = DEFAULT_BATCH_SIZE * max(DEFAULT_STREAM_LOOKAHEAD, 1)
+    sizes = []
+    for s in range(0, len(indices), window):
+        for i in np.unique(indices[s:s + window]):
+            frames = int(np.sum(indices[s:s + window] == i))
+            sizes += [DEFAULT_BATCH_SIZE] * (frames // DEFAULT_BATCH_SIZE)
+            if frames % DEFAULT_BATCH_SIZE:
+                sizes.append(min(2 ** math.ceil(math.log2(frames % DEFAULT_BATCH_SIZE)),
+                                 DEFAULT_BATCH_SIZE))
+    return sizes
+
+
+def features_phase(wav: Path) -> None:
+    """8a: the noise-blend inputs on the card against the port's CPU path."""
+    from gance_tpu_torch.audio.dsp import remap_values_into_range
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.audio.reduction import reduce_vector_rms_rolling_average
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_vectors_max_rms_power_audio
+
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, frames_per_second=PIPELINE_FPS).wav_data
+    rms = reduce_vector_rms_rolling_average(audio, PIPELINE_VECTOR, device="cpu").result.data
+    for count in (2, 3):  # the two networks' indices, and the FFT roll's 0..2
+        scaled = remap_values_into_range(rms, (float(rms.min()), float(rms.max())),
+                                         (0.0, float(count - 1)), device="cpu").numpy()
+        margin = float(np.min(np.abs(scaled - np.floor(scaled) - 0.5)))
+        require(margin > 1e-4, f"a frame's scaled RMS (over {count} indices) lies {margin:.2g} "
+                "from a half-integer on the CPU side: card and CPU indices cannot be held equal")
+    def features(roll: bool, device: str):
+        start = time.perf_counter()
+        result = alpha_blend_vectors_max_rms_power_audio(
+            PIPELINE_ALPHA, roll, (-1.0, 1.0), audio, PIPELINE_VECTOR, [0, 1], device=device)
+        return result, time.perf_counter() - start
+
+    for roll in (False, True):
+        (card, card_s), (cpu, cpu_s) = features(roll, "cuda"), features(roll, "cpu")
+        worst = {}
+        for field in ("a_vectors", "b_vectors", "combined"):
+            got, want = getattr(card, field).data, getattr(cpu, field).data
+            finite = np.isfinite(want)
+            require(got.shape == want.shape and bool(np.array_equal(np.isfinite(got), finite))
+                    and bool(np.array_equal(np.isnan(got), np.isnan(want))),
+                    f"features roll {roll} {field}: shapes or non-finite entries differ")
+            worst[field] = float(np.abs(got[finite] - want[finite]).max()) if finite.any() else 0.0
+            require(worst[field] <= 1e-4, f"features roll {roll} {field}: card vs CPU max abs "
+                    f"{worst[field]:.3g} > 1e-4")
+        indices = card.network_indices.result.data
+        require(bool(np.array_equal(indices, cpu.network_indices.result.data)),
+                f"features roll {roll}: network indices differ between the card and the CPU")
+        print(f"pipeline features (4 s WAV, {len(indices)} frames, roll {roll}): card vs CPU max abs "
+              f"{worst}, indices equal ({np.bincount(indices).tolist()}); card {card_s:.3f} s, "
+              f"CPU {cpu_s:.3f} s", flush=True)
+
+
+def run_render(wav: Path, paths: List[Path], out: Path, side: int, dtype: str, phase: bool,
+               egress: str, trace_dir: Optional[Path] = None) -> dict:
+    """One `noise_blend_api` render of `wav` into `out` (vector length 512,
+    30 fps, alpha 0.25, no FFT roll) with GANCE_TPU_EGRESS=`egress` and the
+    phase path on or off. Returns its wall seconds and its stage stats:
+    `features` (audio features), `render` (synthesis and write), `stream`
+    (the synthesis stream's share of the render: the time spent waiting in
+    its next()), `loading` (the rest of the wall: network loading) and
+    `frames`. tools/time_torch_pipeline.py times its renders with this."""
+    from gance_tpu_torch.pipelines.noise_blend import noise_blend_api
+
+    stages = out.with_suffix(".stages.jsonl")
+    stages.unlink(missing_ok=True)
+    os.environ.update(GANCE_TPU_STAGE_STATS=str(stages), GANCE_TPU_EGRESS=egress)
+    set_phase("on" if phase else "off")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    noise_blend_api([wav], out, paths, None, PIPELINE_FPS, side, None, None, None, PIPELINE_ALPHA,
+                    False, (-1.0, 1.0), compute_dtype=dtype, trace_dir=trace_dir, device="cuda")
+    wall = time.perf_counter() - start
+    del os.environ["GANCE_TPU_STAGE_STATS"], os.environ["GANCE_TPU_EGRESS"]
+    stats = {json.loads(line)["stage"]: json.loads(line) for line in stages.read_text().splitlines()}
+    stages.unlink()
+    features, render = stats["audio_features"]["busy_sec"], stats["render"]["busy_sec"]
+    return {"wall": wall, "loading": wall - features - render, "features": features,
+            "render": render, "stream": stats["synthesis"]["busy_sec"],
+            "frames": stats["render"]["count"]}
+
+
+def describe_render(r: dict) -> str:
+    """A render's wall split and its frames/s, from `run_render`'s result."""
+    return (f"wall {r['wall']:.3f} s = network loading {r['loading']:.3f} + audio features "
+            f"{r['features']:.3f} + synthesis and write {r['render']:.3f}; end to end "
+            f"{r['frames'] / r['wall']:.2f} frames/s, synthesis and write "
+            f"{r['frames'] / r['render']:.2f} frames/s; inside the render, the synthesis stream "
+            f"{r['stream']:.3f} s ({r['frames'] / r['stream']:.2f} frames/s)")
+
+
+def render_phase(label: str, wav: Path, paths: List[Path], workdir: Path, config, side: int,
+                 dtype: str, phase: bool, egress_mode: str, card: str,
+                 check_frames_against_direct: bool) -> Dict[str, int]:
+    """8b-8d: one `noise_blend_api` render with GANCE_TPU_EGRESS=`egress_mode` and
+    the counts set to 0 just before it and read just after; returns its
+    launches."""
+    from scipy.io import wavfile
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_vectors_max_rms_power_audio
+    from gance_tpu_torch.synthesis.orchestration import vector_synthesis
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork
+
+    out = workdir / f"{label}.avi"
+    reset_launch_counts()
+    r = run_render(wav, paths, out, side, dtype, phase, egress_mode)
+    counts = dict(LAUNCHES)
+
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, frames_per_second=PIPELINE_FPS).wav_data
+    inputs = alpha_blend_vectors_max_rms_power_audio(
+        PIPELINE_ALPHA, False, (-1.0, 1.0), audio, PIPELINE_VECTOR, [0, 1], device="cuda")
+    indices = inputs.network_indices.result.data
+    batches = stream_batches(indices)
+    forwards = len(batches)
+    blocks = config.resolution_log2 - 2
+    want = {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
+            "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": (blocks - phase) * forwards,
+            "phase_conv1_torgb": int(phase) * forwards, "stencil_blur4_valid": 0}
+    print(f"launches pipeline {label} ({forwards} forwards from the indices, batches "
+          f"{dict(sorted(collections.Counter(batches).items()))}, {sum(batches)} padded frames "
+          f"for {len(indices)}): {counts}", flush=True)
+    require(counts == want, f"pipeline {label}: launches {counts} != {want}")
+    require(set(indices.tolist()) == {0, 1}, f"pipeline {label}: indices use {set(indices.tolist())}")
+
+    frames, compressed, pcm = read_avi(out)
+    count = len(frames) + compressed
+    require(count == len(indices) == r["frames"],
+            f"pipeline {label}: {count} frames, {len(indices)} indices, {r['frames']} rendered")
+    if egress_mode == "raw-spill":
+        require(not compressed and all(f.shape == (side, side, 3) for f in frames),
+                f"pipeline {label}: {compressed} compressed frames or a wrong frame shape")
+        require(float(frames[0].std()) > 10.0, f"pipeline {label}: near-constant first frame")
+    require(bool(np.array_equal(pcm, wavfile.read(str(wav))[1])),
+            f"pipeline {label}: the AVI's audio is not the WAV's samples")
+    if check_frames_against_direct:
+        with MultiNetwork(paths, output_side_length=side, compute_dtype=getattr(torch, dtype),
+                          device="cuda") as networks:
+            within, worst = 0, 0
+            direct = vector_synthesis(networks, inputs).synthesized_images
+            for compared, (got, ref) in enumerate(zip(frames, direct), start=1):
+                steps = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+                within += int(np.count_nonzero(steps <= 1))
+                worst = max(worst, int(steps.max()))
+        require(compared == count, f"pipeline {label}: direct synthesis gave {compared} frames")
+        share = within / (count * side * side * 3)
+        print(f"pipeline {label} vs vector_synthesis run directly: max {worst} steps, {share:.6f} "
+              "within 1 step", flush=True)
+        require(share >= 0.999, f"pipeline {label}: {share:.5f} of values within 1 step")
+    bytes_written = out.stat().st_size
+    # the raw egress alone: the same frames and audio written again through
+    # the pipeline's writer
+    egress_note = ""
+    if egress_mode == "raw-spill":
+        from gance_tpu_torch.media.native import RawAviWriter, concatenated_pcm16
+
+        rate, samples = concatenated_pcm16([wav])
+        rgb = [np.ascontiguousarray(f) for f in frames]
+        start = time.perf_counter()
+        writer = RawAviWriter(workdir / f"{label}.again.avi", side, side, PIPELINE_FPS,
+                              pcm=samples, audio_rate=rate)
+        for frame in rgb:
+            writer.write_frame_rgb(frame)
+        writer.finalize()
+        write_s = time.perf_counter() - start
+        (workdir / f"{label}.again.avi").unlink()
+        del rgb
+        egress_note = (f"; the raw write alone {write_s:.3f} s ({count / write_s:.2f} "
+                       f"frames/s, {bytes_written / write_s / 1e6:.1f} MB/s)")
+    print(f"pipeline {label} ({count} frames of {side}px, {dtype}, phase path "
+          f"{'on' if phase else 'off'}, egress {egress_mode}, {compressed} compressed): "
+          f"{describe_render(r)}; AVI {bytes_written} bytes, "
+          f"{bytes_written / r['render'] / 1e6:.1f} MB/s{egress_note}; on {card}", flush=True)
+    out.unlink()
+    return counts
+
+
+def pipeline_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 8, with phase 3's two networks in `workdir`; returns its launches."""
+    from gance_tpu_torch.audio.io import fabricate_percussive_wav
+
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    wav = fabricate_percussive_wav(workdir / "song.wav", seconds=PIPELINE_SECONDS)
+    torch.cuda.empty_cache()
+    have = {name: importlib.util.find_spec(name) is not None for name in ("cv2", "PIL", "click")}
+    print(f"host egress: ffmpeg {shutil.which('ffmpeg')}, importable {have}", flush=True)
+    features_phase(wav)
+    totals: Dict[str, int] = {}
+    for label, side, dtype, phase, egress, direct in (
+            ("fp32-1024", config.resolution, "float32", False, "raw-spill", True),
+            ("bf16-512-phase", RESIZE_SIDE, "bfloat16", True, "raw-spill", False),
+            ("fp32-1024-default-egress", config.resolution, "float32", False, "auto", False)):
+        for k, v in render_phase(label, wav, paths, workdir, config, side, dtype, phase, egress,
+                                 card, direct).items():
+            totals[k] = totals.get(k, 0) + v
+    set_phase("off")
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
     sys.path.insert(0, str(ROOT))
+    from gance_tpu_torch.media import native
     from gance_tpu_torch.models.stylegan2 import GeneratorConfig
     from gance_tpu_torch.ops import precision
     from gance_tpu_torch.ops.cuda import build
@@ -1068,6 +1346,9 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
     print(f"kernel build: {build.build_all():.1f} s", flush=True)
+    start = time.perf_counter()
+    native.build_library()  # the AVI muxer of phase 8, built here so no render times it
+    print(f"native AVI muxer build (g++): {time.perf_counter() - start:.1f} s", flush=True)
     for log in sorted(build.BUILD_DIR.glob("*.log")):
         for line in log.read_text(errors="replace").splitlines():
             if "registers" in line:
@@ -1076,19 +1357,22 @@ def main() -> None:
     config = GeneratorConfig()  # config-f, 1024px
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(config, gen)
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        launches, net, z = main_path_phase(config, Path(tmp))
-    for record in records:
-        record["launches"] = launches[record["name"]]
-    parity_phase(net, z)
-    fps_phase(net, z, smi)
-    del net
-    gradient_phase()
-    train_parity_phase()
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
-        train_totals = training_phase(Path(tmp), smi)
+    # phase 3's networks stay in this directory for phase 8
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as nets_dir:
+        launches, net, z = main_path_phase(config, Path(nets_dir))
+        for record in records:
+            record["launches"] = launches[record["name"]]
+        parity_phase(net, z)
+        fps_phase(net, z, smi)
+        del net
+        gradient_phase()
+        train_parity_phase()
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
+            train_totals = training_phase(Path(tmp), smi)
+        pipeline_totals = pipeline_phase(config, Path(nets_dir), smi)
     for record in records:
         record["launches"] += train_totals.get(record["name"], 0)
+        record["launches"] += pipeline_totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

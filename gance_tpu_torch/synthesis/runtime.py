@@ -40,6 +40,7 @@ from gance_tpu_torch.models.stylegan2 import (
     synthesis_apply,
 )
 from gance_tpu_torch.types import is_vector
+from gance_tpu_torch.utils.device import resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 
 Params = Dict[str, Any]
@@ -53,17 +54,6 @@ DEFAULT_COMPUTE_DTYPE = {
 }[os.environ.get("GANCE_TPU_COMPUTE_DTYPE", "float32").lower()]
 
 _MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-
-
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The torch device to run on; a CUDA device on a host without CUDA raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def params_to_device(params: Any, device: torch.device) -> Any:

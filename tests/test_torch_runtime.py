@@ -240,3 +240,23 @@ def test_port_imports_neither_jax_nor_gance_tpu():
                             text=True, timeout=300)
     assert result.returncode == 0, result.stderr
     assert len(modules) >= 15
+
+
+def test_card_path_imports_no_host_only_package():
+    """cv2, click, PIL, h5py and more_itertools are host-only packages that a
+    GPU machine may lack: the modules on the GPU path (and chip_smoke) must
+    import without them."""
+    modules = ["gance_tpu_torch.pipelines.noise_blend", "gance_tpu_torch.media.video",
+               "gance_tpu_torch.media", "gance_tpu_torch.media.native", "gance_tpu_torch.audio",
+               "gance_tpu_torch.synthesis.inputs", "gance_tpu_torch.synthesis.orchestration",
+               "gance_tpu_torch.utils.profiling", "chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('cv2', 'click', 'PIL', 'h5py', 'more_itertools', 'jax', 'jaxlib', 'gance_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                            text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
