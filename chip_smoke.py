@@ -110,16 +110,46 @@ in order (any failure exits non-zero; no phase's failure is caught):
    Each run prints its wall seconds split into loading, audio features and
    synthesis plus write, the frames/s end to end, the AVI's bytes and MB/s,
    the synthesis stream's own seconds and, for the raw AVI, the time to
-   write the same frames and audio again through the same writer alone.
+   write the same frames and audio again through the same writer alone;
+9. drives the flagship, projection-file blend
+   (gance_tpu_torch/pipelines/projection_file_blend.py), with phase 3's
+   networks and phase 8's WAV. It prints whether h5py, cv2 and cv2.data
+   import and where OpenCV's Haar cascade XMLs are. (a) A projection file
+   as the projector writes one: 60 frames at 15 fps, seeded smooth 1024px
+   targets, rows-identical w+ from seeded z through network 0's mapping.
+   With h5py it is written by the port's `ProjectionFileWriter` (timed),
+   read back bit for bit and verified; without h5py the renders read an
+   in-memory reader of the same frames through the pipeline's
+   `_blend_from_reader`, and the script says so. (b) The pHash of 256 seeded
+   crops of 8-120 px on the card against the port's CPU path: bits equal,
+   except on crops where a low-frequency coefficient lies within 1e-5 of
+   max|coefficient| of the median on the CPU side (counted and printed).
+   (c) fp32, side 1024, 30 fps (120 frames), blend depth 10, alpha 0.25,
+   standard path, no overlay, GANCE_TPU_EGRESS=raw-spill: the AVI has 120
+   frames within 1 uint8 step on at least 99.9% of pixels of
+   `vector_synthesis` run directly on the same `alpha_blend_projection_file`
+   inputs and scaled the same way, the WAV's samples as its audio, and A /
+   B / C launch 17 / 8 / 8 times per forward, forwards counted from the
+   indices (both networks used). (d) bf16, GANCE_TPU_PHASE1024=on, side 512
+   (scaled on the host, as JAX does), with the README's overlay gates (pHash
+   30, bbox 50, track length 5) when the cascades are there: the frame
+   count, the audio and 15 / 7 / 7 / 1 launches per forward (no resize on
+   the device, so the top block's last skip upsample is the fused uint8
+   path's, not B); it prints the frames with a face found on each stream
+   and the frames composited. Each render prints its wall seconds split
+   into loading, audio features and render, frames/s, each stage's busy
+   seconds and the AVI's bytes.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's; E's
-launches include the phase-path G step's; A, B, C and E's include phase
-8's); the last line is {"ok": true, "device": {...}}. Without a CUDA device
-it exits 1 and prints no result.
+launches include the phase-path G step's; A, B, C and E's include phases 8
+and 9's); the last line is {"ok": true, "device": {...}}. Without a CUDA
+device it exits 1 and prints no result.
 """
 
 import collections
+import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -152,6 +182,11 @@ PIPELINE_SECONDS = 4.0  # the phase-8 WAV
 PIPELINE_FPS = 30.0
 PIPELINE_VECTOR = 512  # config-f's latent length, the pipeline's vector length
 PIPELINE_ALPHA = 0.25
+FLAGSHIP_PROJECTION_FRAMES = 60  # the phase-9 projection file: 4 s at 15 fps
+FLAGSHIP_PROJECTION_FPS = 15.0
+FLAGSHIP_FPS = 30.0  # a frame multiplier of 2
+FLAGSHIP_BLEND_DEPTH = 10
+FLAGSHIP_OVERLAY = (30, 50.0, 5)  # the README's phash, bbox and track-length gates
 
 REPLACES = {
     "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
@@ -1325,6 +1360,334 @@ def pipeline_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+class MemoryProjectionReader:
+    """The members of a ProjectionFileReader that the flagship reads
+    (`projection_attributes`, and fresh lazy iterators of `final_latents`,
+    `target_images` and `final_images` on every access), over arrays in
+    memory: the flagship's input on a host without h5py."""
+
+    def __init__(self, attributes, targets: np.ndarray, latents: np.ndarray) -> None:
+        self.projection_attributes = attributes
+        self._targets, self._latents = targets, latents
+
+    @property
+    def final_latents(self):
+        return (matrix[0] for matrix in self._latents)  # (1, R, V) -> (R, V)
+
+    @property
+    def target_images(self):
+        return iter(self._targets)
+
+    @property
+    def final_images(self):
+        return iter(self._targets)
+
+
+def host_findings() -> Tuple[bool, bool]:
+    """9: print what the host offers the flagship (h5py for the projection
+    file, cv2 and OpenCV's Haar cascade XMLs for the overlay); returns
+    (h5py importable, both cascades found)."""
+    from gance_tpu_torch.overlay.faces import cascade_dirs
+
+    def spec(name: str) -> bool:
+        try:
+            return importlib.util.find_spec(name) is not None
+        except ImportError:
+            return False
+
+    found = {name: spec(name) for name in ("h5py", "cv2", "cv2.data")}
+    dirs = cascade_dirs()
+    cascades = {f"{d}/{xml}": (d / xml).exists() for d in dirs
+                for xml in ("haarcascade_frontalface_default.xml", "haarcascade_eye.xml")}
+    have_cascades = all(any((d / xml).exists() for d in dirs)
+                        for xml in ("haarcascade_frontalface_default.xml", "haarcascade_eye.xml"))
+    print(f"flagship host: importable {found}; cascade XMLs {cascades}", flush=True)
+    return found["h5py"], have_cascades
+
+
+def projection_source(config, workdir: Path, have_h5py: bool):
+    """9a: the flagship's projection file, as the projector writes one:
+    FLAGSHIP_PROJECTION_FRAMES seeded smooth targets at the network's size and
+    rows-identical w+ from seeded z through network 0's mapping. With h5py it
+    is written by the port's ProjectionFileWriter, timed, read back bit for bit
+    and verified; returns its path. Without h5py, an in-memory reader of the
+    same frames."""
+    from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply
+    from gance_tpu_torch.projection import LATEST_VERSION, ProjectionAttributes
+    from gance_tpu_torch.synthesis.runtime import params_to_device
+
+    count, res = FLAGSHIP_PROJECTION_FRAMES, config.resolution
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    coarse = torch.rand((count, 3, 8, 8), generator=gen, device="cuda") * 255.0
+    targets = F.interpolate(coarse, size=(res, res), mode="bicubic", align_corners=False)
+    targets = targets.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    targets = targets.cpu().numpy()
+    mapping = params_to_device({"mapping": smoke_params(SEED, config)["mapping"]},
+                               torch.device("cuda"))
+    z = torch.randn((count, config.latent_size), generator=gen, device="cuda")
+    with torch.inference_mode():
+        latents = broadcast_dlatents(mapping_apply(mapping, z, config), config)[:, None]
+    latents = latents.cpu().numpy()  # (count, 1, R, 512), rows identical
+    attributes = ProjectionAttributes(
+        version_number=LATEST_VERSION, complete=True, original_target_path="targets.mp4",
+        original_width_height=(res, res), projection_width_height=(res, res),
+        target_md5_hash="0" * 32, original_network_path="0_net.pkl",
+        network_md5_hash="0" * 32, steps_in_projection=1, noises_shapes=np.nan,
+        latents_histories_enabled=False, noises_histories_enabled=False,
+        images_histories_enabled=False, original_fps=FLAGSHIP_PROJECTION_FPS,
+        projection_fps=FLAGSHIP_PROJECTION_FPS, original_frame_count=count,
+        projection_frame_count=count)
+    if not have_h5py:
+        print(f"flagship 9a: h5py is not importable here, so the projection file is not written; "
+              f"the render reads an in-memory reader of the same {count} frames "
+              f"(the HDF5 route is held by the CPU tests)", flush=True)
+        return MemoryProjectionReader(attributes, targets, latents)
+
+    from gance_tpu_torch.projection import (ProjectionFileWriter, load_projection_file,
+                                            verify_projection_file_assumptions)
+
+    path = workdir / "projection.hdf5"
+    start = time.perf_counter()
+    with ProjectionFileWriter(path, attributes) as writer:
+        for target, matrix in zip(targets, latents):
+            with writer.frame_writer() as frame:
+                frame.finish(target, matrix, target)
+    write_s = time.perf_counter() - start
+    with load_projection_file(path) as reader:
+        got = reader.projection_attributes
+        require(np.isnan(got.noises_shapes) and got == dataclasses.replace(
+            attributes, noises_shapes=got.noises_shapes),
+            f"flagship 9a: attributes {got} != {attributes}")
+        require(all(np.array_equal(a, b) for a, b in zip(reader.final_latents, latents[:, 0]))
+                and all(np.array_equal(a, b) for a, b in zip(reader.target_images, targets)),
+                "flagship 9a: the file's latents or targets differ from what was written")
+    verify_projection_file_assumptions(path)
+    print(f"flagship 9a: wrote {count} frames of {res}px to {path.name} "
+          f"({path.stat().st_size} bytes, gzip 9) in {write_s:.3f} s; read back bit for bit, "
+          "rows identical", flush=True)
+    return path
+
+
+def phash_phase() -> None:
+    """9b: the pHash on the card against the port's CPU path, 256 seeded crops
+    of 8-120 px. A crop whose low-frequency coefficient lies within 1e-5 of
+    max|coefficient| of the median on the CPU side cannot be decided."""
+    from gance_tpu_torch.overlay.phash import _prepare_crop, low_frequencies, phash_batch
+
+    rng = np.random.RandomState(SEED + 9)
+    crops = [(rng.rand(*rng.randint(8, 121, size=2), 3) * 255).astype(np.uint8)
+             for _ in range(256)]
+    card = phash_batch(crops, device="cuda")
+    start = time.perf_counter()
+    card = phash_batch(crops, device="cuda")
+    card_s = time.perf_counter() - start
+    cpu = phash_batch(crops, device="cpu")
+    low = low_frequencies(torch.from_numpy(np.stack([_prepare_crop(c) for c in crops]))).numpy()
+    ordered = np.sort(low, axis=1)
+    median = (ordered[:, 31] + ordered[:, 32]) * np.float32(0.5)
+    undecided = (np.abs(low - median[:, None]).min(axis=1)
+                 <= 1e-5 * np.abs(low).max(axis=1))
+    differ = (card != cpu).any(axis=1)
+    print(f"flagship 9b: pHash of 256 crops, card vs CPU: {int(differ.sum())} differ, "
+          f"{int(undecided.sum())} undecidable (a coefficient within 1e-5 of max|coefficient| "
+          f"of the median), of which {int((differ & undecided).sum())} differ; card "
+          f"{card_s * 1e3:.3f} ms for the batch (host prep included)", flush=True)
+    require(not (differ & ~undecided).any(),
+            f"flagship 9b: pHash bits differ on decidable crops {np.nonzero(differ & ~undecided)[0]}")
+
+
+def read_stage_stats(path: Path) -> Dict[str, dict]:
+    stats = {json.loads(line)["stage"]: json.loads(line) for line in path.read_text().splitlines()}
+    path.unlink()
+    return stats
+
+
+def flagship_render(source, wav: Path, paths: List[Path], out: Path, side: int, dtype: str,
+                    overlay: Optional[Tuple[int, float, int]],
+                    trace_dir: Optional[Path] = None) -> dict:
+    """One flagship render of `wav` over `source` (a projection file's path, or
+    an in-memory reader) into `out` with GANCE_TPU_EGRESS=raw-spill, traced
+    into `trace_dir` when given; returns its wall seconds and stage stats.
+    tools/time_torch_pipeline.py --flagship times its renders with this."""
+    from gance_tpu_torch.pipelines import projection_file_blend as pfb
+    from gance_tpu_torch.utils.profiling import trace
+
+    stages = out.with_suffix(".stages.jsonl")
+    stages.unlink(missing_ok=True)
+    os.environ.update(GANCE_TPU_STAGE_STATS=str(stages), GANCE_TPU_EGRESS="raw-spill")
+    args = dict(wav=[wav], output_path=out, network_paths=paths, frames_to_visualize=None,
+                output_fps=FLAGSHIP_FPS, output_side_length=side, alpha=PIPELINE_ALPHA,
+                fft_roll_enabled=False, fft_amplitude_range=(-1.0, 1.0),
+                blend_depth=FLAGSHIP_BLEND_DEPTH, compute_dtype=dtype)
+    gates = dict(zip(("phash_distance", "bbox_distance", "track_length"), overlay or ()))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with trace(trace_dir):
+        if isinstance(source, Path):
+            pfb.projection_file_blend_api(projection_file_path=source, debug_path=None,
+                                          debug_window=None, debug_side_length=None,
+                                          device="cuda", **gates, **args)
+        else:
+            pfb._blend_from_reader(reader=source, complexity_change_rolling_sum_window=None,
+                                   complexity_change_threshold=None, overlay_gates=overlay,
+                                   overlay_detection_side=None, overlay_smoothing=0,
+                                   device="cuda", **args)
+    wall = time.perf_counter() - start
+    del os.environ["GANCE_TPU_STAGE_STATS"], os.environ["GANCE_TPU_EGRESS"]
+    stats = read_stage_stats(stages)
+    busy = {name: s.get("busy_sec", 0.0) for name, s in stats.items()}
+    features, render = busy["audio_features"], busy["render"]
+    return {"wall": wall, "loading": wall - features - render, "features": features,
+            "render": render, "frames": stats["render"]["count"], "busy": busy}
+
+
+def describe_flagship(r: dict) -> str:
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in r["busy"].items()
+                       if k not in ("audio_features", "render"))
+    return (f"wall {r['wall']:.3f} s = loading {r['loading']:.3f} + audio features "
+            f"{r['features']:.3f} + render {r['render']:.3f}; end to end "
+            f"{r['frames'] / r['wall']:.2f} frames/s, render {r['frames'] / r['render']:.2f} "
+            f"frames/s; stage busy seconds (each stage's next() includes what feeds it): {stages}")
+
+
+def flagship_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 9, with phase 3's two networks and phase 8's WAV in `workdir`;
+    returns its launches."""
+    from scipy.io import wavfile
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.media.video import scale_square_source_duplicate
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.overlay import faces
+    from gance_tpu_torch.pipelines import projection_file_blend as pfb
+    from gance_tpu_torch.projection import final_latents_matrices_label, load_projection_file
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_projection_file
+    from gance_tpu_torch.synthesis.orchestration import vector_synthesis
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork
+
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    wav = workdir / "song.wav"
+    torch.cuda.empty_cache()
+    have_h5py, have_cascades = host_findings()
+    source = projection_source(config, workdir, have_h5py)
+    phash_phase()
+
+    @contextlib.contextmanager
+    def opened():
+        if isinstance(source, Path):
+            with load_projection_file(source) as reader:
+                yield reader
+        else:
+            yield source
+
+    count = int(FLAGSHIP_FPS // FLAGSHIP_PROJECTION_FPS) * FLAGSHIP_PROJECTION_FRAMES
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, target_num_vectors=count).wav_data
+    with opened() as reader:
+        latents = final_latents_matrices_label(reader)
+    inputs = alpha_blend_projection_file(latents, PIPELINE_ALPHA, False, (-1.0, 1.0),
+                                         FLAGSHIP_BLEND_DEPTH, audio, PIPELINE_VECTOR, [0, 1],
+                                         device="cuda")
+    indices = inputs.network_indices.result.data
+    batches = stream_batches(indices)
+    require(set(indices.tolist()) == {0, 1}, f"flagship: indices use {set(indices.tolist())}")
+    samples = wavfile.read(str(wav))[1]
+    totals: Dict[str, int] = {}
+
+    # (c) fp32, 1024px, standard path, no overlay
+    out = workdir / "flagship-fp32-1024.avi"
+    set_phase("off")
+    reset_launch_counts()
+    r = flagship_render(source, wav, paths, out, config.resolution, "float32", None)
+    counts = launches_per_forward(f"flagship fp32-1024 (batches "
+                                  f"{dict(sorted(collections.Counter(batches).items()))})",
+                                  len(batches), config)
+    frames, compressed, pcm = read_avi(out)
+    require(len(frames) == count == r["frames"] and not compressed,
+            f"flagship fp32-1024: {len(frames)} frames ({compressed} compressed), "
+            f"{r['frames']} rendered, {count} expected")
+    require(bool(np.array_equal(pcm, samples)), "flagship fp32-1024: audio is not the WAV's")
+    require(float(frames[0].std()) > 10.0, "flagship fp32-1024: near-constant first frame")
+    with MultiNetwork(paths, compute_dtype=torch.float32, device="cuda") as networks:
+        direct = scale_square_source_duplicate(
+            vector_synthesis(networks, inputs).synthesized_images, config.resolution)
+        within, worst, compared = 0, 0, 0
+        for got, ref in zip(frames, direct):
+            steps = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+            within += int(np.count_nonzero(steps <= 1))
+            worst = max(worst, int(steps.max()))
+            compared += 1
+    require(compared == count, f"flagship fp32-1024: direct synthesis gave {compared} frames")
+    share = within / (count * config.resolution ** 2 * 3)
+    print(f"flagship fp32-1024 vs vector_synthesis run directly: max {worst} steps, "
+          f"{share:.6f} within 1 step", flush=True)
+    require(share >= 0.999, f"flagship fp32-1024: {share:.5f} of values within 1 step")
+    size = out.stat().st_size
+    print(f"flagship fp32-1024 ({count} frames, {len(batches)} forwards, egress raw-spill): "
+          f"{describe_flagship(r)}; AVI {size} bytes; on {card}", flush=True)
+    out.unlink()
+    del frames
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+    # (d) bf16, the phase path, side 512, with the README's overlay gates
+    overlay = FLAGSHIP_OVERLAY if have_cascades else None
+    if overlay is None:
+        print("flagship bf16-512-phase: no Haar cascade XMLs on this host, so eye detection is "
+              "not run; the render runs without the overlay", flush=True)
+    with opened() as reader:
+        keys = {t.tobytes() for t in scale_square_source_duplicate(reader.target_images,
+                                                                   RESIZE_SIDE)}
+    detected = collections.Counter()
+    composited = [0]
+    landmarks, compose = faces.FaceFinderProxy.face_landmarks, pfb.write_boxes_onto_image
+
+    def counting_landmarks(self, face_image):
+        found = landmarks(self, face_image)
+        stream = ("target" if np.ascontiguousarray(face_image).tobytes() in keys
+                  else "synthesized")
+        detected[stream, bool(found)] += 1
+        return found
+
+    def counting_compose(**kwargs):
+        composited[0] += 1
+        return compose(**kwargs)
+
+    out = workdir / "flagship-bf16-512-phase.avi"
+    set_phase("on")
+    reset_launch_counts()
+    faces.FaceFinderProxy.face_landmarks = counting_landmarks
+    pfb.write_boxes_onto_image = counting_compose
+    try:
+        r = flagship_render(source, wav, paths, out, RESIZE_SIDE, "bfloat16", overlay)
+    finally:
+        faces.FaceFinderProxy.face_landmarks = landmarks
+        pfb.write_boxes_onto_image = compose
+        set_phase("off")
+    # no resize on the device (frames leave at 1024px), so the top block's
+    # last skip upsample is the fused uint8 path's, not B
+    counts = launches_per_forward("flagship bf16-512-phase", len(batches), config, phase=True)
+    frames, compressed, pcm = read_avi(out)
+    require(len(frames) == count == r["frames"] and not compressed
+            and all(f.shape == (RESIZE_SIDE, RESIZE_SIDE, 3) for f in frames),
+            f"flagship bf16-512-phase: {len(frames)} frames, {r['frames']} rendered")
+    require(bool(np.array_equal(pcm, samples)), "flagship bf16-512-phase: audio is not the WAV's")
+    if overlay is not None:
+        calls = sum(detected.values())
+        require(calls == 2 * count, f"flagship bf16-512-phase: {calls} detections for "
+                f"{count} frame pairs")
+        print(f"flagship bf16-512-phase overlay (phash {overlay[0]}, bbox {overlay[1]}, track "
+              f"{overlay[2]}): frames with a face found, target {detected['target', True]} and "
+              f"synthesized {detected['synthesized', True]} of {count} each; composited "
+              f"{composited[0]}", flush=True)
+    size = out.stat().st_size
+    print(f"flagship bf16-512-phase ({count} frames, overlay {'on' if overlay else 'off'}, "
+          f"egress raw-spill): {describe_flagship(r)}; AVI {size} bytes; on {card}", flush=True)
+    out.unlink()
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -1370,9 +1733,11 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
             train_totals = training_phase(Path(tmp), smi)
         pipeline_totals = pipeline_phase(config, Path(nets_dir), smi)
+        flagship_totals = flagship_phase(config, Path(nets_dir), smi)
     for record in records:
         record["launches"] += train_totals.get(record["name"], 0)
         record["launches"] += pipeline_totals.get(record["name"], 0)
+        record["launches"] += flagship_totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from gance_tpu_torch.media.video import (
     frames_in_video,
     reduce_fps_take_every,
     resize_source,
+    scale_square_source_duplicate,
     write_source_to_disk_consume,
     write_source_to_disk_forward,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "write_source_to_disk_consume",
     "add_wavs_to_video",
     "resize_source",
+    "scale_square_source_duplicate",
     "read_image",
     "write_image",
     "horizontal_concat_images",

@@ -556,3 +556,27 @@ def resize_source(
     return (
         cv2.resize(frame, width_height, interpolation=cv2.INTER_CUBIC) for frame in source
     )
+
+
+def scale_square_source_duplicate(
+    source: ImageSourceType, output_side_length: int, frame_multiplier: int = 1
+) -> ImageSourceType:
+    """
+    Cubic-resize square frames on the host (cv2 INTER_CUBIC) and repeat each
+    frame `frame_multiplier` times: the fps up-conversion used when the output
+    fps exceeds a projection file's.
+    """
+
+    def iterate() -> Iterator[np.ndarray]:
+        import cv2
+
+        for frame in source:
+            resized = cv2.resize(
+                frame,
+                (output_side_length, output_side_length),
+                interpolation=cv2.INTER_CUBIC,
+            )
+            for _ in range(frame_multiplier):
+                yield resized
+
+    return iterate()

@@ -249,7 +249,9 @@ def test_card_path_imports_no_host_only_package():
     modules = ["gance_tpu_torch.pipelines.noise_blend", "gance_tpu_torch.media.video",
                "gance_tpu_torch.media", "gance_tpu_torch.media.native", "gance_tpu_torch.audio",
                "gance_tpu_torch.synthesis.inputs", "gance_tpu_torch.synthesis.orchestration",
-               "gance_tpu_torch.utils.profiling", "chip_smoke"]
+               "gance_tpu_torch.utils.profiling", "gance_tpu_torch.projection",
+               "gance_tpu_torch.overlay", "gance_tpu_torch.pipelines.projection_file_blend",
+               "gance_tpu_torch.media.disk_tee", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
