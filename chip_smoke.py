@@ -138,13 +138,40 @@ in order (any failure exits non-zero; no phase's failure is caught):
    path's, not B); it prints the frames with a face found on each stream
    and the frames composited. Each render prints its wall seconds split
    into loading, audio features and render, frames/s, each stage's busy
-   seconds and the AVI's bytes.
+   seconds and the AVI's bytes;
+10. drives the projector (gance_tpu_torch/projection/projector.py) at
+   config-f 1024px with phase 3's network 0 and the random-VGG metric at
+   256px. (a) One fp32 step at batch 1 on the card and on the port's CPU
+   path with the same seeded w, planes, jitter and target: distance and loss
+   within 1e-4 relative; the gradient of the step's synthesis term (the
+   regulariser's weight at 0, since at 1e5 its gradient hides the noise
+   gradients that come through A and E) with respect to w, and to the 17
+   planes taken together, norm-wise within 2e-2, each plane within 1e-1
+   (phase 7a's bounds and reason). (b) `project_batch` of 100 steps from
+   the dlatent average with seeded planes, targets the network's own frames
+   from seeded rows-identical w: fp32 at batch 4, then bf16 at batch 8, on
+   the standard path; the clean distance (`evaluate_distance`) must fall for
+   every frame, every output be finite, and the launches equal the count
+   derived from the architecture (`projection_launches`: per step a forward
+   and one D per C in the backward, then the final render); it prints ms
+   per step (CUDA events), frame-steps/s, frames per hour at 1000 steps and
+   peak memory. (c) bf16 at batch 8 for 20 steps on the phase path (E
+   forward and E's backward), its ms per step beside (b)'s; then one fp32
+   step at batch 2 on each path with the same inputs, the synthesis term's
+   gradients within 2e-2 norm-wise. (d) `_projection_write_loop` over 8
+   seeded 1024px frames at batch 4, 20 steps in segments of 8, latents
+   histories on, into an in-memory writer (the card machine has no h5py):
+   rows identical, histories of 20 steps, noise shapes in JAX's (1, h, w, 1)
+   layout, launches derived; then the flagship's `_blend_from_reader` over
+   the result (`MemoryProjectionReader`, 16 frames at 30 fps, side 512, phase
+   8's WAV cut to the clip) with the frame count, the audio and the launches
+   per forward checked.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
-discriminator forward at batch 4, its launches are the training run's; E's
-launches include the phase-path G step's; A, B, C and E's include phases 8
-and 9's); the last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits 1 and prints no result.
+discriminator forward at batch 4, its launches are the training run's and
+phase 10's; E's launches include the phase-path G step's; A, B, C and E's
+include phases 8, 9 and 10's); the last line is {"ok": true, "device":
+{...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
 import collections
@@ -187,6 +214,14 @@ FLAGSHIP_PROJECTION_FPS = 15.0
 FLAGSHIP_FPS = 30.0  # a frame multiplier of 2
 FLAGSHIP_BLEND_DEPTH = 10
 FLAGSHIP_OVERLAY = (30, 50.0, 5)  # the README's phash, bbox and track-length gates
+PROJECTION_STEPS = 100  # 10b: num_steps, so the whole LR and jitter schedule runs
+PROJECTION_RUNS = (("float32", 4), ("bfloat16", 8))  # 10b: (compute dtype, batch)
+PROJECTION_PHASE_STEPS = 20  # 10c: bf16 at batch 8 on the phase path
+PROJECTION_WRITE_FRAMES = 8  # 10d: the writer loop's source frames
+PROJECTION_WRITE_BATCH = 4
+PROJECTION_WRITE_STEPS = 20
+PROJECTION_WRITE_SEGMENT = 8  # segments of 8, 8 and 4 steps
+PROJECTION_WRITE_FPS = 15.0  # divides the flagship's 30 fps
 
 REPLACES = {
     "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
@@ -546,27 +581,44 @@ def check_frames(label: str, images: np.ndarray, count: int, resolution: int) ->
         require(saturated < 0.5, f"{label}[{i}]: {saturated:.2f} of pixels saturated")
 
 
-def launches_per_forward(label: str, forwards: int, config, phase: bool = False,
-                         resize: bool = False) -> Dict[str, int]:
-    """Check the launches of the request just served. On the phase path the top
+def forward_launches(config, phase: bool = False, resize: bool = False) -> Dict[str, int]:
+    """Kernel launches of one synthesis forward. On the phase path the top
     block's two conv layers take their epilogue in phase space (not A), its
     blur is folded into the conv (not C), and its Conv1 + ToRGB run as E; the
-    last skip upsample is B's interleave on the float path (a resize) and the
-    plain phase planes on the fused uint8 path."""
+    last skip upsample is B's interleave on the float path (a resize, or a
+    float output as the projector asks for) and the plain phase planes on the
+    fused uint8 path."""
+    blocks = config.resolution_log2 - 2
+    return {
+        "fused_bias_noise_lrelu": 1 + 2 * blocks - 2 * phase,
+        "upsample2x_blur": blocks - (phase and not resize),
+        "blur4_separable_pad11": blocks - phase,
+        "phase_conv1_torgb": int(phase),
+        "stencil_blur4_valid": 0,
+    }
+
+
+def launches_per_forward(label: str, forwards: int, config, phase: bool = False,
+                         resize: bool = False) -> Dict[str, int]:
+    """Check the launches of the request just served against
+    `forward_launches` times the forwards."""
     from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES
 
     counts = dict(LAUNCHES)
-    blocks = config.resolution_log2 - 2
-    want = {
-        "fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
-        "upsample2x_blur": (blocks - (phase and not resize)) * forwards,
-        "blur4_separable_pad11": (blocks - phase) * forwards,
-        "phase_conv1_torgb": int(phase) * forwards,
-        "stencil_blur4_valid": 0,
-    }
+    want = {k: v * forwards for k, v in forward_launches(config, phase, resize).items()}
     print(f"launches {label} ({forwards} forwards): {counts}", flush=True)
     require(counts == want, f"{label}: launches {counts} != {want}")
     return counts
+
+
+def projection_launches(config, steps: int, phase: bool) -> Dict[str, int]:
+    """Kernel launches of a `project_batch` of `steps` steps: each step one
+    synthesis forward with a float output and its backward to w and the noise
+    planes, in which each C's input gradient launches one D (A's, B's and E's
+    backward passes are plain PyTorch); then one forward for the final render."""
+    forward = forward_launches(config, phase, resize=True)
+    step = dict(forward, stencil_blur4_valid=forward["blur4_separable_pad11"])
+    return {k: steps * step[k] + forward[k] for k in forward}
 
 
 def share_within_one_step(a: np.ndarray, b: np.ndarray) -> Tuple[int, float]:
@@ -1276,10 +1328,8 @@ def render_phase(label: str, wav: Path, paths: List[Path], workdir: Path, config
     indices = inputs.network_indices.result.data
     batches = stream_batches(indices)
     forwards = len(batches)
-    blocks = config.resolution_log2 - 2
-    want = {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
-            "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": (blocks - phase) * forwards,
-            "phase_conv1_torgb": int(phase) * forwards, "stencil_blur4_valid": 0}
+    # the phase-path render resizes on the device: its last skip upsample is B
+    want = {k: v * forwards for k, v in forward_launches(config, phase, resize=True).items()}
     print(f"launches pipeline {label} ({forwards} forwards from the indices, batches "
           f"{dict(sorted(collections.Counter(batches).items()))}, {sum(batches)} padded frames "
           f"for {len(indices)}): {counts}", flush=True)
@@ -1405,6 +1455,15 @@ def host_findings() -> Tuple[bool, bool]:
     return found["h5py"], have_cascades
 
 
+def smooth_frames(count: int, res: int, gen: torch.Generator) -> np.ndarray:
+    """`count` seeded smooth uint8 (res, res, 3) frames: 8x8 uniform noise,
+    bicubic-upsampled on the card."""
+    coarse = torch.rand((count, 3, 8, 8), generator=gen, device="cuda") * 255.0
+    frames = F.interpolate(coarse, size=(res, res), mode="bicubic", align_corners=False)
+    frames = frames.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
+    return frames.cpu().numpy()
+
+
 def projection_source(config, workdir: Path, have_h5py: bool):
     """9a: the flagship's projection file, as the projector writes one:
     FLAGSHIP_PROJECTION_FRAMES seeded smooth targets at the network's size and
@@ -1418,10 +1477,7 @@ def projection_source(config, workdir: Path, have_h5py: bool):
 
     count, res = FLAGSHIP_PROJECTION_FRAMES, config.resolution
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    coarse = torch.rand((count, 3, 8, 8), generator=gen, device="cuda") * 255.0
-    targets = F.interpolate(coarse, size=(res, res), mode="bicubic", align_corners=False)
-    targets = targets.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1).contiguous()
-    targets = targets.cpu().numpy()
+    targets = smooth_frames(count, res, gen)
     mapping = params_to_device({"mapping": smoke_params(SEED, config)["mapping"]},
                                torch.device("cuda"))
     z = torch.randn((count, config.latent_size), generator=gen, device="cuda")
@@ -1688,6 +1744,372 @@ def flagship_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+class MemoryProjectionWriter:
+    """The ProjectionFileWriter surface that `_projection_write_loop` uses, in
+    memory (the card machine has no h5py): per frame the steps and latents of
+    its history, its final latents and target, the noise shapes recorded, and
+    `complete` set on a clean exit."""
+
+    class Frame:
+        def __init__(self) -> None:
+            self.steps: List[int] = []
+            self.latents: List[np.ndarray] = []
+            self.noise_shapes: List[tuple] = []
+            self.final_latents: Optional[np.ndarray] = None
+            self.target: Optional[np.ndarray] = None
+
+        def record_step(self, step, latents, noises, image) -> None:
+            self.steps.append(step)
+            self.latents.append(np.array(latents))
+            self.noise_shapes = [tuple(np.asarray(n).shape) for n in noises]
+
+        def finish(self, target_image, final_latents, final_image) -> None:
+            self.final_latents, self.target = np.array(final_latents), target_image
+
+    def __init__(self, path: Path, attributes) -> None:
+        self.attributes = attributes
+        self.frames: List["MemoryProjectionWriter.Frame"] = []
+        self.noises_shapes: Optional[list] = None
+
+    def __enter__(self) -> "MemoryProjectionWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.attributes.complete = exc_type is None
+        self.attributes.projection_frame_count = len(self.frames)
+        self.attributes.noises_shapes = self.noises_shapes
+
+    @property
+    def frame_index(self) -> int:
+        return len(self.frames)
+
+    @contextlib.contextmanager
+    def batch_frame_writers(self, count: int):
+        writers = [self.Frame() for _ in range(count)]
+        yield writers
+        require(all(w.final_latents is not None for w in writers), "a frame was not finished")
+        self.frames.extend(writers)
+
+    def record_noises_shapes(self, shapes) -> None:
+        self.noises_shapes = list(shapes)
+
+
+def own_frames(params, config, count: int, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The network's own uint8 frames from seeded z through its mapping, w
+    broadcast to every row (rows identical), const noise; returns (frames, w)."""
+    from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply, synthesis_apply
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn((count, config.latent_size), generator=gen, device="cuda")
+    with torch.inference_mode():
+        w = mapping_apply(params, z, config)
+        frames = synthesis_apply(params, broadcast_dlatents(w, config), config, uint8_output=True)
+    return frames.cpu().numpy(), w.cpu().numpy()
+
+
+def seeded_planes(projector, batch: int, seed: int) -> List[np.ndarray]:
+    """Seeded N(0, 1) noise planes in JAX's layout, (batch, h, w, 1) each."""
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal((batch, h, w, 1)).astype(np.float32)
+            for h, w in projector.noise_spatial_shapes]
+
+
+def gradient_error(got: List[torch.Tensor], want: List[torch.Tensor]) -> float:
+    """Norm-wise relative error of a list of gradients taken together."""
+    g = torch.cat([t.float().cpu().reshape(-1) for t in got])
+    w = torch.cat([t.float().cpu().reshape(-1) for t in want])
+    return float((g - w).norm() / w.norm())
+
+
+def synthesis_term(projector, w: torch.Tensor, planes: List[torch.Tensor],
+                   target_proc: torch.Tensor, jitter: torch.Tensor):
+    """`_loss_and_gradients` with the regulariser's weight at 0: the per-frame
+    distances and the gradients of their sum with respect to w and the planes.
+    At the projector's weight (1e5) the regulariser's gradient outweighs the
+    synthesis term of the planes' gradient by about 1e5 on seeded N(0, 1)
+    planes, so a comparison of the whole gradient could not see the noise
+    gradients that come through A and E."""
+    weight = projector.settings.regularize_noise_weight
+    projector.settings.regularize_noise_weight = 0.0
+    try:
+        _, dist, _, grads = projector._loss_and_gradients(w, planes, target_proc, jitter)
+    finally:
+        projector.settings.regularize_noise_weight = weight
+    return dist, grads
+
+
+def projector_parity_phase(params, config) -> None:
+    """10a: one fp32 step at batch 1, 1024px, on the card and on the port's
+    CPU path with the same seeded w, planes, jitter and target: the distance
+    and the loss (distance + 1e5 * the noise regulariser) within 1e-4
+    relative; the gradient of the synthesis term (`synthesis_term`) with
+    respect to w and to the 17 planes taken together norm-wise within 2e-2,
+    each plane's within 1e-1 (phase 7a's bounds, for its reason: one lrelu
+    input at the fp32 kink)."""
+    from gance_tpu_torch.projection.projector import Projector, _noise_regularization
+
+    set_phase("off")
+    rng = np.random.RandomState(SEED + 10)
+    w = (0.5 * rng.standard_normal((1, config.dlatent_size))).astype(np.float32)
+    jitter = (0.05 * rng.standard_normal((1, config.dlatent_size))).astype(np.float32)
+    target = smooth_frames(1, config.resolution, torch.Generator(device="cuda").manual_seed(SEED + 11))
+    results = {}
+    for device in ("cuda", "cpu"):
+        projector = Projector(params, config, device=device)
+        planes = [torch.from_numpy(np.ascontiguousarray(p.transpose(0, 3, 1, 2))).to(device)
+                  for p in seeded_planes(projector, 1, SEED + 12)]
+        start = time.perf_counter()
+        dist, grads = synthesis_term(projector, torch.from_numpy(w).to(device), planes,
+                                     projector._target_proc(target),
+                                     torch.from_numpy(jitter).to(device))
+        loss = float(dist.sum()) + projector.settings.regularize_noise_weight * float(
+            _noise_regularization(planes).sum())
+        results[device] = loss, float(dist[0]), [g.cpu() for g in grads], time.perf_counter() - start
+        del projector, planes, grads
+    (gl, gd, gg, gs), (cl, cd, cg, cs) = results["cuda"], results["cpu"]
+    worst_plane = max((gradient_error([g], [c]), i) for i, (g, c) in enumerate(zip(gg[1:], cg[1:])))
+    errors = {"loss": abs(gl - cl) / abs(cl), "distance": abs(gd - cd) / abs(cd),
+              "w": gradient_error(gg[:1], cg[:1]), "planes": gradient_error(gg[1:], cg[1:])}
+    print(f"projector 10a, one fp32 step at batch 1, {config.resolution}px, card vs CPU (card "
+          f"{gs:.2f} s with first launches, CPU {cs:.2f} s): loss {gl:.6g} vs {cl:.6g}, distance "
+          f"{gd:.6g} vs {cd:.6g}; relative errors {errors} (limits 1e-4, 1e-4, 2e-2, 2e-2); worst "
+          f"plane noise{worst_plane[1]} {worst_plane[0]:.3g} of its norm (limit 1e-1)", flush=True)
+    require(errors["loss"] <= 1e-4 and errors["distance"] <= 1e-4, f"10a: {errors}")
+    require(errors["w"] <= 2e-2 and errors["planes"] <= 2e-2, f"10a: {errors}")
+    require(worst_plane[0] <= 1e-1, f"10a: noise{worst_plane[1]} gradient {worst_plane[0]:.3g}")
+    require(all(float(g.abs().max()) > 0 for g in gg), "10a: a zero gradient on the card")
+
+
+def projection_run(projector, config, label: str, targets: np.ndarray, steps: int, phase: bool,
+                   card: str) -> Tuple[dict, Dict[str, int]]:
+    """One `project_batch` from the dlatent average with seeded planes, the
+    counts set to 0 just before it and read just after: the launches against
+    `projection_launches`, finite outputs, the clean distance (evaluate_distance)
+    below the start's for every frame; ms per step by CUDA events between the
+    ends of step 0 and of the last step; peak memory."""
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+
+    set_phase("on" if phase else "off")
+    batch = len(targets)
+    projector.settings.num_steps = steps
+    w0 = np.tile(projector.dlatent_avg.cpu().numpy(), (batch, 1))
+    planes = seeded_planes(projector, batch, SEED + 13)
+    before = projector.evaluate_distance(w0, planes, targets)
+    events: List[torch.cuda.Event] = []
+    step_distances: List[torch.Tensor] = []
+    original = projector._step
+
+    def timed_step(*args, **kwargs):
+        out = original(*args, **kwargs)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        step_distances.append(out[0])
+        return out
+
+    projector._step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        results = projector.project_batch(targets, want_step_images=False, initial_latents=w0,
+                                          initial_noises=planes)
+    finally:
+        del projector._step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = projection_launches(config, steps, phase)
+    require(counts == want, f"projection {label}: launches {counts} != {want}")
+    latents = np.stack([r.final_latents[0] for r in results])
+    noises = [np.concatenate(n) for n in zip(*[r.noises for r in results])]
+    require(all(np.isfinite(a).all() for a in [latents] + noises)
+            and all(math.isfinite(r.final_distance) for r in results),
+            f"projection {label}: non-finite output")
+    require(all(np.all(r.final_latents == r.final_latents[:, :1]) for r in results),
+            f"projection {label}: rows of the final latents differ")
+    after = projector.evaluate_distance(latents, noises, targets)
+    ms = events[0].elapsed_time(events[-1]) / (len(events) - 1)
+    rate = batch / ms * 1e3
+    print(f"projection {label} ({config.resolution}px, batch {batch}, {steps} steps, phase path "
+          f"{'on' if phase else 'off'}): {ms:.3f} ms per step (CUDA events, steps 1-{steps - 1}), "
+          f"{rate:.3f} frame-steps/s, {rate * 3.6:.1f} frames per hour at 1000 steps; wall "
+          f"{wall:.3f} s; peak {peak:.2f} GiB; mean step distance first "
+          f"{float(step_distances[0].mean()):.4f}, last {float(step_distances[-1].mean()):.4f}; "
+          f"clean distance (evaluate_distance) start {np.round(before, 4).tolist()} -> end "
+          f"{np.round(after, 4).tolist()}; launches {counts} on {card}", flush=True)
+    require(bool(np.all(after < before)), f"projection {label}: distance did not fall: {before} -> "
+            f"{after}")
+    return {"ms": ms, "peak": peak, "before": before, "after": after}, counts
+
+
+def write_loop_phase(projector, config, workdir: Path, card: str) -> Dict[str, int]:
+    """10d: `_projection_write_loop` over PROJECTION_WRITE_FRAMES seeded
+    source frames with an in-memory writer, latents histories on (so the
+    segmented loop runs), then the flagship's `_blend_from_reader` over the
+    result with phase 8's WAV cut to the clip's length."""
+    from scipy.io import wavfile
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.projection import (LATEST_VERSION, ProjectionAttributes,
+                                            final_latents_matrices_label)
+    from gance_tpu_torch.projection.file_writer import _projection_write_loop
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_projection_file
+
+    count, res, steps = PROJECTION_WRITE_FRAMES, config.resolution, PROJECTION_WRITE_STEPS
+    set_phase("off")
+    frames = smooth_frames(count, res, torch.Generator(device="cuda").manual_seed(SEED + 14))
+    projector.settings.compute_dtype = "float32"
+    projector.settings.scan_segment = PROJECTION_WRITE_SEGMENT
+    projector.settings.num_steps = steps
+    attributes = ProjectionAttributes(
+        version_number=LATEST_VERSION, complete=False, original_target_path="source.mp4",
+        original_width_height=(res, res), projection_width_height=(res, res),
+        target_md5_hash="0" * 32, original_network_path="0_net.pkl", network_md5_hash="0" * 32,
+        steps_in_projection=steps, noises_shapes=np.nan, latents_histories_enabled=True,
+        noises_histories_enabled=False, images_histories_enabled=False,
+        original_fps=PROJECTION_WRITE_FPS, projection_fps=PROJECTION_WRITE_FPS,
+        original_frame_count=count, projection_frame_count=count)
+    writers: List[MemoryProjectionWriter] = []
+
+    def factory(path: Path, attrs) -> MemoryProjectionWriter:
+        writers.append(MemoryProjectionWriter(path, attrs))
+        return writers[-1]
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    _projection_write_loop(factory, workdir / "projection.hdf5", attributes, iter(frames),
+                           PROJECTION_WRITE_BATCH, projector, None, count, True, False, False,
+                           False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = dict(LAUNCHES)
+    batches = -(-count // PROJECTION_WRITE_BATCH)
+    want = {k: v * batches for k, v in projection_launches(config, steps, False).items()}
+    require(counts == want, f"10d: launches {counts} != {want}")
+    (writer,) = writers
+    sizes = [(1, h, w, 1) for h, w in projector.noise_spatial_shapes]
+    require(writer.attributes.complete and writer.attributes.projection_frame_count == count
+            and len(writer.frames) == count, f"10d: {len(writer.frames)} frames written")
+    require(writer.noises_shapes == sizes, f"10d: noises shapes {writer.noises_shapes} are not "
+            f"JAX's layout {sizes}")
+    for i, frame in enumerate(writer.frames):
+        require(frame.steps == list(range(steps)) and len(frame.latents) == steps,
+                f"10d frame {i}: history steps {frame.steps}")
+        require(frame.noise_shapes == sizes, f"10d frame {i}: noise shapes {frame.noise_shapes}")
+        require(frame.final_latents.shape == (1, config.num_style_rows, config.dlatent_size)
+                and bool(np.all(frame.final_latents == frame.final_latents[:, :1]))
+                and bool(np.isfinite(frame.final_latents).all()),
+                f"10d frame {i}: final latents {frame.final_latents.shape}, rows not identical "
+                "or not finite")
+        require(np.array_equal(frame.latents[-1], frame.final_latents),
+                f"10d frame {i}: the last history step is not the final latents")
+        require(np.array_equal(frame.target, frames[i]), f"10d frame {i}: target out of order")
+    print(f"projection 10d, the writer loop ({count} frames of {res}px, batch "
+          f"{PROJECTION_WRITE_BATCH}, {steps} steps in segments of {PROJECTION_WRITE_SEGMENT}, "
+          f"fp32, latents histories): {wall:.3f} s; histories of {steps} steps each, rows "
+          f"identical, noise shapes in JAX's layout; launches {counts} on {card}", flush=True)
+
+    # the projection into the flagship, with the WAV cut to the clip's length
+    rate, samples = wavfile.read(str(workdir / "song.wav"))
+    clip = workdir / "clip.wav"
+    wavfile.write(str(clip), rate, samples[: int(round(rate * count / PROJECTION_WRITE_FPS))])
+    reader = MemoryProjectionReader(writer.attributes, frames,
+                                    np.stack([f.final_latents for f in writer.frames]))
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    out = workdir / "projected-flagship.avi"
+    output_frames = int(FLAGSHIP_FPS // PROJECTION_WRITE_FPS) * count
+    audio = read_wavs_scale_for_video([clip], PIPELINE_VECTOR,
+                                      target_num_vectors=output_frames).wav_data
+    inputs = alpha_blend_projection_file(
+        final_latents_matrices_label(reader), PIPELINE_ALPHA, False, (-1.0, 1.0),
+        FLAGSHIP_BLEND_DEPTH, audio, PIPELINE_VECTOR, [0, 1], device="cuda")
+    batches_of_render = stream_batches(inputs.network_indices.result.data)
+    reset_launch_counts()
+    r = flagship_render(reader, clip, paths, out, RESIZE_SIDE, "float32", None)
+    render_counts = launches_per_forward("flagship over the projection", len(batches_of_render),
+                                         config)
+    got, compressed, pcm = read_avi(out)
+    require(len(got) == output_frames == r["frames"] and not compressed
+            and all(f.shape == (RESIZE_SIDE, RESIZE_SIDE, 3) for f in got),
+            f"10d flagship: {len(got)} frames, {r['frames']} rendered, {output_frames} expected")
+    require(bool(np.array_equal(pcm, wavfile.read(str(clip))[1])), "10d flagship: audio is not "
+            "the clip's")
+    require(float(got[0].std()) > 1.0, "10d flagship: constant first frame")
+    print(f"projection 10d into the flagship ({output_frames} frames of {RESIZE_SIDE}px from "
+          f"{count} projected frames, fp32, no overlay, egress raw-spill): "
+          f"{describe_flagship(r)}; on {card}", flush=True)
+    out.unlink()
+    for k, v in render_counts.items():
+        counts[k] += v
+    return counts
+
+
+def projector_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 10, with phase 3's network 0 (smoke_params) and phase 8's WAV in
+    `workdir`; returns the launches of 10b-10d's main-path runs."""
+    from gance_tpu_torch.projection.projector import Projector
+
+    torch.cuda.empty_cache()
+    params = smoke_params(SEED, config)
+    projector_parity_phase(params, config)
+    torch.cuda.empty_cache()
+    projector = Projector(params, config, device="cuda")
+    totals: Dict[str, int] = {}
+
+    def add(counts: Dict[str, int]) -> None:
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # 10b: fp32 at batch 4 and bf16 at batch 8, the standard path
+    targets, _ = own_frames(projector.params, config, max(b for _, b in PROJECTION_RUNS),
+                            SEED + 15)
+    runs = {}
+    for dtype, batch in PROJECTION_RUNS:
+        projector.settings.compute_dtype = dtype
+        runs[dtype], counts = projection_run(projector, config, f"10b {dtype}", targets[:batch],
+                                             PROJECTION_STEPS, False, card)
+        add(counts)
+        torch.cuda.empty_cache()
+
+    # 10c: the phase path, bf16 at batch 8 (E forward and E's backward)
+    phase, counts = projection_run(projector, config, "10c bfloat16", targets,
+                                   PROJECTION_PHASE_STEPS, True, card)
+    add(counts)
+    print(f"projection 10c: bf16 batch {len(targets)} ms per step, phase path on "
+          f"{phase['ms']:.3f} vs standard path {runs['bfloat16']['ms']:.3f} on {card}", flush=True)
+    # one fp32 step at batch 2 on each path, the same inputs
+    projector.settings.compute_dtype = "float32"
+    rng = np.random.RandomState(SEED + 16)
+    w = torch.from_numpy((0.5 * rng.standard_normal((2, config.dlatent_size))).astype(np.float32))
+    planes = [torch.from_numpy(np.ascontiguousarray(p.transpose(0, 3, 1, 2))).cuda()
+              for p in seeded_planes(projector, 2, SEED + 17)]
+    target_proc = projector._target_proc(targets[:2])
+    grads = {}
+    for mode in ("off", "on"):
+        set_phase(mode)
+        _, grads[mode] = synthesis_term(projector, w.cuda(), planes, target_proc,
+                                        torch.zeros_like(w).cuda())
+    set_phase("off")
+    errors = {"w": gradient_error(grads["on"][:1], grads["off"][:1]),
+              "planes": gradient_error(grads["on"][1:], grads["off"][1:]),
+              "top Conv1 plane": gradient_error(grads["on"][-1:], grads["off"][-1:])}
+    print(f"projection 10c: one fp32 step at batch 2, phase path vs standard path, gradients of "
+          f"the synthesis term, norm-wise: {errors} (limit 2e-2 for w and the planes together; "
+          "the top Conv1 plane's comes through E's noise_bias gradient)", flush=True)
+    require(errors["w"] <= 2e-2 and errors["planes"] <= 2e-2, f"10c: {errors}")
+    del grads, planes, target_proc
+    torch.cuda.empty_cache()
+
+    add(write_loop_phase(projector, config, workdir, card))
+    del projector
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -1734,10 +2156,10 @@ def main() -> None:
             train_totals = training_phase(Path(tmp), smi)
         pipeline_totals = pipeline_phase(config, Path(nets_dir), smi)
         flagship_totals = flagship_phase(config, Path(nets_dir), smi)
+        projector_totals = projector_phase(config, Path(nets_dir), smi)
     for record in records:
-        record["launches"] += train_totals.get(record["name"], 0)
-        record["launches"] += pipeline_totals.get(record["name"], 0)
-        record["launches"] += flagship_totals.get(record["name"], 0)
+        for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals):
+            record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

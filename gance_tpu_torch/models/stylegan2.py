@@ -451,22 +451,30 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, out)
 
 
-@lru_cache(maxsize=16)
-def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The linear (triangle) kernel at |distance| x."""
+    return np.maximum(0.0, 1.0 - x)
+
+
+_RESIZE_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
+
+
+@lru_cache(maxsize=32)
+def resize_matrix(in_size: int, out_size: int, method: str = "cubic") -> np.ndarray:
     """
-    (in_size, out_size) float32 weights of jax.image.resize(method="cubic")
-    along one axis (jax/_src/image/scale.py::compute_weight_mat, computed in
-    float32 as JAX does): half-pixel sample positions, the kernel widened by
-    1/scale when downscaling (antialiasing), each column normalised to sum 1,
-    and columns whose sample lies outside the input zeroed. Cached, so it is
-    returned read-only.
+    (in_size, out_size) float32 weights of jax.image.resize(method=`method`,
+    "cubic" or "linear") along one axis (jax/_src/image/scale.py::
+    compute_weight_mat, computed in float32 as JAX does): half-pixel sample
+    positions, the kernel widened by 1/scale when downscaling (antialiasing),
+    each column normalised to sum 1, and columns whose sample lies outside the
+    input zeroed. Cached, so it is returned read-only.
     """
     f32 = np.float32
     inv_scale = f32(1.0 / (out_size / in_size))
     kernel_scale = max(inv_scale, f32(1.0))
     sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    weights = _keys_cubic(x).astype(f32)
+    weights = _RESIZE_KERNELS[method](x).astype(f32)
     total = np.sum(weights, axis=0, keepdims=True)
     weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
                        weights / np.where(total != 0, total, 1), 0)
@@ -476,22 +484,28 @@ def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return weights
 
 
-def resize_images(images: torch.Tensor, side_length: int) -> torch.Tensor:
+def cubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """`resize_matrix` of jax.image.resize(method="cubic")."""
+    return resize_matrix(in_size, out_size, "cubic")
+
+
+def resize_images(images: torch.Tensor, side_length: int, method: str = "cubic") -> torch.Tensor:
     """
-    Bicubic resize of float NHWC images on their device, as gance_tpu's
-    `resize_images` (jax.image.resize, method "cubic": the Keys cubic with
-    a = -0.5, antialiased on downscale). Two products with the per-axis weight
-    matrices, in exact fp32. F.interpolate(mode="bicubic") uses a = -0.75 and
-    does not antialias, so it is not this function.
+    Resize float NHWC images on their device, as jax.image.resize does:
+    "cubic" (the default, gance_tpu's `resize_images`: the Keys cubic with
+    a = -0.5) or "linear" (a triangle filter), both antialiased on downscale.
+    Two products with the per-axis weight matrices, in exact fp32.
+    F.interpolate's bicubic (a = -0.75) and bilinear do not antialias, so they
+    are not this function.
     """
     _, h, w, _ = images.shape
     out = images.float()
     with exact_fp32():
         if h != side_length:
-            wh = torch.tensor(cubic_resize_matrix(h, side_length), device=images.device)
+            wh = torch.tensor(resize_matrix(h, side_length, method), device=images.device)
             out = torch.einsum("bhwc,hy->bywc", out, wh)
         if w != side_length:
-            ww = torch.tensor(cubic_resize_matrix(w, side_length), device=images.device)
+            ww = torch.tensor(resize_matrix(w, side_length, method), device=images.device)
             out = torch.einsum("bywc,wx->byxc", out, ww)
     return out
 

@@ -1,7 +1,8 @@
 """
-Projection-file (HDF5 v2) writer: the port's copy of the writer classes of
-gance_tpu/projection/file_writer.py, with h5py imported where it is used.
-`project_video_to_file` waits for the projector (ROADMAP.md Queue 1 item 7).
+Projection-file (HDF5 v2) writer and the video -> projection-file pipeline:
+the port's copy of the writer classes of gance_tpu/projection/file_writer.py,
+with h5py imported where it is used, and `project_video_to_file`, which
+projects a video's frames with the port's `Projector` on one device.
 
 Schema, as the JAX package and the reference write it:
   * root attrs = ProjectionAttributes (complete=False until the end: a crash
@@ -18,17 +19,20 @@ Each history payload goes to its correctly-named group (the reference swaps
 images and noises; file_reader.py detects and unswaps that layout).
 """
 
+import itertools
 from contextlib import contextmanager
 from pathlib import Path
-from typing import TYPE_CHECKING, List, Optional
+from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from gance_tpu_torch.projection.projection_types import (
     FINAL_IMAGE_GROUP_NAME,
     FINAL_LATENTS_GROUP_NAME,
     IMAGES_HISTORIES_GROUP_NAME,
     LATENTS_HISTORIES_GROUP_NAME,
+    LATEST_VERSION,
     NOISES_HISTORIES_GROUP_NAME,
     TARGET_IMAGES_GROUP_NAME,
     CompleteLatentsType,
@@ -40,6 +44,8 @@ from gance_tpu_torch.utils.logging import LOGGER
 if TYPE_CHECKING:
     import h5py
 
+DEFAULT_STEPS_PER_PROJECTION = 1000
+DEFAULT_EXPECTED_TIME_PER_STEP = 60.0
 COMPRESSION_LEVEL = 9
 
 _PER_FRAME_DATASET_GROUP_NAMES = [
@@ -275,3 +281,196 @@ class NullProjectionFileWriter:
 
     def close(self, complete: bool) -> None:
         pass
+
+
+def project_video_to_file(
+    path_to_video: Path,
+    path_to_network: Path,
+    projection_file_path: Path,
+    video_fps: Optional[float] = None,
+    projection_fps: Optional[float] = None,
+    projection_width_height: Optional[Tuple[int, int]] = None,
+    steps_per_projection: int = DEFAULT_STEPS_PER_PROJECTION,
+    num_frames_to_project: Optional[int] = None,
+    latents_histories_enabled: bool = True,
+    noises_histories_enabled: bool = False,
+    images_histories_enabled: bool = False,
+    batch_number: Optional[int] = None,
+    expected_time_per_step: float = DEFAULT_EXPECTED_TIME_PER_STEP,
+    compute_dtype: Optional[str] = None,
+    projection_batch: int = 1,
+    mesh: Optional[object] = None,
+    vgg_weights_path: Optional[Path] = None,
+    warm_start: bool = False,
+    convergence_stop: Optional[float] = None,
+    convergence_window: Optional[int] = None,
+    convergence_min_steps: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> None:
+    """
+    Project every frame of a video into a network's latent space, streaming results
+    into a projection file (reference projector_file_writer.py:617-802), on
+    `device`. `mesh` (multi-device projection) is not ported yet and raises.
+
+    :param vgg_weights_path: pretrained perceptual weights — the NVlabs
+        `vgg16_zhang_perceptual.pkl` or an imported `.npz`; None selects the
+        deterministic random-VGG fallback metric.
+    :param warm_start: initialize each batch's latents from the previous
+        batch's final latents (jitter-free) instead of the dlatent average
+        (the reference always cold-starts every frame). The first batch still
+        cold-starts.
+    :param convergence_stop: opt-in early stop — end a batch's optimization
+        once every frame's distance trace plateaus (relative improvement
+        between the two most recent `convergence_window`-step median blocks
+        below this value). See ProjectorSettings.convergence_stop. The file's
+        `steps_in_projection` attr keeps the configured maximum; the per-frame
+        history group lengths record the steps actually run.
+    """
+    from gance_tpu_torch.media.video import frames_in_video
+    from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
+    from gance_tpu_torch.utils.hashing import hash_file
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: ROADMAP.md Queue 1 item 12 (multi-device)")
+
+    video = frames_in_video(
+        video_path=path_to_video,
+        video_fps=video_fps,
+        reduce_fps_to=projection_fps,
+        width_height=projection_width_height,
+    )
+
+    if projection_width_height is None:
+        projection_width_height = tuple(video.original_resolution)
+
+    # Reference derivation (projector_file_writer.py:669-690): originals describe
+    # the source file; the projection count reflects the fps downsample.
+    true_projection_fps = (
+        video.original_fps if projection_fps is None else projection_fps
+    )
+    if num_frames_to_project is not None:
+        num_projection_frames = num_frames_to_project
+    else:
+        num_projection_frames = video.effective_frame_count
+
+    settings = ProjectorSettings(num_steps=steps_per_projection)
+    if compute_dtype is not None:
+        settings.compute_dtype = compute_dtype
+    if convergence_stop is not None:
+        settings.convergence_stop = convergence_stop
+    if convergence_window is not None:
+        settings.convergence_window = convergence_window
+    if convergence_min_steps is not None:
+        settings.convergence_min_steps = convergence_min_steps
+    projector = Projector.from_pkl(
+        path_to_network,
+        expected_time_per_step=expected_time_per_step,
+        settings=settings,
+        vgg_weights_path=vgg_weights_path,
+        device=device,
+    )
+
+    attributes = ProjectionAttributes(
+        version_number=LATEST_VERSION,
+        complete=False,
+        original_target_path=str(path_to_video),
+        original_width_height=tuple(video.original_resolution),
+        projection_width_height=tuple(projection_width_height),
+        target_md5_hash=hash_file(Path(path_to_video)),
+        original_network_path=str(path_to_network),
+        network_md5_hash=hash_file(Path(path_to_network)),
+        steps_in_projection=steps_per_projection,
+        noises_shapes=np.nan,
+        latents_histories_enabled=latents_histories_enabled,
+        noises_histories_enabled=noises_histories_enabled,
+        images_histories_enabled=images_histories_enabled,
+        original_fps=video.original_fps,
+        projection_fps=true_projection_fps,
+        original_frame_count=video.total_frame_count,
+        projection_frame_count=num_projection_frames,
+    )
+
+    any_histories = (
+        latents_histories_enabled
+        or noises_histories_enabled
+        or images_histories_enabled
+    )
+    frames_iterator = itertools.islice(video.frames, num_frames_to_project)
+    _projection_write_loop(
+        ProjectionFileWriter, projection_file_path, attributes, frames_iterator,
+        projection_batch, projector, batch_number, num_projection_frames,
+        any_histories, images_histories_enabled, noises_histories_enabled,
+        warm_start,
+    )
+    LOGGER.info("Projection totally complete!")
+
+
+def _projection_write_loop(
+    writer_factory,
+    projection_file_path: Path,
+    attributes: ProjectionAttributes,
+    frames_iterator,
+    projection_batch: int,
+    projector,
+    batch_number: Optional[int],
+    num_projection_frames: int,
+    any_histories: bool,
+    images_histories_enabled: bool,
+    noises_histories_enabled: bool,
+    warm_start: bool,
+) -> None:
+    """The per-batch project -> write loop of project_video_to_file:
+    `writer_factory(path, attributes)` is a context manager with the
+    ProjectionFileWriter surface (the seam an in-memory writer takes)."""
+    previous_finals = None
+    with writer_factory(projection_file_path, attributes) as writer:
+        while True:
+            chunk = list(itertools.islice(frames_iterator, max(projection_batch, 1)))
+            if not chunk:
+                break
+            LOGGER.info(
+                "Rendering projection %s%d..%d/%d",
+                f"batch {batch_number} - " if batch_number is not None else "",
+                writer.frame_index,
+                writer.frame_index + len(chunk) - 1,
+                num_projection_frames,
+            )
+            with writer.batch_frame_writers(len(chunk)) as frame_writers:
+
+                def record_batch_step(step, latents, noises, images):
+                    for i, frame_writer in enumerate(frame_writers):
+                        frame_writer.record_step(
+                            step,
+                            latents[i : i + 1],
+                            [n[i : i + 1] for n in noises],
+                            images[i] if images.size else images[0:0],
+                        )
+
+                initial_latents = None
+                warmed = warm_start and previous_finals is not None
+                if warmed:
+                    # every frame of the new batch starts at the last finished
+                    # frame's final w (row 0; rows are identical by invariant)
+                    initial_latents = np.tile(previous_finals[0], (len(chunk), 1))
+                results = projector.project_batch(
+                    np.stack(chunk),
+                    step_callback=record_batch_step if any_histories else None,
+                    want_step_images=images_histories_enabled,
+                    # Latents histories alone fetch once per segment; noise or
+                    # image histories need a fetch every step.
+                    per_step_noises=noises_histories_enabled,
+                    initial_latents=initial_latents,
+                    # the annealed exploration jitter exists to escape the cold
+                    # dlatent-average start; warmed batches run jitter-free
+                    noise_factor=0.0 if warmed else None,
+                )
+                if warm_start:
+                    previous_finals = results[-1].final_latents[0]
+                for frame, frame_writer, result in zip(chunk, frame_writers, results):
+                    writer.record_noises_shapes(result.noises_shapes)
+                    frame_writer.finish(
+                        target_image=frame,
+                        final_latents=result.final_latents,
+                        final_image=result.final_image,
+                    )

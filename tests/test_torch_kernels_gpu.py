@@ -377,3 +377,98 @@ def test_upsample2x_blur_ragged_on_gpu(cuda_device, dtype):
             assert torch.equal(got, want), (shape, offset, taps)
     torch.cuda.synchronize()
     assert K.LAUNCHES["upsample2x_blur"] == launches + 2 * len(cases)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise_batch", [2, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_gradients_on_gpu_match_cpu(cuda_device, noise_batch, dtype):
+    """The projector differentiates the noise planes: kernel A's noise
+    gradient (per-frame planes (B, 1, H, W), or one plane summed over the
+    batch) and kernel E's `noise_bias` gradient (per-frame (B, 4C, h+1, w+1)),
+    on the card (A and E launched) against the same Functions over the CPU
+    twins, within 1e-5 of each gradient's scale (the same products, summed
+    over channels in another order)."""
+    rng = np.random.RandomState(10)
+    b, c, h = 2, 16, 9
+    a_inputs = [rng.randn(b, 8, 33, 40), rng.randn(noise_batch, 1, 33, 40), rng.randn(8),
+                np.float32(0.3)]
+    e_inputs = [rng.randn(b, 4 * c, h, h) * 0.5, rng.randn(c, c, 3, 3) * (9 * c) ** -0.5,
+                rng.rand(b, 4 * c) + 0.5, rng.randn(noise_batch, 4 * c, h + 1, h + 1) * 0.1,
+                rng.randn(b, 4 * c, 16) * (4 * c) ** -0.5]
+    e_inputs[4][:, :, 12:] = 0.0
+
+    def noise_grads(device):
+        x, noise, bias, strength = (torch.tensor(np.asarray(a, np.float32), device=device)
+                                    for a in a_inputs)
+        noise.requires_grad_(True)
+        y = K.fused_bias_noise_lrelu(x.to(dtype), noise, bias, strength)
+        probe = torch.tensor(rng_probe.randn(*y.shape).astype(np.float32), device=device)
+        (ga,) = torch.autograd.grad((y.float() * probe).sum(), noise)
+        ex, v, demod, nb, wrgb = (torch.tensor(np.asarray(a, np.float32), device=device)
+                                  for a in e_inputs)
+        nb.requires_grad_(True)
+        z = K.phase_conv1_torgb(ex.to(dtype), K.fold_conv1_weights(v), demod, nb, wrgb)
+        probe = torch.tensor(rng_probe.randn(*z.shape).astype(np.float32), device=device)
+        (ge,) = torch.autograd.grad((z.float() * probe).sum(), nb)
+        return ga.cpu(), ge.cpu()
+
+    launches = dict(K.LAUNCHES)
+    rng_probe = np.random.RandomState(11)
+    with exact_fp32():
+        got = noise_grads(cuda_device)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_bias_noise_lrelu"] == launches["fused_bias_noise_lrelu"] + 1
+    assert K.LAUNCHES["phase_conv1_torgb"] == launches["phase_conv1_torgb"] + 1
+    rng_probe = np.random.RandomState(11)
+    want = noise_grads("cpu")
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.shape[0] == noise_batch
+        scale = float(r.abs().max())
+        assert scale > 0 and float((g - r).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", [False, True])
+def test_projector_step_gradients_on_gpu_match_cpu(cuda_device, monkeypatch, phase):
+    """One projection step's loss and its w and noise-plane gradients at 32px
+    (top block of 64 channels, so that the phase path applies; non-zero noise
+    strengths; the top block on the phase path when `phase`) on the card
+    against the port's CPU path: loss within
+    1e-4 relative, gradients norm-wise within 2e-2 (w, and the planes taken
+    together): one lrelu input at the fp32 kink moves a whole gradient by
+    about 0.4% (chip_smoke.py phase 7a's bound and reason)."""
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig, init_generator_params
+    from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
+
+    config = GeneratorConfig(resolution=32, fmap_base=1024, fmap_max=128)
+    params = init_generator_params(12, config)
+    rng = np.random.RandomState(12)
+    for name, block in params["synthesis"].items():
+        for layer in block.values() if name != "noise" else ():
+            if "noise_strength" in layer:
+                layer["noise_strength"] = np.float32(rng.uniform(0.05, 0.3))
+    w = rng.randn(2, 512).astype(np.float32) * 0.5
+    planes = [rng.randn(2, 1, *params["synthesis"]["noise"][f"noise{i}"].shape[2:])
+              .astype(np.float32) for i in range(len(params["synthesis"]["noise"]))]
+    targets = (rng.rand(2, 32, 32, 3) * 255).astype(np.uint8)
+    jitter = (rng.randn(2, 512) * 0.05).astype(np.float32)
+
+    def step(device):
+        projector = Projector(params, config, device=device,
+                              settings=ProjectorSettings(dlatent_avg_samples=16))
+        loss, _, _, grads = projector._loss_and_gradients(
+            torch.tensor(w, device=device), [torch.tensor(p, device=device) for p in planes],
+            projector._target_proc(targets), torch.tensor(jitter, device=device))
+        return float(loss), [g.cpu() for g in grads]
+
+    monkeypatch.setenv("GANCE_TPU_PHASE1024", "on" if phase else "off")
+    launches = K.LAUNCHES["phase_conv1_torgb"]
+    got_loss, got = step(cuda_device)
+    assert K.LAUNCHES["phase_conv1_torgb"] == launches + int(phase)
+    want_loss, want = step("cpu")
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    assert float((got[0] - want[0]).norm() / want[0].norm()) <= 2e-2
+    g_planes = torch.cat([g.reshape(-1) for g in got[1:]])
+    w_planes = torch.cat([g.reshape(-1) for g in want[1:]])
+    assert float((g_planes - w_planes).norm() / w_planes.norm()) <= 2e-2

@@ -240,6 +240,10 @@ def test_port_imports_neither_jax_nor_gance_tpu():
                             text=True, timeout=300)
     assert result.returncode == 0, result.stderr
     assert len(modules) >= 15
+    # the projector slice: perceptual metric, weight import, projector, writer loop, CLI
+    assert {"gance_tpu_torch.projection.lpips", "gance_tpu_torch.projection.vgg_import",
+            "gance_tpu_torch.projection.projector", "gance_tpu_torch.projection.file_writer",
+            "gance_tpu_torch.cli.project_video_to_file"} <= set(modules)
 
 
 def test_card_path_imports_no_host_only_package():
@@ -251,7 +255,9 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.synthesis.inputs", "gance_tpu_torch.synthesis.orchestration",
                "gance_tpu_torch.utils.profiling", "gance_tpu_torch.projection",
                "gance_tpu_torch.overlay", "gance_tpu_torch.pipelines.projection_file_blend",
-               "gance_tpu_torch.media.disk_tee", "chip_smoke"]
+               "gance_tpu_torch.media.disk_tee", "gance_tpu_torch.projection.projector",
+               "gance_tpu_torch.projection.lpips", "gance_tpu_torch.projection.vgg_import",
+               "gance_tpu_torch.projection.file_writer", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
