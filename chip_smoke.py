@@ -166,11 +166,41 @@ in order (any failure exits non-zero; no phase's failure is caught):
    the result (`MemoryProjectionReader`, 16 frames at 30 fps, side 512, phase
    8's WAV cut to the clip) with the frame count, the audio and the launches
    per forward checked.
+11. drives the rest of the render surface with phase 3's networks and phase
+   8's WAV, GANCE_TPU_EGRESS=raw-spill wherever frames are compared, each
+   step's launches counted from 0 and checked. (a) Still images
+   (gance_tpu_torch/pipelines/synthesis_file.py): `images_from_network_api`,
+   16 face-free images per network from seed 1234 in fp32 (random weights
+   give no faces): each PNG's md5 in its sidecar, each vector a z drawn in
+   order; then `synthesis_file_into_networks_api` replays all 32 sidecars
+   through both networks, and a network's replay of its own vectors lies
+   within 1 uint8 step on at least 99.9% of pixels of its first image (the
+   batches differ). (b) `check_move_networks_api` over the two networks, a
+   copy of one, a truncated pickle and a submit_config.pkl copies exactly
+   the two, with gance_tpu's names; a wrapper of kernel A that raises must
+   leave `validate_network` (not reject the network). (c) Resumable
+   noise-blend, fp32, side 1024, 120 frames, chunks of 32 (a multiple of the
+   stream's 16-frame window), raw parts: an unbroken resumable render, then
+   one in a child process (GANCE_TPU_RESUME_CHUNK_DELAY) killed with SIGKILL
+   once a chunk is durable, resumed here: the manifest and parts are gone,
+   the audio is the WAV's, the frames equal the unbroken render's bit for
+   bit and lie within 1 step on 99.9% of `vector_synthesis` run directly,
+   and the resumed run launches only the forwards of the frames after the
+   durable count. (d) The resumable flagship, bf16, side 512, the phase
+   path, the README's gates, on the in-memory reader: unbroken, then killed
+   in a child during detection (GANCE_TPU_RESUME_DECISION_DELAY) once the
+   decision sidecar holds a decision, and resumed: bit for bit, the sidecar,
+   manifest and parts gone, 15 / 7 / 7 / 1 launches per forward. (e)
+   `frames_in_spill` over (c)'s AVI equals the RIFF reader's frames,
+   `spill_segment_paths` orders a three-segment spill and raises on a hole,
+   `reencode_spill` writes the 120 frames as mp4v. (c) and (d) print the
+   wall split into loading, audio features, chunks and finalize, frames/s
+   beside 8b's and 9d's, and the parts' bytes at the peak.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
 phase 10's; E's launches include the phase-path G step's; A, B, C and E's
-include phases 8, 9 and 10's); the last line is {"ok": true, "device":
+include phases 8-11's); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -182,6 +212,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -222,6 +253,14 @@ PROJECTION_WRITE_BATCH = 4
 PROJECTION_WRITE_STEPS = 20
 PROJECTION_WRITE_SEGMENT = 8  # segments of 8, 8 and 4 steps
 PROJECTION_WRITE_FPS = 15.0  # divides the flagship's 30 fps
+STILL_IMAGES = 16  # 11a: face-free images per network
+STILL_SEED = 1234  # the images-from-network default
+RESUME_FRAMES = 120  # 11c: the phase-8 WAV at 30 fps
+RESUME_CHUNK = 32  # a multiple of the stream window (batch 8 x lookahead 2)
+RESUME_CHUNK_DELAY = 5.0  # 11c: seconds between durable chunks in the child
+RESUME_DECISION_DELAY = 0.2  # 11d: seconds per overlay decision in the child
+SPILL_SEGMENT_FRAMES = 2  # 11e: frames per segment of the segmented spill
+RATES: Dict[str, dict] = {}  # 8b-8d and 9d's results, printed beside phase 11's
 
 REPLACES = {
     "fused_bias_noise_lrelu": "gance_tpu/ops/pallas/fused_ops.py:52",
@@ -1319,7 +1358,7 @@ def render_phase(label: str, wav: Path, paths: List[Path], workdir: Path, config
 
     out = workdir / f"{label}.avi"
     reset_launch_counts()
-    r = run_render(wav, paths, out, side, dtype, phase, egress_mode)
+    r = RATES[label] = run_render(wav, paths, out, side, dtype, phase, egress_mode)
     counts = dict(LAUNCHES)
 
     audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, frames_per_second=PIPELINE_FPS).wav_data
@@ -1714,7 +1753,8 @@ def flagship_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     faces.FaceFinderProxy.face_landmarks = counting_landmarks
     pfb.write_boxes_onto_image = counting_compose
     try:
-        r = flagship_render(source, wav, paths, out, RESIZE_SIDE, "bfloat16", overlay)
+        r = RATES["flagship-bf16-512-phase"] = flagship_render(source, wav, paths, out,
+                                                               RESIZE_SIDE, "bfloat16", overlay)
     finally:
         faces.FaceFinderProxy.face_landmarks = landmarks
         pfb.write_boxes_onto_image = compose
@@ -2110,6 +2150,508 @@ def projector_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: resumable renders, the spill tools, still images, network checks
+# ---------------------------------------------------------------------------
+
+
+def still_images_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """11a: `images_from_network_api` over phase 3's two networks (no face
+    wanted, STILL_IMAGES each), then `synthesis_file_into_networks_api` of
+    every sidecar through both; returns the launches."""
+    from gance_tpu_torch.media.images import read_image
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.pipelines.synthesis_file import (
+        FILTER_BATCH, images_from_network_api, read_synthesis_file,
+        synthesis_file_into_networks_api)
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+    from gance_tpu_torch.utils.hashing import hash_file
+
+    nets = workdir / "still_nets"
+    nets.mkdir()
+    for i in range(2):
+        (nets / f"{i}_net.pkl").symlink_to(workdir / f"{i}_net.pkl")
+    batches: List[int] = []
+    images_from_vectors = SynthesisNetwork.images_from_vectors
+
+    def counting(self, z_batch):
+        batches.append(len(z_batch))
+        return images_from_vectors(self, z_batch)
+
+    out, replayed = workdir / "still_images", workdir / "still_replayed"
+    SynthesisNetwork.images_from_vectors = counting
+    try:
+        reset_launch_counts()
+        start = time.perf_counter()
+        sidecars = images_from_network_api(nets, out, num_faces=0, no_faces=STILL_IMAGES,
+                                           random_seed=STILL_SEED, compute_dtype="float32",
+                                           device="cuda")
+        made_s, made_batches = time.perf_counter() - start, list(batches)
+        start = time.perf_counter()
+        synthesis_file_into_networks_api(sorted(sidecars), [nets / "0_net.pkl",
+                                                            nets / "1_net.pkl"],
+                                         replayed, compute_dtype="float32", device="cuda")
+        replay_s = time.perf_counter() - start
+    finally:
+        SynthesisNetwork.images_from_vectors = images_from_vectors
+    counts = launches_per_forward(f"11a still images (batches {batches})", len(batches), config)
+    require(all(b == FILTER_BATCH for b in batches), f"11a: batches {batches}")
+    worst, share_min = 0, 1.0
+    for i in range(2):
+        mine = sorted(s for s in sidecars if s.name.startswith(f"{i}_net_"))
+        require(len(mine) == STILL_IMAGES and all("_no_face_" in s.name for s in mine),
+                f"11a network {i}: {[s.name for s in mine]}")
+        # the z each network drew, STILL_SEED anew per network, FILTER_BATCH a
+        # round; no network drew more rounds than both did
+        rng = np.random.RandomState(STILL_SEED)
+        draws = [rng.standard_normal((FILTER_BATCH, PIPELINE_VECTOR)).astype(np.float32)
+                 for _ in made_batches]
+        draws = list(np.concatenate(draws))
+        for sidecar in sorted(mine, key=lambda s: int(s.stem.rsplit("_", 1)[1])):
+            record = read_synthesis_file(sidecar)
+            image = Path(record.image_path)
+            require(image == sidecar.with_suffix(".png") and hash_file(image) == record.image_hash,
+                    f"11a {sidecar.name}: the sidecar's md5 is not its PNG's")
+            vector = np.asarray(record.vector, np.float32)
+            while draws and not np.array_equal(draws[0], vector):
+                draws.pop(0)  # a draw the face filter rejected
+            require(bool(draws), f"11a {sidecar.name}: its vector is not a drawn z, in order")
+            draws.pop(0)
+            again = read_image(replayed / f"{i}_net_{sidecar.stem}.png")
+            top, share = share_within_one_step(again, read_image(image))
+            worst, share_min = max(worst, top), min(share_min, share)
+    print(f"11a still images: {2 * STILL_IMAGES} PNG + JSON pairs from {len(made_batches)} "
+          f"forwards in {made_s:.3f} s (face detection and PNG writes included), each vector a "
+          f"drawn z and each md5 its PNG's; {len(sidecars)} sidecars replayed through both "
+          f"networks in {replay_s:.3f} s; a network's replay of its own vectors: max {worst} "
+          f"steps, at least {share_min:.6f} within 1 step; on {card}", flush=True)
+    require(share_min >= 0.999, f"11a: replayed images {share_min:.5f} within 1 step")
+    for directory in (out, replayed, nets):
+        shutil.rmtree(directory)
+    return counts
+
+
+def network_checks_phase(config, workdir: Path) -> Dict[str, int]:
+    """11b: `check_move_networks_api` over phase 3's networks, a copy of one,
+    a truncated pickle and a submit_config.pkl; then a wrapper of A that
+    raises must leave `validate_network`. Returns the launches."""
+    from gance_tpu_torch.ops.cuda import fused_ops
+    from gance_tpu_torch.pipelines.check_move_networks import (check_move_networks_api,
+                                                               validate_network)
+
+    candidates, production = workdir / "check_nets", workdir / "production"
+    candidates.mkdir()
+    for i in range(2):
+        shutil.copy2(workdir / f"{i}_net.pkl", candidates / f"{i}_net.pkl")
+    shutil.copy2(workdir / "0_net.pkl", candidates / "2_copy.pkl")
+    data = (workdir / "1_net.pkl").read_bytes()
+    (candidates / "3_truncated.pkl").write_bytes(data[: len(data) // 2])
+    (candidates / "submit_config.pkl").write_bytes(b"not a network")
+    fused_ops.reset_launch_counts()
+    start = time.perf_counter()
+    copied = check_move_networks_api([candidates], production, device="cuda")
+    wall = time.perf_counter() - start
+    counts = launches_per_forward("11b network checks", 2, config)  # one vector per network
+    names = [p.name for p in copied]
+    require(names == sorted(p.name for p in production.iterdir())
+            == ["0_check_nets_0_net.pkl", "1_check_nets_1_net.pkl"], f"11b: copied {names}")
+    reason = validate_network(candidates / "3_truncated.pkl", "cuda")
+    require(reason is not None, "11b: the truncated pickle was not rejected")
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("11b: a kernel failure injected into A's wrapper")
+
+    run = fused_ops._fused_bias_noise_lrelu_run
+    fused_ops._fused_bias_noise_lrelu_run = failing
+    try:
+        validate_network(candidates / "0_net.pkl", "cuda")
+        fail("11b: a kernel failure did not leave validate_network")
+    except RuntimeError as e:
+        require("injected" in str(e), f"11b: {e}")
+    finally:
+        fused_ops._fused_bias_noise_lrelu_run = run
+    print(f"11b network checks: copied {names} in {wall:.3f} s; the duplicate skipped by md5, "
+          f"submit_config.pkl by name, the truncated pickle rejected ({reason}); a failing "
+          "kernel wrapper raised out of validate_network", flush=True)
+    shutil.rmtree(candidates)
+    shutil.rmtree(production)
+    return counts
+
+
+@contextlib.contextmanager
+def peak_part_bytes(peak: Dict[str, int]):
+    """Record in peak["bytes"] the bytes of a resumable render's parts on disk
+    when its finalize starts (the most they ever hold)."""
+    from gance_tpu_torch.media import resume
+
+    inner = resume.write_source_to_disk_forward
+
+    def measuring(*, source, video_path, **kwargs):
+        parts = resume.parts_directory(Path(video_path))
+        peak["bytes"] = sum(p.stat().st_size for p in parts.iterdir())
+        return inner(source=source, video_path=video_path, **kwargs)
+
+    resume.write_source_to_disk_forward = measuring
+    try:
+        yield
+    finally:
+        resume.write_source_to_disk_forward = inner
+
+
+def noise_blend_resumable(wav: Path, paths: List[Path], out: Path, side: int) -> None:
+    """11c's render: fp32, the networks' side, standard path, RESUME_CHUNK
+    frames a chunk."""
+    from gance_tpu_torch.pipelines.noise_blend import noise_blend_api
+
+    noise_blend_api([wav], out, paths, None, PIPELINE_FPS, side, None, None, None,
+                    PIPELINE_ALPHA, False, (-1.0, 1.0), compute_dtype="float32",
+                    resumable=True, resume_chunk_frames=RESUME_CHUNK, device="cuda")
+
+
+def flagship_resumable(source, wav: Path, paths: List[Path], out: Path,
+                       overlay: Optional[Tuple[int, float, int]]) -> None:
+    """11d's render: bf16, side 512, on `source` (an in-memory reader)."""
+    from gance_tpu_torch.pipelines import projection_file_blend as pfb
+
+    pfb._blend_from_reader(
+        reader=source, wav=[wav], output_path=out, network_paths=paths, frames_to_visualize=None,
+        output_fps=FLAGSHIP_FPS, output_side_length=RESIZE_SIDE, alpha=PIPELINE_ALPHA,
+        fft_roll_enabled=False, fft_amplitude_range=(-1.0, 1.0), blend_depth=FLAGSHIP_BLEND_DEPTH,
+        compute_dtype="bfloat16", complexity_change_rolling_sum_window=None,
+        complexity_change_threshold=None, overlay_gates=overlay, overlay_detection_side=None,
+        overlay_smoothing=0, device="cuda", resumable=True, resume_chunk_frames=RESUME_CHUNK)
+
+
+def resumable_child(spec: dict) -> None:
+    """11c and 11d's render in a child process, which the parent kills:
+    `python3 -c "import chip_smoke; chip_smoke.resumable_child(...)"`."""
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+
+    workdir, config = Path(spec["workdir"]), GeneratorConfig()
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    if spec["kind"] == "noise-blend":
+        noise_blend_resumable(workdir / "song.wav", paths, Path(spec["out"]), config.resolution)
+    else:
+        source = projection_source(config, workdir, False)
+        flagship_resumable(source, workdir / "song.wav", paths, Path(spec["out"]),
+                           tuple(spec["overlay"]) if spec["overlay"] else None)
+
+
+def kill_child_when(spec: dict, ready: Callable[[], bool], env: Dict[str, str],
+                    log: Path) -> float:
+    """Start `resumable_child(spec)` with `env` added, SIGKILL it once
+    `ready()` holds, and return the seconds it ran."""
+    code = "import json, sys, chip_smoke; chip_smoke.resumable_child(json.loads(sys.argv[1]))"
+    with open(log, "wb") as output:
+        child = subprocess.Popen([sys.executable, "-c", code, json.dumps(spec)], cwd=ROOT,
+                                 env={**os.environ, **env}, stdout=output,
+                                 stderr=subprocess.STDOUT)
+    start = time.perf_counter()
+    try:
+        while time.perf_counter() - start < 300:
+            if child.poll() is not None:
+                fail(f"11 {spec['kind']}: the child ended (exit {child.returncode}) before it "
+                     f"could be killed:\n{log.read_text(errors='replace')[-3000:]}")
+            if ready():
+                child.send_signal(signal.SIGKILL)
+                child.wait()
+                return time.perf_counter() - start
+            time.sleep(0.02)
+        fail(f"11 {spec['kind']}: the child never got to the point to kill it:\n"
+             f"{log.read_text(errors='replace')[-3000:]}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return 0.0
+
+
+def run_resumable(render: Callable[[], None], out: Path) -> dict:
+    """Run the resumable render `render` into `out` with GANCE_TPU_EGRESS=raw-spill
+    and stage stats; returns its wall seconds split into loading, audio
+    features, chunks (synthesis and parts) and the finalize (parts read back
+    and written again with the audio), its frames and the peak part bytes."""
+    stages = out.with_suffix(".stages.jsonl")
+    stages.unlink(missing_ok=True)
+    os.environ.update(GANCE_TPU_STAGE_STATS=str(stages), GANCE_TPU_EGRESS="raw-spill")
+    peak: Dict[str, int] = {}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with peak_part_bytes(peak):
+        render()
+    wall = time.perf_counter() - start
+    del os.environ["GANCE_TPU_STAGE_STATS"], os.environ["GANCE_TPU_EGRESS"]
+    busy = {name: s.get("busy_sec", 0.0) for name, s in read_stage_stats(stages).items()}
+    features, rendered, finalize = busy["audio_features"], busy["render"], busy["finalize"]
+    return {"wall": wall, "loading": wall - features - rendered, "features": features,
+            "chunks": rendered - finalize, "finalize": finalize, "busy": busy,
+            "part_bytes": peak["bytes"]}
+
+
+def describe_resumable(r: dict, frames: int) -> str:
+    return (f"wall {r['wall']:.3f} s = loading {r['loading']:.3f} + audio features "
+            f"{r['features']:.3f} + chunks written {r['chunks']:.3f} (the synthesis stream "
+            f"{r['busy'].get('synthesis', 0.0):.3f} of it) + finalize {r['finalize']:.3f}; "
+            f"{frames} frames, end to end {frames / r['wall']:.2f} frames/s, chunks "
+            f"{frames / r['chunks']:.2f} frames/s; parts on disk at the peak "
+            f"{r['part_bytes']} bytes")
+
+
+def rate_of(label: str, phase: str) -> str:
+    """The non-resumable render `label`'s frames/s, as RATES recorded it."""
+    if label not in RATES:
+        return f"phase {phase} did not run in this process"
+    r = RATES[label]
+    return (f"the non-resumable {phase} render: {r['frames'] / r['wall']:.2f} frames/s end to "
+            f"end, {r['frames'] / r['render']:.2f} render")
+
+
+def resumed_frames_check(label: str, out: Path, want: List[np.ndarray],
+                         samples: np.ndarray) -> List[np.ndarray]:
+    """The scaffolding is gone, and the output's frames equal `want` bit for
+    bit with the WAV's samples as its audio; returns the frames."""
+    from gance_tpu_torch.media import resume
+
+    require(out.exists() and not resume.manifest_path(out).exists()
+            and not resume.parts_directory(out).exists(),
+            f"{label}: the output is missing or its manifest or parts are left")
+    frames, compressed, pcm = read_avi(out)
+    require(len(frames) == len(want) and not compressed,
+            f"{label}: {len(frames)} frames ({compressed} compressed), {len(want)} expected")
+    require(bool(np.array_equal(pcm, samples)), f"{label}: the audio is not the WAV's samples")
+    differ = [i for i, (a, b) in enumerate(zip(frames, want)) if not np.array_equal(a, b)]
+    if differ:
+        worst, share = share_within_one_step(np.stack([frames[i] for i in differ]),
+                                             np.stack([want[i] for i in differ]))
+        fail(f"{label}: frames {differ} differ from the unbroken run's (max {worst} steps, "
+             f"{share:.6f} within 1)")
+    return frames
+
+
+def resumable_noise_blend_phase(config, workdir: Path, card: str) -> Tuple[Dict[str, int], Path]:
+    """11c: an unbroken resumable noise-blend, then one killed with SIGKILL in
+    a child and resumed here; returns the resumed run's launches and its AVI
+    (kept for 11e)."""
+    from scipy.io import wavfile
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.media import resume
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_vectors_max_rms_power_audio
+    from gance_tpu_torch.synthesis.orchestration import vector_synthesis
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork
+
+    wav, paths = workdir / "song.wav", [workdir / f"{i}_net.pkl" for i in range(2)]
+    samples = wavfile.read(str(wav))[1]
+    set_phase("off")
+    unbroken = workdir / "resumable-unbroken.avi"
+    r_unbroken = run_resumable(
+        lambda: noise_blend_resumable(wav, paths, unbroken, config.resolution), unbroken)
+    want, _, _ = read_avi(unbroken)
+    want = [np.array(f) for f in want]
+    unbroken.unlink()
+    require(len(want) == RESUME_FRAMES, f"11c: the unbroken render has {len(want)} frames")
+
+    out = workdir / "resumable-killed.avi"
+    manifest = resume.manifest_path(out)
+
+    def durable() -> bool:
+        try:
+            return bool(json.loads(manifest.read_text())["chunks"])
+        except (OSError, ValueError, KeyError):
+            return False
+
+    ran = kill_child_when({"kind": "noise-blend", "workdir": str(workdir), "out": str(out)},
+                          durable, {"GANCE_TPU_EGRESS": "raw-spill",
+                                    "GANCE_TPU_RESUME_CHUNK_DELAY": str(RESUME_CHUNK_DELAY)},
+                          workdir / "child-11c.log")
+    fingerprint = json.loads(manifest.read_text())["fingerprint"]
+    start = resume.durable_frames(out, fingerprint)
+    require(not out.exists() and 0 < start < RESUME_FRAMES and start % RESUME_CHUNK == 0,
+            f"11c: killed with {start} frames durable, output exists {out.exists()}")
+    reset_launch_counts()
+    r = run_resumable(lambda: noise_blend_resumable(wav, paths, out, config.resolution), out)
+    counts = dict(LAUNCHES)
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR,
+                                      frames_per_second=PIPELINE_FPS).wav_data
+    inputs = alpha_blend_vectors_max_rms_power_audio(
+        PIPELINE_ALPHA, False, (-1.0, 1.0), audio, PIPELINE_VECTOR, [0, 1], device="cuda")
+    indices = inputs.network_indices.result.data
+    batches = stream_batches(indices[start:])  # the windows after the durable frames only
+    expected = {k: v * len(batches) for k, v in forward_launches(config).items()}
+    print(f"launches 11c resumed noise-blend ({len(batches)} forwards for the "
+          f"{RESUME_FRAMES - start} frames after the durable {start}; the unbroken render's "
+          f"{len(stream_batches(indices))}): {counts}", flush=True)
+    require(counts == expected, f"11c: launches {counts} != {expected}")
+    frames = resumed_frames_check("11c", out, want, samples)
+    with MultiNetwork(paths, output_side_length=config.resolution, compute_dtype=torch.float32,
+                      device="cuda") as networks:
+        direct = np.stack(list(vector_synthesis(networks, inputs).synthesized_images))
+    require_close_frames("11c resumed frames vs vector_synthesis run directly",
+                         np.stack(frames), direct)
+    del direct, frames, want
+    print(f"11c resumable noise-blend (fp32, {config.resolution}px, {RESUME_FRAMES} frames at "
+          f"{PIPELINE_FPS:g} fps, chunks of {RESUME_CHUNK}, raw-avi parts) unbroken: "
+          f"{describe_resumable(r_unbroken, RESUME_FRAMES)}; killed after {ran:.3f} s with "
+          f"{start} frames durable, resumed: {describe_resumable(r, RESUME_FRAMES - start)}; "
+          f"resumed output equals the unbroken one bit for bit; {rate_of('fp32-1024', '8b')}; "
+          f"on {card}", flush=True)
+    return counts, out
+
+
+def resumable_flagship_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """11d: an unbroken resumable flagship (bf16, 512px, the phase path, the
+    README's gates where the cascades are), then one killed with SIGKILL in a
+    child during detection and resumed here; returns the resumed launches."""
+    from scipy.io import wavfile
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.media import resume
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.pipelines import projection_file_blend as pfb
+    from gance_tpu_torch.projection import final_latents_matrices_label
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_projection_file
+
+    wav, paths = workdir / "song.wav", [workdir / f"{i}_net.pkl" for i in range(2)]
+    samples = wavfile.read(str(wav))[1]
+    _, have_cascades = host_findings()
+    overlay = FLAGSHIP_OVERLAY if have_cascades else None
+    require(overlay is not None, "11d: no Haar cascade XMLs on this host, so no detection "
+            "to kill")
+    source = projection_source(config, workdir, False)
+    set_phase("on")
+    unbroken = workdir / "flagship-resumable-unbroken.avi"
+    r_unbroken = run_resumable(lambda: flagship_resumable(source, wav, paths, unbroken, overlay),
+                               unbroken)
+    want = [np.array(f) for f in read_avi(unbroken)[0]]
+    unbroken.unlink()
+    count = int(FLAGSHIP_FPS // FLAGSHIP_PROJECTION_FPS) * FLAGSHIP_PROJECTION_FRAMES
+    require(len(want) == count, f"11d: the unbroken render has {len(want)} frames")
+
+    out = workdir / "flagship-resumable-killed.avi"
+    sidecar = pfb._overlay_decisions_path(out)
+
+    def decided() -> bool:
+        return sidecar.exists() and len(sidecar.read_text().splitlines()) >= 2
+
+    ran = kill_child_when({"kind": "flagship", "workdir": str(workdir), "out": str(out),
+                           "overlay": list(overlay)}, decided,
+                          {"GANCE_TPU_EGRESS": "raw-spill", PHASE_ENV: "on",
+                           "GANCE_TPU_RESUME_DECISION_DELAY": str(RESUME_DECISION_DELAY)},
+                          workdir / "child-11d.log")
+    fingerprint = json.loads(sidecar.read_text().splitlines()[0])["fingerprint"]
+    cached = len(pfb._load_overlay_decisions(sidecar, fingerprint))
+    require(cached >= 1 and not resume.manifest_path(out).exists() and not out.exists(),
+            f"11d: killed with {cached} decisions cached")
+    reset_launch_counts()
+    r = run_resumable(lambda: flagship_resumable(source, wav, paths, out, overlay), out)
+    set_phase("off")
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, target_num_vectors=count).wav_data
+    inputs = alpha_blend_projection_file(final_latents_matrices_label(source), PIPELINE_ALPHA,
+                                         False, (-1.0, 1.0), FLAGSHIP_BLEND_DEPTH, audio,
+                                         PIPELINE_VECTOR, [0, 1], device="cuda")
+    # no chunk was durable, so the resumed run composes from frame 0 and
+    # synthesizes every frame again; only detection starts at the cache's end
+    batches = stream_batches(inputs.network_indices.result.data)
+    counts = launches_per_forward("11d resumed flagship", len(batches), config, phase=True)
+    resumed_frames_check("11d", out, want, samples)
+    require(not sidecar.exists(), "11d: the decision sidecar is left")
+    out.unlink()
+    print(f"11d resumable flagship (bf16, {RESIZE_SIDE}px, phase path, overlay {overlay}, "
+          f"{count} frames, chunks of {RESUME_CHUNK}) unbroken: "
+          f"{describe_resumable(r_unbroken, count)}; killed during detection after {ran:.3f} s "
+          f"with {cached} decisions cached, resumed: {describe_resumable(r, count)}; detect "
+          f"busy {r['busy'].get('detect', 0.0):.3f} s against the unbroken run's "
+          f"{r_unbroken['busy'].get('detect', 0.0):.3f}; resumed output equals the unbroken one "
+          f"bit for bit; {rate_of('flagship-bf16-512-phase', '9d')}; on {card}", flush=True)
+    return counts
+
+
+def spill_tools_phase(avi: Path) -> None:
+    """11e: `frames_in_spill` over 11c's AVI, `spill_segment_paths` over a
+    three-segment spill, and `reencode_spill` to mp4v."""
+    import cv2
+
+    from gance_tpu_torch.media.native import RawAviWriter
+    from gance_tpu_torch.media.spill import frames_in_spill, reencode_spill, spill_segment_paths
+
+    frames, _, _ = read_avi(avi)
+    video = frames_in_spill(avi)
+    start = time.perf_counter()
+    count = 0
+    for count, (got, want) in enumerate(zip(video.frames, frames), start=1):
+        require(np.array_equal(got, want), f"11e: frames_in_spill frame {count - 1} differs")
+    read_s = time.perf_counter() - start
+    require(count == video.total_frame_count == len(frames) == RESUME_FRAMES
+            and video.original_fps == PIPELINE_FPS,
+            f"11e: {count} frames, {video.total_frame_count} in the headers, "
+            f"{video.original_fps} fps")
+    side = frames[0].shape[0]
+    base = avi.with_name("segmented.avi")
+    # room for the header (a few hundred bytes) and SPILL_SEGMENT_FRAMES frames
+    writer = RawAviWriter(base, side, side, PIPELINE_FPS, segment_bytes=SPILL_SEGMENT_FRAMES
+                          * (side * side * 3 + 24) + 1024)
+    for frame in frames[: 3 * SPILL_SEGMENT_FRAMES]:
+        writer.write_frame_rgb(frame)
+    writer.finalize()
+    segments = spill_segment_paths(base)
+    want = [base, base.with_name("segmented.part001.avi"), base.with_name("segmented.part002.avi")]
+    require(segments == want, f"11e: segments {segments}")
+    segmented = frames_in_spill(base)
+    require(segmented.total_frame_count == 3 * SPILL_SEGMENT_FRAMES
+            and all(np.array_equal(a, b) for a, b in zip(segmented.frames, frames)),
+            "11e: the segmented spill's frames differ")
+    segments[1].unlink()
+    try:
+        spill_segment_paths(base)
+        fail("11e: a spill with its middle segment removed did not raise")
+    except ValueError as e:
+        require("non-contiguous" in str(e), f"11e: {e}")
+    for segment in (segments[0], segments[2]):
+        segment.unlink()
+    del frames
+    mp4 = avi.with_name("reencoded.mp4")
+    os.environ["GANCE_TPU_EGRESS"] = "raw-spill"  # the re-encode must not spill again
+    start = time.perf_counter()
+    try:
+        written = reencode_spill(avi, mp4)
+    finally:
+        del os.environ["GANCE_TPU_EGRESS"]
+    encode_s = time.perf_counter() - start
+    capture = cv2.VideoCapture(str(mp4))
+    decoded = int(capture.get(cv2.CAP_PROP_FRAME_COUNT))
+    capture.release()
+    with open(mp4, "rb") as handle:
+        riff = handle.read(4) == b"RIFF"
+    require(written == decoded == RESUME_FRAMES and not riff,
+            f"11e: re-encoded {written} frames, cv2 counts {decoded}, raw {riff}")
+    print(f"11e spill tools: frames_in_spill over 11c's AVI bit for bit with the RIFF reader "
+          f"({RESUME_FRAMES} frames in {read_s:.3f} s); a {len(segments)}-segment spill in "
+          f"order, a hole raises; reencode_spill to mp4v {written} frames in {encode_s:.3f} s "
+          f"({mp4.stat().st_size} bytes)", flush=True)
+    mp4.unlink()
+    avi.unlink()
+
+
+def resume_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 11, with phase 3's networks and phase 8's WAV in `workdir`;
+    returns the launches of 11a-11d's main-path runs."""
+    torch.cuda.empty_cache()
+    totals: Dict[str, int] = {}
+
+    def add(counts: Dict[str, int]) -> None:
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    add(still_images_phase(config, workdir, card))
+    add(network_checks_phase(config, workdir))
+    counts, avi = resumable_noise_blend_phase(config, workdir, card)
+    add(counts)
+    add(resumable_flagship_phase(config, workdir, card))
+    spill_tools_phase(avi)
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2157,8 +2699,10 @@ def main() -> None:
         pipeline_totals = pipeline_phase(config, Path(nets_dir), smi)
         flagship_totals = flagship_phase(config, Path(nets_dir), smi)
         projector_totals = projector_phase(config, Path(nets_dir), smi)
+        resume_totals = resume_phase(config, Path(nets_dir), smi)
     for record in records:
-        for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals):
+        for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
+                       resume_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

@@ -94,8 +94,8 @@ def common_command_options(func: Callable) -> Callable:
         click.option("--dist-process-id", type=int, default=None),
         click.option(
             "--resumable", is_flag=True, default=False,
-            help="Not ported yet (raises): checkpoint the render every "
-            "--resume-chunk-frames frames.",
+            help="Checkpoint the render every --resume-chunk-frames frames; "
+            "rerun the same command to resume a killed render.",
         ),
         click.option(
             "--resume-chunk-frames", type=click.IntRange(min=1), default=300,

@@ -16,14 +16,21 @@ library from elsewhere in the checkout.
     what is left to the last segment.
   * `AviWriter` and `mux_video_with_audio`: MJPEG + PCM16 (cv2, imported
     where used, encodes the JPEGs and decodes the source video).
+  * `raw_avi_info` and `raw_avi_frames`: a RIFF reader of the uncompressed
+    AVIs that `RawAviWriter` writes (this package's or gance_tpu's, one
+    muxer source), in plain Python and numpy, streaming a frame at a time.
+    Resumable renders read their raw parts back with it and the spill tools
+    read spills with it, so neither depends on a decoder's handling of
+    BI_RGB rows (top-down by a negative height, BGR, padded to 4 bytes).
 """
 
 import ctypes
 import hashlib
 import os
+import struct
 import subprocess
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import BinaryIO, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -377,3 +384,90 @@ def mux_video_with_audio(
     finally:
         cap.release()
         writer.finalize()
+
+
+class RawAviInfo(NamedTuple):
+    """What the headers of an uncompressed AVI say."""
+
+    width: int
+    height: int
+    fps: float
+    frame_count: int
+    top_down: bool
+    movi: Tuple[int, int]  # (first chunk offset, end) of the 'movi' list
+
+
+def _riff_chunks(handle: BinaryIO, offset: int, end: int) -> Iterator[Tuple[bytes, int, int]]:
+    """(chunk id, body offset, body length) of the chunks in [offset, end);
+    a LIST is yielded with its list type as the id (b'LIST' + type)."""
+    while offset + 8 <= end:
+        handle.seek(offset)
+        cid, length = struct.unpack("<4sI", handle.read(8))
+        body = offset + 8
+        if cid == b"LIST":
+            yield b"LIST" + handle.read(4), body + 4, length - 4
+        else:
+            yield cid, body, length
+        offset = body + length + (length & 1)
+
+
+def raw_avi_info(path: Path) -> RawAviInfo:
+    """Read the headers of the uncompressed (BI_RGB, 24-bit) AVI at `path`;
+    raises on anything else."""
+    with open(str(path), "rb") as handle:
+        riff, size, form = struct.unpack("<4sI4s", handle.read(12))
+        if riff != b"RIFF" or form != b"AVI ":
+            raise ValueError(f"{path} is not an AVI file")
+        end = min(8 + size, os.fstat(handle.fileno()).st_size)
+        found = {}
+        for cid, body, length in _riff_chunks(handle, 12, end):
+            if cid == b"LISThdrl":
+                for sub, sbody, slength in _riff_chunks(handle, body, body + length):
+                    if sub == b"avih":
+                        handle.seek(sbody)
+                        fields = struct.unpack("<10I", handle.read(40))
+                        found.update(frames=fields[4], width=fields[8], height=fields[9])
+                    elif sub == b"LISTstrl" and "fps" not in found:
+                        for leaf, lbody, _ in _riff_chunks(handle, sbody, sbody + slength):
+                            handle.seek(lbody)
+                            if leaf == b"strh":
+                                kind, _, _, _, _, _, scale, rate = struct.unpack(
+                                    "<4s4sIHHIII", handle.read(28))
+                                if kind != b"vids":
+                                    break
+                                found["fps"] = rate / scale
+                            elif leaf == b"strf":
+                                _, _, height, _, bits, compression = struct.unpack(
+                                    "<IiiHHI", handle.read(20))
+                                if bits != 24 or compression != 0:
+                                    raise ValueError(
+                                        f"{path} is not an uncompressed 24-bit AVI "
+                                        f"(bit count {bits}, compression {compression})")
+                                found["top_down"] = height < 0
+            elif cid == b"LISTmovi":
+                found["movi"] = (body, body + length)
+    missing = {"frames", "width", "height", "fps", "top_down", "movi"} - set(found)
+    if missing:
+        raise ValueError(f"{path}: AVI headers lack {sorted(missing)}")
+    return RawAviInfo(found["width"], found["height"], found["fps"], found["frames"],
+                      found["top_down"], found["movi"])
+
+
+def raw_avi_frames(path: Path) -> Iterator[np.ndarray]:
+    """The frames of the uncompressed AVI at `path` as top-down RGB uint8
+    (H, W, 3) arrays, read one chunk at a time. The audio chunks are skipped."""
+    info = raw_avi_info(path)
+    stride = (info.width * 3 + 3) & ~3
+    with open(str(path), "rb") as handle:
+        for cid, body, length in _riff_chunks(handle, *info.movi):
+            if cid != b"00db":
+                continue
+            if length != stride * info.height:
+                raise ValueError(f"{path}: a frame chunk of {length} bytes for "
+                                 f"{info.width}x{info.height}")
+            handle.seek(body)
+            rows = np.frombuffer(handle.read(length), np.uint8).reshape(info.height, stride)
+            bgr = rows[:, : info.width * 3].reshape(info.height, info.width, 3)
+            if not info.top_down:
+                bgr = bgr[::-1]
+            yield np.ascontiguousarray(bgr[..., ::-1])

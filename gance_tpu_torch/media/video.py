@@ -174,6 +174,7 @@ def create_video_writer(
     video_fps: float,
     resolution: ImageResolution,
     high_quality: bool = False,
+    allow_spill: bool = True,
 ) -> VideoWriterHandle:
     """
     Create a frame sink. `high_quality` selects the ffmpeg libx264 crf-18 profile
@@ -182,15 +183,25 @@ def create_video_writer(
 
     GANCE_TPU_EGRESS=raw-spill routes every writer to the uncompressed-AVI
     O_DIRECT spill path instead (re-encode the spill offline). Output is AVI
-    content regardless of the requested suffix. With neither ffmpeg nor cv2
-    on the host, and no spill asked for, this raises.
+    content regardless of the requested suffix. `allow_spill=False` keeps
+    the standard writer under raw-spill (a resumable render's mp4v parts and
+    a spill's re-encode target must not spill again). With neither ffmpeg
+    nor cv2 on the host, and no spill asked for or allowed, this raises.
     """
     video_path = Path(video_path)
     video_path.parent.mkdir(parents=True, exist_ok=True)
 
-    if _egress_mode() == "raw-spill":
+    spill = _egress_mode() == "raw-spill"
+    if spill and allow_spill:
         LOGGER.info("Raw-spill egress: uncompressed AVI content at %s", video_path)
         return create_raw_spill_writer(video_path, video_fps, resolution)
+    if spill:
+        LOGGER.warning(
+            "Raw-spill egress suppressed for %s: this writer must produce a single "
+            "standard file; using the standard writer instead. Render video-only for "
+            "spill-rate egress and compress offline (media/spill.py reencode_spill).",
+            video_path,
+        )
 
     if high_quality and _ffmpeg_binary():
         # The reference's exact "YouTube-tuned" x264 profile (video_common.py

@@ -9,7 +9,9 @@ One knob, read once at import, the same as gance_tpu's: GANCE_TPU_PRECISION =
 
 The style/demod dots in modulated conv, `resize_images` and the plain twins
 of the kernels that sum products always run in exact fp32 (`exact_fp32`),
-whatever the tier.
+whatever the tier. A resumable render runs with cuDNN's deterministic
+algorithms (`deterministic_cudnn`), so that it gives the same frames on every
+run.
 """
 
 import os
@@ -43,3 +45,21 @@ def exact_fp32() -> Iterator[None]:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """Run the enclosed cuDNN calls with deterministic algorithms only, then
+    restore the flag. A transposed convolution's forward is cuDNN's
+    backward-data pass, whose default fp32 algorithms on an H100 gave one batch
+    of 1024px frames up to 1 uint8 step apart from one call to the next (bf16
+    repeated itself). A resumable render needs frames that repeat, or a resumed
+    render cannot equal an unbroken one; the deterministic algorithms cost
+    fp32 synthesis about half again as much time (PERF.md), so only
+    resumable renders ask for them."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -9,13 +9,21 @@ the host; an optional eye-tracked overlay of the projection targets, gated by
 bbox and pHash distance, track length and (optionally) a music-complexity
 mask; the video written with the audio track.
 
+`resumable=True` checkpoints the hero frames in chunks (media/resume.py) and
+each overlay decision in a JSON-lines sidecar as it is made: a killed run
+resumes synthesis at the durable frame count and detection at the decided
+frame count.
+
 Not ported yet, so they raise NotImplementedError naming their ROADMAP item:
 the multi-device placements (`data_parallel`, `device_per_network`,
-`network_parallel`), the debug visualization video (`debug_path`) and
-resumable renders (`resumable`).
+`network_parallel`) and the debug visualization video (`debug_path`).
 """
 
 import contextlib
+import json
+import os
+import time
+from itertools import islice
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
@@ -24,26 +32,28 @@ import numpy as np
 from gance_tpu_torch.audio import reduction as vector_reduction
 from gance_tpu_torch.audio.io import read_wavs_scale_for_video
 from gance_tpu_torch.media.disk_tee import NPY_SERIALIZER, iterator_on_disk
+from gance_tpu_torch.media.resume import durable_frames, file_identity, write_source_resumable
 from gance_tpu_torch.media.video import (
     scale_square_source_duplicate,
     write_source_to_disk_forward,
 )
+from gance_tpu_torch.ops.precision import deterministic_cudnn
 from gance_tpu_torch.overlay.common import write_boxes_onto_image
 from gance_tpu_torch.overlay.eye_tracking import compute_eye_tracking_overlay
 from gance_tpu_torch.pipelines.noise_blend import (
     DEBUG_VIDEO_ITEM,
     MULTI_DEVICE_ITEM,
-    RESUME_ITEM,
     _compute_dtype,
+    check_resumable,
 )
 from gance_tpu_torch.projection.file_reader import (
     final_latents_matrices_label,
     load_projection_file,
 )
 from gance_tpu_torch.synthesis.inputs import alpha_blend_projection_file
-from gance_tpu_torch.synthesis.orchestration import vector_synthesis
+from gance_tpu_torch.synthesis.orchestration import resumed_synthesis, vector_synthesis
 from gance_tpu_torch.synthesis.runtime import MultiNetwork
-from gance_tpu_torch.types import underlying_length
+from gance_tpu_torch.types import BoundingBox, underlying_length
 from gance_tpu_torch.utils.device import Device, resolve_device
 from gance_tpu_torch.utils.divisor import divide_no_remainder
 from gance_tpu_torch.utils.logging import LOGGER
@@ -92,8 +102,14 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
     :param compute_dtype: "float32" or "bfloat16"; None takes
         GANCE_TPU_COMPUTE_DTYPE (the runtime's default).
     :param trace_dir: write a torch.profiler Chrome trace of the run here.
+    :param resumable: checkpoint the render every `resume_chunk_frames`
+        frames, and each overlay decision as it is made (media/resume.py). A
+        killed run resumes from the durable frame count, replaying cached
+        decisions instead of detecting again, and its output equals an
+        unbroken run's. Requires debug_path=None.
     """
-    del debug_window, debug_side_length, debug_3d, resume_chunk_frames  # debug/resume only
+    del debug_window, debug_side_length, debug_3d  # the debug video only
+    check_resumable(resumable, debug_path)
     for name, requested in (
         ("data_parallel", data_parallel is not None),
         ("device_per_network", device_per_network),
@@ -103,8 +119,6 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
             raise NotImplementedError(f"{name} is not ported yet: {MULTI_DEVICE_ITEM}")
     if debug_path is not None:
         raise NotImplementedError(f"the debug video is not ported yet: {DEBUG_VIDEO_ITEM}")
-    if resumable:
-        raise NotImplementedError(f"resumable renders are not ported yet: {RESUME_ITEM}")
     overlay_enabled = all(p is not None for p in (phash_distance, bbox_distance, track_length))
     music_mask_enabled = all(
         p is not None
@@ -139,6 +153,9 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
             overlay_detection_side=overlay_detection_side,
             overlay_smoothing=overlay_smoothing,
             device=device,
+            resumable=resumable,
+            resume_chunk_frames=resume_chunk_frames,
+            projection_file_path=Path(projection_file_path),
         )
     LOGGER.info("projection_file_blend complete: %s", output_path)
 
@@ -163,6 +180,9 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     overlay_detection_side: Optional[int],
     overlay_smoothing: int,
     device: Device,
+    resumable: bool = False,
+    resume_chunk_frames: int = 300,
+    projection_file_path: Optional[Path] = None,
 ) -> None:
     """
     The render over an open projection file. `reader` needs only
@@ -170,8 +190,10 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     (each access a fresh iterator), so a caller without h5py can hand in an
     in-memory stand-in. `overlay_gates` is (phash, bbox distance, track
     length), or None for no overlay; a rolling-sum window turns the
-    music-complexity mask on.
+    music-complexity mask on. `projection_file_path` enters a resumable
+    render's fingerprint beside the file's target md5.
     """
+    check_resumable(resumable, None)
     audio_paths = [Path(p) for p in wav]
     dtype = _compute_dtype(compute_dtype)
     # No output_side_length: synthesized frames leave the device at the
@@ -224,6 +246,62 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
         # "render": synthesis, the overlay and the write together, from the
         # first dispatch to the finished file
         with timed_stage("render") as render:
+            if resumable:
+                phash_distance, bbox_distance, track_length = overlay_gates or (None,) * 3
+                fingerprint = {
+                    "pipeline": "projection_file_blend",
+                    "wavs": [file_identity(p) for p in audio_paths],
+                    "networks": [file_identity(p) for p in network_paths],
+                    "projection_file": str(projection_file_path),
+                    "projection_file_md5": attributes.target_md5_hash,
+                    "alpha": alpha,
+                    "fft_roll_enabled": bool(fft_roll_enabled),
+                    "fft_amplitude_range": list(fft_amplitude_range),
+                    "blend_depth": int(blend_depth),
+                    "output_fps": float(output_fps),
+                    "output_side_length": int(output_side_length),
+                    "frames_to_visualize": frames_to_visualize,
+                    "compute_dtype": compute_dtype,
+                    "phash_distance": phash_distance,
+                    "bbox_distance": bbox_distance,
+                    "track_length": track_length,
+                    "overlay_detection_side": overlay_detection_side,
+                    "overlay_smoothing": overlay_smoothing,
+                    "complexity_change_rolling_sum_window": complexity_change_rolling_sum_window,
+                    "complexity_change_threshold": complexity_change_threshold,
+                }
+                total = (num_output_frames if frames_to_visualize is None
+                         else min(num_output_frames, frames_to_visualize))
+                start = durable_frames(Path(output_path), fingerprint)
+                with deterministic_cudnn():  # frames that repeat from run to run
+                    frames = _resumable_blend(
+                        reader=reader,
+                        viz_input=viz_input,
+                        multi_networks=multi_networks,
+                        output_path=Path(output_path),
+                        output_fps=output_fps,
+                        output_side_length=output_side_length,
+                        frame_multiplier=frame_multiplier,
+                        total=total,
+                        start=start,
+                        audio_paths=audio_paths,
+                        skip_mask=_skip_mask(
+                            time_series_audio_vectors,
+                            vector_length,
+                            num_output_frames,
+                            complexity_change_rolling_sum_window,
+                            complexity_change_threshold,
+                            device,
+                        ),
+                        overlay_gates=overlay_gates,
+                        overlay_detection_side=overlay_detection_side,
+                        overlay_smoothing=overlay_smoothing,
+                        resume_chunk_frames=resume_chunk_frames,
+                        fingerprint=fingerprint,
+                        device=device,
+                    )
+                render.tick(frames - start)
+                return
             synthesis_output = vector_synthesis(
                 networks=multi_networks,
                 data=viz_input,
@@ -355,3 +433,230 @@ def _overlay(
                 stream.close()
 
     return compose()
+
+
+def _overlay_decisions_path(output_path: Path) -> Path:
+    return output_path.with_name(output_path.name + ".overlay.jsonl")
+
+
+def _load_overlay_decisions(path: Path, fingerprint: dict) -> List[Optional[List[BoundingBox]]]:
+    """
+    The per-frame overlay decisions a killed resumable run checkpointed
+    (detection is the flagship's host bottleneck, far costlier than the
+    synthesis that a resume skips). The first line pins the render's
+    fingerprint; another fingerprint, a torn header or a torn line before
+    the last discards the cache. A torn final line (a kill -9 in the middle
+    of its write) is dropped and truncated out of the file.
+    """
+    if not path.exists():
+        return []
+    lines = path.read_text().splitlines()
+    if not lines:
+        return []
+    try:
+        header = json.loads(lines[0])
+    except json.JSONDecodeError:
+        LOGGER.warning("%s has a torn header; recomputing overlay decisions.", path)
+        path.unlink()
+        return []
+    if header.get("fingerprint") != fingerprint:
+        LOGGER.warning(
+            "%s was written by a render with different parameters; "
+            "recomputing overlay decisions.", path
+        )
+        path.unlink()
+        return []
+    decisions: List[Optional[List[BoundingBox]]] = []
+    for index, line in enumerate(lines[1:]):
+        try:
+            record = json.loads(line)
+        except json.JSONDecodeError:
+            if index == len(lines) - 2:
+                # Every earlier line ended in a flushed newline, so the prefix
+                # is whole. The torn tail has no newline: truncate it, or the
+                # next append would weld onto it.
+                LOGGER.warning(
+                    "%s ends in a torn line (crash mid-write); dropping the "
+                    "final record and resuming from %d cached decisions.",
+                    path, len(decisions),
+                )
+                tmp = path.with_name(path.name + ".tmp")
+                tmp.write_text("\n".join(lines[:-1]) + "\n", encoding="utf-8")
+                os.replace(tmp, path)
+                break
+            # a torn line in the middle is outside the crash model (a disk
+            # error, a second writer): recompute everything
+            LOGGER.warning(
+                "%s is corrupt at record %d; recomputing overlay decisions.", path, index
+            )
+            path.unlink()
+            return []
+        boxes = record["boxes"]
+        decisions.append(None if boxes is None else [BoundingBox(*box) for box in boxes])
+    return decisions
+
+
+def _checkpoint_decisions(
+    path: Path, fingerprint: dict, start_index: int, decisions: Iterator
+) -> Iterator:
+    """Append each new decision to the JSON-lines sidecar as it streams through.
+    GANCE_TPU_RESUME_DECISION_DELAY (seconds per decision) is a test seam: a
+    window in which a kill -9 lands during detection."""
+    delay = float(os.environ.get("GANCE_TPU_RESUME_DECISION_DELAY", "0") or 0)
+    if start_index == 0 or not path.exists():
+        path.write_text(json.dumps({"fingerprint": fingerprint}) + "\n")
+    with path.open("a", encoding="utf-8") as handle:
+        for boxes in decisions:
+            if delay:
+                time.sleep(delay)
+            handle.write(
+                json.dumps({"boxes": None if boxes is None else [list(b) for b in boxes]})
+                + "\n"
+            )
+            handle.flush()
+            yield boxes
+
+
+def _resumable_blend(  # pylint: disable=too-many-arguments,too-many-locals
+    *,
+    reader,
+    viz_input,
+    multi_networks,
+    output_path: Path,
+    output_fps: float,
+    output_side_length: int,
+    frame_multiplier: int,
+    total: int,
+    start: int,
+    audio_paths: List[Path],
+    skip_mask: List[bool],
+    overlay_gates: Optional[Tuple[int, float, int]],
+    overlay_detection_side: Optional[int],
+    overlay_smoothing: int,
+    resume_chunk_frames: int,
+    fingerprint: dict,
+    device: Device,
+) -> int:
+    """
+    The flagship render with checkpoint and resume: `total` frames, of which
+    `start` are durable. Hero frames land in finished chunks, and each
+    overlay decision in the sidecar as it is made, so a killed run resumes
+    synthesis at the durable frame count and detection at the decided one.
+    The output equals an unbroken run's: every stage is deterministic, and
+    the track-length filter sees the decisions of all frames (the cached
+    prefix and the new tail). Returns the finished render's frame count.
+    """
+    decisions_path = _overlay_decisions_path(output_path)
+    cached = (_load_overlay_decisions(decisions_path, fingerprint)[:total]
+              if overlay_gates is not None else [])
+    done = len(cached)
+    if start:
+        LOGGER.info(
+            "Resuming projection_file_blend at frame %d/%d (%d overlay decisions cached)",
+            start, total, done,
+        )
+    # Temporal smoothing's trailing box history at frame `done` is a function
+    # of the last `overlay_smoothing` frames' raw detections, so a replay of
+    # detection over the `warm` frames before `done` rebuilds it exactly; the
+    # replayed decisions are already in the sidecar and are dropped.
+    warm = min(done, overlay_smoothing) if overlay_smoothing > 1 else 0
+    detect_from = done - warm
+    # Compose needs frames [start, total), detection [detect_from, total).
+    # Chunks are written only once every decision is durable, so start > 0
+    # implies done == total.
+    synth_from = start if (overlay_gates is None or done >= total) else min(start, detect_from)
+    backgrounds = timed_iterator(
+        "synth_egress",
+        scale_square_source_duplicate(
+            source=resumed_synthesis(multi_networks, viz_input, synth_from, total,
+                                     unload_networks_when_complete=True),
+            output_side_length=output_side_length,
+        ),
+    )
+
+    def scaled_targets() -> Iterator[np.ndarray]:
+        # reader.target_images is a fresh lazy iterator on every access
+        return timed_iterator(
+            "target_read",
+            scale_square_source_duplicate(
+                source=reader.target_images,
+                output_side_length=output_side_length,
+                frame_multiplier=frame_multiplier,
+            ),
+        )
+
+    if overlay_gates is None:
+        blended: Iterator[np.ndarray] = backgrounds
+    else:
+        phash_distance, bbox_distance, track_length = overlay_gates
+        streams: List[Iterator[np.ndarray]] = []
+        if done < total:
+            # both streams feed detection and then compose: disk-tee them
+            background_copies = iterator_on_disk(
+                iterator=backgrounds, copies=1, serializer=NPY_SERIALIZER)
+            target_copies = iterator_on_disk(
+                iterator=scaled_targets(), copies=1, serializer=NPY_SERIALIZER)
+            streams = [*background_copies, *target_copies]
+            overlay_results = compute_eye_tracking_overlay(
+                foreground_images=islice(target_copies[0], detect_from, None),
+                background_images=islice(background_copies[0], detect_from - synth_from, None),
+                min_phash_distance=phash_distance,
+                min_bbox_distance=bbox_distance,
+                skip_mask=skip_mask[detect_from:],
+                detection_side=overlay_detection_side,
+                temporal_smoothing=overlay_smoothing,
+                want_contexts=False,
+                device=device,
+            )
+            boxes_stream = overlay_results.bbox_lists
+            for _ in range(warm):
+                next(boxes_stream)  # the warm-up frames' decisions are cached
+            # materialized (the track filter needs every decision), each new
+            # decision streamed into the sidecar as it is made
+            new_boxes = list(timed_iterator("detect", _checkpoint_decisions(
+                decisions_path, fingerprint, done, boxes_stream)))
+            all_boxes = cached + new_boxes
+            background_for_compose = islice(background_copies[1], start - synth_from, None)
+            foreground_for_compose = islice(target_copies[1], start, None)
+        else:
+            all_boxes = cached
+            background_for_compose = backgrounds  # starts at `start` already
+            foreground_for_compose = islice(scaled_targets(), start, None)
+        long_tracks_mask = vector_reduction.track_length_filter(
+            bool_tracks=np.asarray(
+                [(not skip) and (box is not None) for skip, box in zip(skip_mask, all_boxes)]
+            ),
+            track_length=track_length,
+        )
+
+        def compose() -> Iterator[np.ndarray]:
+            try:
+                for bounding_boxes, foreground, background, in_long_track in zip(
+                    all_boxes[start:], foreground_for_compose, background_for_compose,
+                    list(long_tracks_mask)[start:],
+                ):
+                    yield (
+                        write_boxes_onto_image(
+                            foreground_image=foreground,
+                            background_image=background,
+                            bounding_boxes=bounding_boxes,
+                        )
+                        if in_long_track
+                        else background
+                    )
+            finally:  # zip stops short of the copies' ends: close them
+                for stream in streams:
+                    stream.close()
+
+        blended = compose()
+
+    frames = write_source_resumable(
+        source=timed_iterator("compose", blended),
+        output_path=output_path,
+        video_fps=output_fps,
+        fingerprint=fingerprint,
+        audio_paths=audio_paths,
+        chunk_frames=resume_chunk_frames,
+    )
+    decisions_path.unlink(missing_ok=True)
+    return frames

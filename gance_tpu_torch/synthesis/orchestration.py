@@ -11,13 +11,18 @@ gance/data_into_network_visualization/network_visualization.py
   * the viz stream draws from the same host-side arrays independently.
 """
 
+from itertools import islice
 from typing import Callable, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
 from gance_tpu_torch.audio.vectors import sub_vectors
-from gance_tpu_torch.synthesis.inputs import VisualizationInput
-from gance_tpu_torch.synthesis.runtime import DEFAULT_BATCH_SIZE, MultiNetwork
+from gance_tpu_torch.synthesis.inputs import VisualizationInput, slice_visualization_input
+from gance_tpu_torch.synthesis.runtime import (
+    DEFAULT_BATCH_SIZE,
+    DEFAULT_STREAM_LOOKAHEAD,
+    MultiNetwork,
+)
 from gance_tpu_torch.utils.profiling import timed_iterator
 
 
@@ -137,3 +142,30 @@ def vector_synthesis(
     return SynthesisOutput(
         synthesized_images=synthesized(), visualization_images=visualization
     )
+
+
+def resumed_synthesis(
+    networks: MultiNetwork,
+    data: VisualizationInput,
+    first: int,
+    total: int,
+    unload_networks_when_complete: bool = False,
+) -> Iterator[np.ndarray]:
+    """
+    Frames [first, total) of `vector_synthesis(networks, data)`, for a render
+    that resumes at frame `first`. Synthesis starts at the stream window
+    (`synthesize_stream`'s batch * lookahead frames) at or before `first` and
+    the frames before `first` are dropped, so that every frame is computed in
+    the same batch as in an unbroken render: a GPU's convolution algorithms
+    may sum in another order for another batch, and a resumed render must
+    equal an unbroken one bit for bit. gance_tpu slices at `first` itself.
+    """
+    window = DEFAULT_BATCH_SIZE * max(DEFAULT_STREAM_LOOKAHEAD, 1)
+    start = first - first % window
+    output = vector_synthesis(
+        networks=networks,
+        data=slice_visualization_input(data, start),
+        frames_to_visualize=total - start,
+        unload_networks_when_complete=unload_networks_when_complete,
+    )
+    return islice(output.synthesized_images, first - start, None)

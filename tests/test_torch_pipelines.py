@@ -193,7 +193,7 @@ def test_cli_noise_blend_writes_video_with_audio(tmp_path, assets, no_encoders):
 
 
 @pytest.mark.parametrize("option", [["--dist-coordinator", "localhost:1234"],
-                                    ["--data-parallel", "2"], ["--resumable"],
+                                    ["--data-parallel", "2"], ["--one-network-per-device"],
                                     ["--debug-path", "debug.avi"]])
 def test_cli_deferred_options_raise(tmp_path, assets, option):
     paths, wav = assets
@@ -207,11 +207,11 @@ def test_cli_deferred_options_raise(tmp_path, assets, option):
 @pytest.mark.parametrize("kwargs,item", [
     ({"data_parallel": 2}, "item 12"), ({"device_per_network": True}, "item 12"),
     ({"network_parallel": True}, "item 12"), ({"debug_path": Path("d.avi")}, "item 13"),
-    ({"resumable": True}, "item 2"),
+    ({"resumable": True, "debug_path": Path("d.avi")}, "debug visualization"),
 ])
 def test_deferred_options_raise(tmp_path, assets, kwargs, item):
     paths, wav = assets
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises((NotImplementedError, ValueError), match=item):
         render(paths, wav, tmp_path / "x.avi", **kwargs)
 
 
@@ -478,10 +478,10 @@ def test_flagship_music_mask_without_overlay_raises_as_jax_does(tmp_path, flagsh
 @pytest.mark.parametrize("kwargs,item", [
     ({"data_parallel": 2}, "item 12"), ({"device_per_network": True}, "item 12"),
     ({"network_parallel": True}, "item 12"), ({"debug_path": Path("d.avi")}, "item 13"),
-    ({"resumable": True}, "item 2"),
+    ({"resumable": True, "debug_path": Path("d.avi")}, "debug visualization"),
 ])
 def test_flagship_deferred_options_raise(tmp_path, flagship_assets, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises((NotImplementedError, ValueError), match=item):
         port_flagship(flagship_assets, flagship_assets["percussive"], tmp_path / "x.avi",
                       **kwargs)
 
@@ -513,5 +513,5 @@ def test_cli_projection_file_blend(tmp_path, flagship_assets, no_encoders):
     assert partial.exit_code != 0 and "must be given together" in partial.output
     depth = CliRunner().invoke(cli, common + ["--blend-depth", "19"])
     assert depth.exit_code != 0
-    resumable = CliRunner().invoke(cli, common + ["--resumable"])
-    assert isinstance(resumable.exception, NotImplementedError)
+    resumable = CliRunner().invoke(cli, common + ["--resumable", "--debug-path", "d.avi"])
+    assert isinstance(resumable.exception, ValueError) and "debug" in str(resumable.exception)

@@ -257,7 +257,10 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.overlay", "gance_tpu_torch.pipelines.projection_file_blend",
                "gance_tpu_torch.media.disk_tee", "gance_tpu_torch.projection.projector",
                "gance_tpu_torch.projection.lpips", "gance_tpu_torch.projection.vgg_import",
-               "gance_tpu_torch.projection.file_writer", "chip_smoke"]
+               "gance_tpu_torch.projection.file_writer", "gance_tpu_torch.media.resume",
+               "gance_tpu_torch.media.spill", "gance_tpu_torch.pipelines.synthesis_file",
+               "gance_tpu_torch.pipelines.check_move_networks",
+               "gance_tpu_torch.overlay.selection", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
