@@ -196,14 +196,46 @@ in order (any failure exits non-zero; no phase's failure is caught):
    `reencode_spill` writes the 120 frames as mp4v. (c) and (d) print the
    wall split into loading, audio features, chunks and finalize, frames/s
    beside 8b's and 9d's, and the parts' bytes at the peak.
+12. serves (gance_tpu_torch/serving/) with phase 3's networks and phase 8's
+   WAV, each served request's launches counted from 0 and checked against
+   the batches the daemon dispatched (17 / 8 / 8 per forward; 15 / 7 / 7 / 1
+   on the phase path). (a) A `SynthesisDaemon` over both networks on port 0,
+   max batch 48, linger 20 ms, every bucket (8, 16, 32, 48) of both lanes
+   warmed with the serve CLI's `warm_networks`; through `ServingClient`:
+   /healthz lists both;
+   /synthesize from seeds, from dlatents and on network 1 by name, each
+   within 1 uint8 step on at least 99.9% of pixels of
+   `images_from_vectors` / `_matrices` run directly on the same rows (fp32
+   cuDNN does not repeat itself bit for bit); 8 concurrent clients of 3-5
+   rows: fewer batches than requests, each client's rows back in order; a
+   png, a png-zip and (GANCE_TPU_EGRESS=raw-spill) an avi request decoded
+   back within the same bound; /metrics parses. (b) /synthesize_audio over
+   the 4 s WAV with both networks: the plan's indices equal the offline
+   planning's on the card and its rows lie within 1e-4 of the card's
+   inputs; the npy frames within the 1-step bound of `MultiNetwork`'s
+   render of the same plan; a plan-cache hit within 1 step of the miss;
+   latents registered by POST (phase 9's 60 frames x 18 x 512) and the
+   flagship blend at blend depth 10 against `synthesis/inputs.py`'s blend
+   rendered directly; it prints the planning seconds of the clip on the
+   CPU. (c) /admin/load of a third network from a pickle and /admin/unload:
+   `torch.cuda.memory_allocated` rises and falls by at least 90% of its
+   parameter bytes; the serve CLI's `run_server` in a child process,
+   SIGTERM while a 96-frame request is in flight: the request completes, a
+   new one gets 503, the child exits 0. (d) Peak memory per warm bucket in
+   fp32 and bf16; then 6 concurrent clients of 8 frames for 10 s against a
+   daemon over network 0 in fp32, in bf16, and in bf16 on the phase path
+   (E): frames/s, requests/s, client latency p50 and p99, batches, mean
+   batch and occupancy (`serving_load`, which tools/time_torch_serving.py
+   also runs).
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
 phase 10's; E's launches include the phase-path G step's; A, B, C and E's
-include phases 8-11's); the last line is {"ok": true, "device":
+include phases 8-12's); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
+import base64
 import collections
 import contextlib
 import dataclasses
@@ -216,6 +248,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
@@ -260,6 +293,9 @@ RESUME_CHUNK = 32  # a multiple of the stream window (batch 8 x lookahead 2)
 RESUME_CHUNK_DELAY = 5.0  # 11c: seconds between durable chunks in the child
 RESUME_DECISION_DELAY = 0.2  # 11d: seconds per overlay decision in the child
 SPILL_SEGMENT_FRAMES = 2  # 11e: frames per segment of the segmented spill
+SERVE_MAX_BATCH = 48  # 12: the daemon's batch ceiling (buckets 8, 16, 32, 48)
+SERVE_LOAD = (6, 8, 10.0)  # 12d: concurrent clients, frames per request, timed seconds
+SERVE_SETTLE_S = 2.0  # 12d: traffic before the timed window
 RATES: Dict[str, dict] = {}  # 8b-8d and 9d's results, printed beside phase 11's
 
 REPLACES = {
@@ -2652,6 +2688,547 @@ def resume_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+def serving_load(url: str, clients: int, request_frames: int, seconds: float,
+                 settle_seconds: float = 2.0, trace_dir: Optional[Path] = None) -> dict:
+    """`clients` threads post /synthesize requests of `request_frames` seeded z
+    rows (the "count" source) back to back for `settle_seconds`, then for a
+    timed window of `seconds`. Returns the window's frames/s and requests/s
+    (every request that completed inside it, as tools/bench_serving_daemon.py
+    counts), the client-side latency p50/p99 of the requests that both started
+    and completed inside it (ms, HTTP round trip and npy decode included), the
+    daemon's batches, occupancy and mean batch over the window (/stats before
+    and after), and with `trace_dir` the device's idle share over the window
+    (torch.profiler on the device only: 1 - the union of kernel and copy
+    intervals / the span from the first device event to the last).
+    tools/time_torch_serving.py measures with this."""
+    from gance_tpu_torch.serving import ServingClient
+
+    stop, lock = threading.Event(), threading.Lock()
+    window: Dict[str, float] = {}
+    timed: List[float] = []
+    done = [0, 0]  # requests, frames
+    errors = [0]
+
+    def client(k: int) -> None:
+        serving_client, i = ServingClient(url), 0
+        while not stop.is_set():
+            start = time.perf_counter()
+            try:
+                images = serving_client.synthesize(count=request_frames, seed=k * 100003 + i)
+                end = time.perf_counter()
+                with lock:
+                    if "start" in window and "end" not in window:
+                        done[0] += 1
+                        done[1] += int(images.shape[0])
+                        if start >= window["start"]:
+                            timed.append(end - start)
+            except Exception:  # pylint: disable=broad-except
+                if not stop.is_set():
+                    with lock:
+                        errors[0] += 1
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(clients)]
+    for t in threads:
+        t.start()
+    time.sleep(settle_seconds)
+    profiler = None
+    if trace_dir is not None:
+        profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        profiler.__enter__()
+    before = ServingClient(url).stats()
+    with lock:
+        window["start"] = time.perf_counter()
+    time.sleep(seconds)
+    with lock:
+        window["end"] = time.perf_counter()
+        requests, frames = done
+        latencies = sorted(s * 1e3 for s in timed)
+    after = ServingClient(url).stats()
+    idle = None
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        path = trace_dir / "serving_trace.json"
+        profiler.export_chrome_trace(str(path))
+        events = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.loads(path.read_text())[
+            "traceEvents"] if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset"))
+        busy, end = 0.0, events[0][0] if events else 0.0
+        for lo, hi in events:
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        idle = 1.0 - busy / (end - events[0][0]) if events else None
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    elapsed = window["end"] - window["start"]
+    batches = after["batches"] - before["batches"]
+    rows_out = after["dispatched_rows"] - before["dispatched_rows"]
+    frames_in = after["frames"] - before["frames"]
+
+    def quantile(q: float):
+        return latencies[min(len(latencies) - 1, int(len(latencies) * q))] if latencies else None
+
+    return {"frames_per_s": frames / elapsed,
+            "requests_per_s": requests / elapsed, "requests": requests,
+            "client_errors": errors[0], "latency_p50_ms": quantile(0.5),
+            "latency_p99_ms": quantile(0.99), "batches": batches,
+            "mean_batch": frames_in / batches if batches else None,
+            "occupancy": frames_in / rows_out if rows_out else None,
+            "server_latency_p50_ms": after.get("latency_p50_ms"),
+            "server_latency_p99_ms": after.get("latency_p99_ms"),
+            "device_idle_share": idle, "seconds": elapsed}
+
+
+def describe_load(r: dict) -> str:
+    idle = "" if r["device_idle_share"] is None else \
+        f", device idle share {r['device_idle_share']:.3f}"
+    return (f"{r['frames_per_s']:.2f} frames/s ({r['requests_per_s']:.2f} requests/s, "
+            f"{r['requests']} in {r['seconds']:.2f} s), latency p50 {r['latency_p50_ms']:.1f} "
+            f"ms p99 {r['latency_p99_ms']:.1f} ms (client), {r['batches']} batches of "
+            f"{r['mean_batch']:.2f} frames on average, occupancy {r['occupancy']:.3f}{idle}, "
+            f"{r['client_errors']} client errors")
+
+
+class ServedLaunches:
+    """12's launch ledger: `check(label, before)` holds the launches since the
+    last reset against the batches the daemon dispatched since `before` (one
+    synthesis forward each) and adds them to the totals."""
+
+    def __init__(self, config) -> None:
+        self.config, self.totals = config, {}
+
+    def reset(self, daemon) -> int:
+        from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+
+        reset_launch_counts()
+        return daemon.batcher.stats()["batches"]
+
+    def check(self, label: str, daemon, before: int, phase: bool = False,
+              extra_forwards: int = 0) -> int:
+        forwards = daemon.batcher.stats()["batches"] - before + extra_forwards
+        for k, v in launches_per_forward(label, forwards, self.config, phase=phase).items():
+            self.totals[k] = self.totals.get(k, 0) + v
+        return forwards
+
+
+def z_of_seeds(seeds: List[int], length: int) -> np.ndarray:
+    """The daemon's "seeds" source: one N(0, 1) z per seed from RandomState."""
+    return np.stack([np.random.RandomState(s).randn(length) for s in seeds]).astype(np.float32)
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    import cv2
+
+    image = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    require(image is not None, "a PNG from the daemon does not decode")
+    return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
+
+
+def serve_requests_phase(config, nets, daemon, ledger: ServedLaunches, workdir: Path,
+                         card: str) -> None:
+    """12a: /healthz, /synthesize from seeds, dlatents and by name, 8 concurrent
+    clients, png, png-zip and avi, /metrics; frames against direct synthesis."""
+    import io
+    import urllib.request
+    import zipfile
+
+    from gance_tpu_torch.serving import ServingClient
+
+    url = f"http://127.0.0.1:{daemon.port}"
+    client = ServingClient(url)
+    res, length = config.resolution, config.latent_size
+    health = client.health()
+    names = [n["name"] for n in health.get("networks", [])]
+    require(health["ok"] and names == ["0_net", "1_net"] and health["resolution"] == res,
+            f"12a /healthz: {health}")
+
+    seeds = [1, 2, 3, 4, 5]
+    before = ledger.reset(daemon)
+    images = client.synthesize(seeds=seeds)
+    ledger.check("12a seeds", daemon, before)
+    check_frames("12a seeds", images, len(seeds), res)
+    direct_seeds = nets[0].images_from_vectors(z_of_seeds(seeds, length))
+    require_close_frames("12a seeds vs images_from_vectors", images, direct_seeds)
+
+    rng = np.random.RandomState(SEED + 12)
+    w_plus = rng.standard_normal((4, config.num_style_rows, config.dlatent_size)
+                                 ).astype(np.float32)
+    before = ledger.reset(daemon)
+    images = client.synthesize(dlatents=w_plus)
+    ledger.check("12a dlatents", daemon, before)
+    check_frames("12a dlatents", images, 4, res)
+    require_close_frames("12a dlatents vs images_from_matrices", images,
+                         nets[0].images_from_matrices(w_plus))
+
+    z = rng.standard_normal((3, length)).astype(np.float32)
+    before = ledger.reset(daemon)
+    images = client.synthesize(latents=z, network="1_net")
+    ledger.check("12a network 1_net", daemon, before)
+    require_close_frames("12a network 1_net vs its images_from_vectors", images,
+                         nets[1].images_from_vectors(z))
+
+    # 8 concurrent clients of 3-5 rows each, started together
+    sizes = [3, 4, 5, 3, 4, 5, 3, 5]
+    rows = [rng.standard_normal((n, length)).astype(np.float32) for n in sizes]
+    results: Dict[int, np.ndarray] = {}
+    barrier = threading.Barrier(len(sizes))
+
+    def post(k: int) -> None:
+        barrier.wait()
+        results[k] = ServingClient(url).synthesize(latents=rows[k])
+
+    stats_before = client.stats()
+    before = ledger.reset(daemon)
+    threads = [threading.Thread(target=post, args=(k,)) for k in range(len(sizes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    forwards = ledger.check("12a 8 concurrent clients", daemon, before)
+    stats_after = client.stats()
+    requests = stats_after["requests"] - stats_before["requests"]
+    require(len(results) == len(sizes) and requests == len(sizes),
+            f"12a concurrent: {len(results)} answers, {requests} requests")
+    require(forwards < requests, f"12a concurrent: {forwards} batches for {requests} requests")
+    direct = nets[0].images_from_vectors(np.concatenate(rows))
+    offsets = np.cumsum([0] + sizes)
+    for k in range(len(sizes)):
+        require(results[k].shape == (sizes[k], res, res, 3), f"12a client {k}: {results[k].shape}")
+        worst, share = share_within_one_step(results[k], direct[offsets[k]:offsets[k + 1]])
+        require(share >= 0.999, f"12a client {k}: its rows out of order or wrong "
+                f"(max {worst} steps, {share:.5f} within 1)")
+    print(f"12a: {requests} concurrent requests ({sum(sizes)} rows) in {forwards} batches; each "
+          "client's rows came back in order within 1 uint8 step of one direct render", flush=True)
+
+    before = ledger.reset(daemon)
+    png = client.synthesize_png(seeds=[7])
+    zipped = client.synthesize_compressed(seeds=seeds[:3], format="png-zip")
+    os.environ["GANCE_TPU_EGRESS"] = "raw-spill"
+    try:
+        avi = client.synthesize_compressed(seeds=seeds[:3], format="avi", fps=30.0)
+    finally:
+        del os.environ["GANCE_TPU_EGRESS"]
+    ledger.check("12a png, png-zip and avi", daemon, before)
+    require_close_frames("12a png vs images_from_vectors", decode_png(png)[None],
+                         nets[0].images_from_vectors(z_of_seeds([7], length)))
+    with zipfile.ZipFile(io.BytesIO(zipped)) as archive:
+        members = sorted(archive.namelist())
+        unzipped = np.stack([decode_png(archive.read(m)) for m in members])
+    require(members == [f"frame_{i:06d}.png" for i in range(3)], f"12a png-zip: {members}")
+    require_close_frames("12a png-zip vs images_from_vectors", unzipped, direct_seeds[:3])
+    avi_path = workdir / "served.avi"
+    avi_path.write_bytes(avi)
+    frames, compressed, _pcm = read_avi(avi_path)
+    require(len(frames) == 3 and not compressed, f"12a avi: {len(frames)} raw frames, "
+            f"{compressed} compressed")
+    require_close_frames("12a avi (raw) vs images_from_vectors", np.stack(frames),
+                         direct_seeds[:3])
+    print(f"12a egress: png {len(png)} bytes, png-zip of 3 {len(zipped)} bytes, raw avi of 3 "
+          f"{len(avi)} bytes; each decoded back; on {card}", flush=True)
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as response:
+        text = response.read().decode()
+    metrics = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            metrics[name] = float(value)
+    require(metrics.get("gance_serving_requests_total", 0) >= 14
+            and 'gance_serving_network_frames_total{network="1_net"}' in metrics
+            and metrics.get("gance_serving_draining") == 0.0,
+            f"12a /metrics: {sorted(metrics)}")
+    print(f"12a /metrics: {len(metrics)} samples parsed; on {card}", flush=True)
+
+
+def serve_audio_phase(config, nets, daemon, ledger: ServedLaunches, workdir: Path,
+                      card: str) -> None:
+    """12b: /synthesize_audio: the plan against the offline planning, the frames
+    against the offline render of the same plan, the flagship blend on latents
+    registered by POST, a plan-cache hit."""
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.serving import ServingClient
+    from gance_tpu_torch.serving.audio import plan_audio_request
+    from gance_tpu_torch.synthesis.inputs import (alpha_blend_projection_file,
+                                                  alpha_blend_vectors_max_rms_power_audio)
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork
+    from gance_tpu_torch.types import MatricesLabel
+
+    client = ServingClient(f"http://127.0.0.1:{daemon.port}")
+    wav = workdir / "song.wav"
+    wav_bytes = wav.read_bytes()
+    multi = MultiNetwork.from_networks(nets)
+    amplitude = (-10.0, 10.0)  # the daemon's default, the offline CLI's
+    preview = client.synthesize_audio(wav_bytes, fps=PIPELINE_FPS, alpha=PIPELINE_ALPHA,
+                                      plan=True)
+    audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR,
+                                      frames_per_second=PIPELINE_FPS).wav_data
+    offline = alpha_blend_vectors_max_rms_power_audio(PIPELINE_ALPHA, False, amplitude, audio,
+                                                      PIPELINE_VECTOR, [0, 1], device="cuda")
+    indices = np.asarray(offline.network_indices.result.data)
+    require(preview["indices"] == indices.tolist() and preview["names"] == ["0_net", "1_net"],
+            f"12b plan: {preview['frames']} indices != the offline planning's {len(indices)}")
+    payload = {"wav_base64": base64.b64encode(wav_bytes).decode(), "fps": PIPELINE_FPS,
+               "alpha": PIPELINE_ALPHA}
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        plan = plan_audio_request(payload, nets, [0, 1], daemon.frame_cap)
+        times.append(time.perf_counter() - start)
+    combined = offline.combined.data.reshape(-1, PIPELINE_VECTOR)[:len(plan.combined)]
+    worst = float(np.abs(plan.combined - combined).max())
+    require(worst <= 1e-4, f"12b plan: combined rows {worst:.3g} from the card's offline inputs")
+    print(f"12b plan: {len(indices)} frames, indices equal to the offline planning's "
+          f"({np.bincount(indices).tolist()}), rows within {worst:.3g} of its card inputs; "
+          f"planning the {PIPELINE_SECONDS:g} s clip on the CPU: {min(times):.3f} s min, "
+          f"{sorted(times)[1]:.3f} s median of 3; on {card}", flush=True)
+
+    before = ledger.reset(daemon)
+    start = time.perf_counter()
+    frames = client.synthesize_audio(wav_bytes, fps=PIPELINE_FPS, alpha=PIPELINE_ALPHA)
+    served_s = time.perf_counter() - start
+    ledger.check("12b noise-blend", daemon, before)
+    check_frames("12b noise-blend", frames, len(indices), config.resolution)
+    require_close_frames("12b noise-blend vs the offline render of its plan", frames,
+                         multi.synthesize_all(plan.combined, plan.indices))
+    hits = client.stats()["plan_cache"]["hits"]
+    before = ledger.reset(daemon)
+    start = time.perf_counter()
+    again = client.synthesize_audio(wav_bytes, fps=PIPELINE_FPS, alpha=PIPELINE_ALPHA)
+    hit_s = time.perf_counter() - start
+    ledger.check("12b noise-blend, plan cached", daemon, before)
+    require(client.stats()["plan_cache"]["hits"] == hits + 1, "12b: the repeat missed the cache")
+    require_close_frames("12b plan-cache hit vs the miss", again, frames)
+
+    source = projection_source(config, workdir, False)
+    latents = source._latents[:, 0]  # (60, R, 512), rows identical
+    reg = client.register_projection(final_latents=latents,
+                                     projection_fps=FLAGSHIP_PROJECTION_FPS, name="phase9")
+    require(reg["frames"] == FLAGSHIP_PROJECTION_FRAMES and reg["rows"] == config.num_style_rows,
+            f"12b register_projection: {reg}")
+    before = ledger.reset(daemon)
+    start = time.perf_counter()
+    blended = client.synthesize_audio(wav_bytes, fps=FLAGSHIP_FPS, alpha=PIPELINE_ALPHA,
+                                      projection="phase9", blend_depth=FLAGSHIP_BLEND_DEPTH)
+    flagship_s = time.perf_counter() - start
+    ledger.check("12b flagship blend", daemon, before)
+    count = int(FLAGSHIP_FPS / FLAGSHIP_PROJECTION_FPS) * FLAGSHIP_PROJECTION_FRAMES
+    check_frames("12b flagship blend", blended, count, config.resolution)
+    target = read_wavs_scale_for_video([wav], PIPELINE_VECTOR, target_num_vectors=count).wav_data
+    matrices = np.ascontiguousarray(latents.transpose(1, 0, 2).reshape(
+        config.num_style_rows, -1))
+    direct = alpha_blend_projection_file(
+        MatricesLabel(data=matrices, vector_length=PIPELINE_VECTOR, label="phase9"),
+        PIPELINE_ALPHA, False, amplitude, FLAGSHIP_BLEND_DEPTH, target, PIPELINE_VECTOR, [0, 1],
+        device="cpu")
+    rows = direct.combined.data.reshape(config.num_style_rows, -1, PIPELINE_VECTOR
+                                        ).transpose(1, 0, 2)
+    quantized = np.asarray(direct.network_indices.result.data)
+    n = min(len(rows), len(quantized))
+    require(n == count, f"12b flagship: {n} frames planned directly, {count} expected")
+    require_close_frames("12b flagship blend vs inputs.py's blend rendered directly", blended,
+                         multi.synthesize_all(np.ascontiguousarray(rows[:n]), quantized[:n]))
+    print(f"12b served {len(indices)} noise-blend frames of {config.resolution}px in "
+          f"{served_s:.3f} s (plan cached: {hit_s:.3f} s) and {count} flagship frames in "
+          f"{flagship_s:.3f} s, npy egress; on {card}", flush=True)
+
+
+def serve_rollout_phase(config, daemon, ledger: ServedLaunches, workdir: Path,
+                        card: str) -> None:
+    """12c: /admin/load and /admin/unload of a third network, with the device
+    memory it takes and gives back."""
+    import gc
+
+    from gance_tpu_torch.models.pickle_loader import save_generator_pickle
+    from gance_tpu_torch.serving import ServingClient
+
+    client = ServingClient(f"http://127.0.0.1:{daemon.port}")
+    path = workdir / "2_net.pkl"
+    params = smoke_params(SEED + 20, config)
+    save_generator_pickle(params, path)
+    param_bytes = sum(4 * int(np.prod(np.shape(a))) for a in _leaves(params))
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    loaded = client.load_network(str(path))
+    torch.cuda.synchronize()
+    with_third = torch.cuda.memory_allocated()
+    require(loaded["index"] == 2 and loaded["name"] == "2_net", f"12c /admin/load: {loaded}")
+    before = ledger.reset(daemon)
+    images = client.synthesize(seeds=[11, 12], network="2_net")
+    ledger.check("12c the hot-loaded network", daemon, before)
+    check_frames("12c the hot-loaded network", images, 2, config.resolution)
+    gone = client.unload_network("2_net")
+    require(gone == {"index": 2, "name": "2_net", "drained": True}, f"12c /admin/unload: {gone}")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    require(with_third - resident >= 0.9 * param_bytes and with_third - after >= 0.9 * param_bytes,
+            f"12c: memory_allocated {resident} -> {with_third} (load) -> {after} (unload), the "
+            f"network's parameters {param_bytes} bytes")
+    print(f"12c rollout: /admin/load took memory_allocated from {resident} to {with_third} "
+          f"bytes, /admin/unload back to {after} (parameters {param_bytes} bytes); on {card}",
+          flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _leaves(value)
+    else:
+        yield tree
+
+
+def serve_cli_drain_phase(workdir: Path, card: str) -> None:
+    """12c: the serve CLI's `run_server` in a child process over network 0:
+    SIGTERM while a 96-frame request is in flight; the request completes, a
+    new request gets 503, the child exits 0."""
+    from gance_tpu_torch.serving import ServingClient, ServingClientError
+
+    torch.cuda.empty_cache()  # the child needs the memory this process has cached
+    log = workdir / "serve_child.log"
+    code = ("import sys; from pathlib import Path; from gance_tpu_torch.cli.serve import "
+            "run_server; run_server([Path(sys.argv[1])], port=0, max_batch=48, warmup='max', "
+            "device='cuda')")
+    start = time.perf_counter()
+    with open(log, "wb") as output:
+        child = subprocess.Popen([sys.executable, "-c", code, str(workdir / "0_net.pkl")],
+                                 cwd=ROOT, stdout=output, stderr=subprocess.STDOUT)
+    try:
+        url = None
+        while url is None and time.perf_counter() - start < 240:
+            if child.poll() is not None:
+                fail(f"12c: the serve child exited {child.returncode} at start:\n"
+                     f"{log.read_text(errors='replace')[-3000:]}")
+            for line in log.read_text(errors="replace").splitlines():
+                if line.startswith("serving ") and " on http://" in line:
+                    url = line.split(" on ", 1)[1].split(" ", 1)[0]
+            time.sleep(0.05)
+        require(url is not None, "12c: the serve child never bound its port")
+        ready_s = time.perf_counter() - start
+        client = ServingClient(url)
+        require(client.synthesize(seeds=[1]).shape[0] == 1, "12c: the child's first answer")
+        result: Dict[str, object] = {}
+
+        def in_flight() -> None:
+            try:
+                result["images"] = client.synthesize(count=96, seed=3)
+            except Exception as error:  # pylint: disable=broad-except
+                result["error"] = error
+
+        thread = threading.Thread(target=in_flight)
+        thread.start()
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and "gance_serving_live_requests 1" not in \
+                _get_text(url + "/metrics"):
+            time.sleep(0.01)
+        child.send_signal(signal.SIGTERM)
+        while time.perf_counter() < deadline and not client.health()["draining"]:
+            time.sleep(0.01)
+        try:
+            client.synthesize(seeds=[2])
+            refused = None
+        except ServingClientError as error:
+            refused = error.status
+        thread.join(timeout=120)
+        code_ = child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    images = result.get("images")
+    require(images is not None and images.shape[0] == 96,
+            f"12c: the in-flight request did not complete: {result.get('error')}")
+    require(refused == 503, f"12c: a request during the drain got {refused}, not 503")
+    require(code_ == 0, f"12c: the serve child exited {code_}:\n"
+            f"{log.read_text(errors='replace')[-3000:]}")
+    print(f"12c serve CLI child: bound in {ready_s:.1f} s; SIGTERM with 96 frames in flight: "
+          f"they completed, a new request got 503, the child exited 0; on {card}", flush=True)
+
+
+def _get_text(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as response:
+        return response.read().decode()
+
+
+def serve_measure_phase(config, nets, ledger: ServedLaunches, card: str) -> None:
+    """12d: peak memory per warm bucket, then sustained serving under
+    SERVE_LOAD concurrent clients at 1024px: fp32, bf16, and bf16 with the
+    phase path on (E)."""
+    from gance_tpu_torch.cli.serve import warm_networks
+    from gance_tpu_torch.serving import SynthesisDaemon
+    from gance_tpu_torch.serving.batcher import warmup_batch_sizes
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    clients, frames, seconds = SERVE_LOAD
+    bf16 = SynthesisNetwork.from_staged((nets[0].params, config), nets[0].path,
+                                        compute_dtype=torch.bfloat16, device=nets[0].device)
+    set_phase("off")
+    for label, net in (("fp32", nets[0]), ("bf16", bf16)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        peaks = {}
+        for size in warmup_batch_sizes(SERVE_MAX_BATCH):
+            torch.cuda.reset_peak_memory_stats()
+            net.device_images_from_vectors(np.zeros((size, config.latent_size), np.float32))
+            torch.cuda.synchronize()
+            peaks[size] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        print(f"12d peak memory above the resident networks ({base / 2**30:.2f} GiB) per warm "
+              f"bucket, {label}: " + ", ".join(f"{s}: {g:.2f} GiB" for s, g in peaks.items())
+              + f"; on {card}", flush=True)
+    for label, net, phase in (("fp32", nets[0], False), ("bf16", bf16, False),
+                              ("bf16 phase path", bf16, True)):
+        set_phase("on" if phase else "off")
+        warm_networks([net], SERVE_MAX_BATCH, "max")
+        with SynthesisDaemon([net], port=0, max_batch=SERVE_MAX_BATCH) as daemon:
+            before = ledger.reset(daemon)
+            r = serving_load(f"http://127.0.0.1:{daemon.port}", clients, frames, seconds,
+                             SERVE_SETTLE_S)
+            daemon.drain(timeout_s=120)
+        ledger.check(f"12d {label}", daemon, before, phase=phase)
+        require(r["client_errors"] == 0 and r["requests"] > 0, f"12d {label}: {r}")
+        print(f"12d serving {config.resolution}px {label}, {clients} clients x {frames} frames: "
+              f"{describe_load(r)}; on {card}", flush=True)
+    set_phase("off")
+
+
+def serving_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 12, with phase 3's networks and phase 8's WAV in `workdir`;
+    returns the launches of its served requests."""
+    from gance_tpu_torch.cli.serve import NetworkLoader, warm_networks
+    from gance_tpu_torch.serving import SynthesisDaemon
+
+    torch.cuda.empty_cache()
+    set_phase("off")
+    ledger = ServedLaunches(config)
+    loader = NetworkLoader(device=torch.device("cuda"))
+    nets = [loader(str(workdir / f"{i}_net.pkl"), i) for i in range(2)]
+    # a 20 ms linger (the CLI's default is 5) so that 12a's 8 clients, started
+    # together, share batches whatever the host's scheduling
+    daemon = SynthesisDaemon(nets, port=0, max_batch=SERVE_MAX_BATCH, max_delay_ms=20,
+                             network_loader=loader)
+    with daemon:
+        before = ledger.reset(daemon)
+        start = time.perf_counter()
+        sizes = warm_networks(nets, SERVE_MAX_BATCH, "all")
+        torch.cuda.synchronize()
+        print(f"12a warmup: buckets {sizes} on both lanes of both networks in "
+              f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+        ledger.check("12a warmup", daemon, before, extra_forwards=2 * 2 * len(sizes))
+        serve_requests_phase(config, nets, daemon, ledger, workdir, card)
+        serve_audio_phase(config, nets, daemon, ledger, workdir, card)
+        serve_rollout_phase(config, daemon, ledger, workdir, card)
+    serve_cli_drain_phase(workdir, card)
+    serve_measure_phase(config, nets, ledger, card)
+    del nets
+    torch.cuda.empty_cache()
+    return ledger.totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -2700,9 +3277,10 @@ def main() -> None:
         flagship_totals = flagship_phase(config, Path(nets_dir), smi)
         projector_totals = projector_phase(config, Path(nets_dir), smi)
         resume_totals = resume_phase(config, Path(nets_dir), smi)
+        serving_totals = serving_phase(config, Path(nets_dir), smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
-                       resume_totals):
+                       resume_totals, serving_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

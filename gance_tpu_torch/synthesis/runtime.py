@@ -79,10 +79,11 @@ def _pad_batch(data: np.ndarray, batch_size: int) -> Tuple[np.ndarray, int]:
     return np.pad(data, pad), real
 
 
-def _bucket_size(real: int, batch_size: int) -> int:
-    """Smallest 2^k >= `real`, capped at `batch_size`: bounds pad waste on
-    partial batches at under 2x."""
-    size = 1
+def _bucket_size(real: int, batch_size: int, multiple: int = 1) -> int:
+    """Smallest `multiple`·2^k >= `real`, capped at `batch_size`: bounds pad
+    waste on partial batches at under 2x. The serving batcher buckets with
+    `multiple` 8; the stream keeps 1."""
+    size = multiple
     while size < real and size < batch_size:
         size *= 2
     return min(size, batch_size)
@@ -166,7 +167,11 @@ class SynthesisNetwork:
     def resolution(self) -> int:
         return self.config.resolution
 
-    def _input(self, batch: np.ndarray) -> torch.Tensor:
+    def _input(self, batch: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """The batch as float32 on the device. A tensor (the serving batcher's
+        input, already copied from pinned memory) is taken as it is."""
+        if torch.is_tensor(batch):
+            return batch.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
 
     @property

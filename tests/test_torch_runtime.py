@@ -244,6 +244,10 @@ def test_port_imports_neither_jax_nor_gance_tpu():
     assert {"gance_tpu_torch.projection.lpips", "gance_tpu_torch.projection.vgg_import",
             "gance_tpu_torch.projection.projector", "gance_tpu_torch.projection.file_writer",
             "gance_tpu_torch.cli.project_video_to_file"} <= set(modules)
+    # the serving slice: batcher, client, daemon, audio routes and the serve CLI
+    assert {"gance_tpu_torch.serving", "gance_tpu_torch.serving.batcher",
+            "gance_tpu_torch.serving.client", "gance_tpu_torch.serving.daemon",
+            "gance_tpu_torch.serving.audio", "gance_tpu_torch.cli.serve"} <= set(modules)
 
 
 def test_card_path_imports_no_host_only_package():
@@ -260,7 +264,9 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.projection.file_writer", "gance_tpu_torch.media.resume",
                "gance_tpu_torch.media.spill", "gance_tpu_torch.pipelines.synthesis_file",
                "gance_tpu_torch.pipelines.check_move_networks",
-               "gance_tpu_torch.overlay.selection", "chip_smoke"]
+               "gance_tpu_torch.overlay.selection", "gance_tpu_torch.serving",
+               "gance_tpu_torch.serving.batcher", "gance_tpu_torch.serving.client",
+               "gance_tpu_torch.serving.daemon", "gance_tpu_torch.serving.audio", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
