@@ -147,7 +147,7 @@ in order (any failure exits non-zero; no phase's failure is caught):
    regulariser's weight at 0, since at 1e5 its gradient hides the noise
    gradients that come through A and E) with respect to w, and to the 17
    planes taken together, norm-wise within 2e-2, each plane within 1e-1
-   (phase 7a's bounds and reason). (b) `project_batch` of 100 steps from
+   (phase 7a's bounds and reason). (b) `project_batch` of 50 steps from
    the dlatent average with seeded planes, targets the network's own frames
    from seeded rows-identical w: fp32 at batch 4, then bf16 at batch 8, on
    the standard path; the clean distance (`evaluate_distance`) must fall for
@@ -227,11 +227,32 @@ in order (any failure exits non-zero; no phase's failure is caught):
    (E): frames/s, requests/s, client latency p50 and p99, batches, mean
    batch and occupancy (`serving_load`, which tools/time_torch_serving.py
    also runs).
+13. drives the network metrics (gance_tpu_torch/metrics) and the rest of
+   training (remat, scanned segments) at config-f 1024px, the launches of
+   each part counted from 0 and checked. (a) PPL, w/full, 64 pairs at batch
+   8, epsilon 1e-4, fp32, with phase 3's network 0 and the random-VGG
+   metric, twice under the metrics' deterministic cuDNN algorithms (bit for
+   bit) and twice with cuDNN's defaults (whether they repeat, and the
+   cost); the first chunk's distances at batch 2 within 1e-2 relative of
+   the port's CPU path on the same draws; the Fréchet feature distance of
+   64 generated samples against 64 seeded smooth 1024px PNGs, twice, bit
+   for bit, 1472 feature dims; seconds and samples/s of each side. (b) One
+   fp32 step's gradients (D with R1, G with PL) at batch 4 from one state
+   without and with remat: losses within 1e-3, gradients within phase 7a's
+   bounds, ms and peak memory of each; a G step with PL on the phase path
+   under remat; the projector at batch 4, fp32, 10 steps with and without
+   remat, their peak memory side by side. (c) 4 bf16 steps at batch 4
+   as one `make_train_scan` segment and step by step, under deterministic
+   cuDNN: losses within phase 7c's bounds, ms per step of each. (d) The
+   train CLI in two child processes at 256px with config-f's widths (a
+   depth cut), 4 steps in segments of 2, with `--metrics-every 2
+   --metrics-samples 16` and without: 2 records with JAX's keys, finite
+   values; the two final checkpoints within phase 7c's bounds.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
-phase 10's; E's launches include the phase-path G step's; A, B, C and E's
-include phases 8-12's); the last line is {"ok": true, "device":
+phases 10 and 13's; E's launches include the phase-path G steps'; A, B, C
+and E's include phases 8-13's); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -252,6 +273,7 @@ import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
+from unittest import mock
 
 import numpy as np
 import torch
@@ -278,7 +300,7 @@ FLAGSHIP_PROJECTION_FPS = 15.0
 FLAGSHIP_FPS = 30.0  # a frame multiplier of 2
 FLAGSHIP_BLEND_DEPTH = 10
 FLAGSHIP_OVERLAY = (30, 50.0, 5)  # the README's phash, bbox and track-length gates
-PROJECTION_STEPS = 100  # 10b: num_steps, so the whole LR and jitter schedule runs
+PROJECTION_STEPS = 50  # 10b: num_steps, so the whole LR and jitter schedule runs
 PROJECTION_RUNS = (("float32", 4), ("bfloat16", 8))  # 10b: (compute dtype, batch)
 PROJECTION_PHASE_STEPS = 20  # 10c: bf16 at batch 8 on the phase path
 PROJECTION_WRITE_FRAMES = 8  # 10d: the writer loop's source frames
@@ -296,6 +318,16 @@ SPILL_SEGMENT_FRAMES = 2  # 11e: frames per segment of the segmented spill
 SERVE_MAX_BATCH = 48  # 12: the daemon's batch ceiling (buckets 8, 16, 32, 48)
 SERVE_LOAD = (6, 8, 10.0)  # 12d: concurrent clients, frames per request, timed seconds
 SERVE_SETTLE_S = 2.0  # 12d: traffic before the timed window
+METRICS_SAMPLES = 64  # 13a: PPL pairs and Fréchet samples per side
+METRICS_BATCH = 8
+METRICS_EPSILON = 1e-4  # NVlabs' PPL epsilon
+REMAT_PROJECTION_STEPS = 10  # 13b: projector steps with and without remat
+SCAN_STEPS = 4  # 13c: the steps of one make_train_scan segment
+CLI_RESOLUTION = 256  # 13d: the train CLI's depth cut (config-f widths)
+CLI_STEPS = 4
+# 13d: the metrics record's keys, gance_tpu/metrics/training_eval.py:67-74
+JAX_METRICS_KEYS = ["step", "ppl_w_full", "frechet_feature_distance", "num_samples",
+                    "feature_dim", "eval_seconds"]
 RATES: Dict[str, dict] = {}  # 8b-8d and 9d's results, printed beside phase 11's
 
 REPLACES = {
@@ -686,14 +718,27 @@ def launches_per_forward(label: str, forwards: int, config, phase: bool = False,
     return counts
 
 
-def projection_launches(config, steps: int, phase: bool) -> Dict[str, int]:
+def recompute_launches(config, phase: bool) -> Dict[str, int]:
+    """Kernel launches of one remat recompute of synthesis: the checkpointed
+    blocks run forward again (A twice, B and C once per block), the phase top
+    block's E; the 4x4 layer and the top block's skip upsample lie outside
+    every checkpoint."""
+    blocks = config.resolution_log2 - 2 - phase
+    return {"fused_bias_noise_lrelu": 2 * blocks, "upsample2x_blur": blocks,
+            "blur4_separable_pad11": blocks, "phase_conv1_torgb": int(phase),
+            "stencil_blur4_valid": 0}
+
+
+def projection_launches(config, steps: int, phase: bool, remat: bool = False) -> Dict[str, int]:
     """Kernel launches of a `project_batch` of `steps` steps: each step one
     synthesis forward with a float output and its backward to w and the noise
     planes, in which each C's input gradient launches one D (A's, B's and E's
-    backward passes are plain PyTorch); then one forward for the final render."""
+    backward passes are plain PyTorch), and with remat one recompute; then one
+    forward for the final render."""
     forward = forward_launches(config, phase, resize=True)
+    again = recompute_launches(config, phase)
     step = dict(forward, stencil_blur4_valid=forward["blur4_separable_pad11"])
-    return {k: steps * step[k] + forward[k] for k in forward}
+    return {k: steps * (step[k] + remat * again[k]) + forward[k] for k in forward}
 
 
 def share_within_one_step(a: np.ndarray, b: np.ndarray) -> Tuple[int, float]:
@@ -941,7 +986,7 @@ def gradient_phase() -> None:
               f"worst {worst:.3g} of scale (limit 1e-4)", flush=True)
 
 
-def train_launches(config, apply_r1: bool, apply_pl: bool) -> Dict[str, int]:
+def train_launches(config, apply_r1: bool, apply_pl: bool, remat: bool = False) -> Dict[str, int]:
     """Kernel launches of one train step, derived from the architecture. A G
     forward runs A 1 + 2 * blocks times and B and C once per block; a D
     forward runs D twice per block. Backward: A's and B's are plain PyTorch;
@@ -951,30 +996,42 @@ def train_launches(config, apply_r1: bool, apply_pl: bool) -> Dict[str, int]:
     differentiates that again (one D each). The G step runs G and D forward
     and back (one D per C and per D); path length adds a G forward on half
     the batch, its input gradient (one D per C) and the second order through
-    both (one D per C, twice)."""
+    both (one D per C, twice). With remat every gradient taken recomputes the
+    checkpointed blocks it passes through, once: in the D step, D's blocks for
+    R1's input gradient (reals) and for the parameter gradient (fakes and
+    reals); in the G step, synthesis for path length's input gradient and for
+    the parameter gradient (G's fakes and PL's batch), and D's blocks once."""
     blocks = config.resolution_log2 - 2
     a, bc, d_fwd = 1 + 2 * blocks, blocks, 2 * blocks
     forwards = 2 + apply_pl
     d_launches = 4 * d_fwd + 2 * d_fwd * apply_r1  # D step
     d_launches += 2 * d_fwd + bc + 3 * bc * apply_pl  # G step
-    return {"fused_bias_noise_lrelu": a * forwards, "upsample2x_blur": bc * forwards,
-            "blur4_separable_pad11": bc * forwards, "stencil_blur4_valid": d_launches,
+    again = remat * (1 + 2 * apply_pl)  # synthesis recomputes in the G step
+    d_launches += remat * ((2 + apply_r1) * d_fwd + d_fwd)
+    return {"fused_bias_noise_lrelu": a * forwards + again * 2 * blocks,
+            "upsample2x_blur": bc * (forwards + again),
+            "blur4_separable_pad11": bc * (forwards + again), "stencil_blur4_valid": d_launches,
             "phase_conv1_torgb": 0}
 
 
-def g_step_launches(config, apply_pl: bool, phase: bool) -> Dict[str, int]:
+def g_step_launches(config, apply_pl: bool, phase: bool, remat: bool = False) -> Dict[str, int]:
     """Kernel launches of one G step's gradients (`g_step_gradients`): G and,
     with path length, G on half the batch, forward; D forward and back; C's
     input gradients (one D each) and path length's second order (one D per
     C, twice). On the phase path the top block runs E and not C or its two
-    A epilogues; E's backward is plain PyTorch."""
+    A epilogues; E's backward is plain PyTorch. With remat, synthesis is
+    recomputed once without path length and three times with it
+    (`train_launches`), D's blocks once."""
     blocks = config.resolution_log2 - 2
     forwards = 1 + apply_pl
     c = blocks - phase
-    return {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
-            "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": c * forwards,
-            "stencil_blur4_valid": 4 * blocks + c + 3 * c * apply_pl,
-            "phase_conv1_torgb": int(phase) * forwards}
+    again = recompute_launches(config, phase)
+    recomputes = remat * (1 + 2 * apply_pl)
+    counts = {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
+              "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": c * forwards,
+              "stencil_blur4_valid": 4 * blocks + c + 3 * c * apply_pl + remat * 2 * blocks,
+              "phase_conv1_torgb": int(phase) * forwards}
+    return {k: v + recomputes * again[k] for k, v in counts.items()}
 
 
 def phase_g_step_phase(state, config, train_config, card: str) -> Dict[str, int]:
@@ -1041,6 +1098,32 @@ def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
         float(want.float().abs().max()), 1e-30)
 
 
+def require_gradients_close(label: str, versus: str, net: str, got: List[torch.Tensor],
+                            want: List[torch.Tensor], paths: List[str]) -> None:
+    """A network's gradients (leaves in `paths` order) norm-wise: the whole
+    network within 2e-2 and each leaf within 1e-1 of its norm; a leaf that
+    gets none must get exactly 0 (phase 7a's bounds and reason)."""
+    leaves, worst_leaf, worst_max = [], (0.0, ""), (0.0, "")
+    for path, g, r in zip(paths, got, want):
+        g, r = g.float().cpu(), r.float().cpu()
+        if float(r.norm()) == 0.0:  # noise buffers and dlatent_avg get none
+            require(float(g.abs().max()) == 0.0, f"{label} {net} {path}: not zero")
+            continue
+        err = float((g - r).norm() / r.norm())
+        require(err <= 1e-1, f"{label} {net} gradient {path}: {err:.3g} of its norm")
+        worst_leaf = max(worst_leaf, (err, path))
+        worst_max = max(worst_max, (max_rel(g, r), path))
+        leaves.append((g.reshape(-1), r.reshape(-1)))
+    whole_got = torch.cat([g for g, _ in leaves])
+    whole_want = torch.cat([r for _, r in leaves])
+    whole = float((whole_got - whole_want).norm() / whole_want.norm())
+    print(f"{label} {net} gradients, {versus}: whole net {whole:.3g} of its norm (limit 2e-2); "
+          f"worst leaf {worst_leaf[0]:.3g} of its norm, {worst_leaf[1]} (limit 1e-1); worst "
+          f"max-abs over the leaf's max {worst_max[0]:.3g}, {worst_max[1]} (information)",
+          flush=True)
+    require(whole <= 2e-2, f"{label} {net}: whole-net gradient {whole:.3g} of its norm")
+
+
 def train_parity_phase() -> None:
     """One step's losses and gradients, R1 and PL on, at 32px with config-f's
     widths (512 channels everywhere), on the card and on the CPU path."""
@@ -1070,24 +1153,8 @@ def train_parity_phase() -> None:
                 f"on the card vs {float(mp[name])} on the CPU")
     state = T.init_training_state(SEED, config, tc, device="cpu")
     for net, got, want, params in (("D", dc, dp, state.d_params), ("G", gc, gp, state.g_params)):
-        leaves, worst_leaf, worst_max = [], (0.0, ""), (0.0, "")
-        for (path, _), g, r in zip(T.tree_leaves(params), got, want):
-            if float(r.norm()) == 0.0:  # noise buffers and dlatent_avg get none
-                require(float(g.abs().max()) == 0.0, f"train parity {net} {path}: not zero")
-                continue
-            err = float((g - r).norm() / r.norm())
-            require(err <= 1e-1, f"train parity {net} gradient {path}: {err:.3g} of its norm")
-            worst_leaf = max(worst_leaf, (err, path))
-            worst_max = max(worst_max, (max_rel(g, r), path))
-            leaves.append((g.reshape(-1), r.reshape(-1)))
-        whole_got = torch.cat([g for g, _ in leaves])
-        whole_want = torch.cat([r for _, r in leaves])
-        whole = float((whole_got - whole_want).norm() / whole_want.norm())
-        print(f"train parity {net} gradients, card vs CPU: whole net {whole:.3g} of its norm "
-              f"(limit 2e-2); worst leaf {worst_leaf[0]:.3g} of its norm, {worst_leaf[1]} (limit "
-              f"1e-1); worst max-abs over the leaf's max {worst_max[0]:.3g}, {worst_max[1]} "
-              f"(information)", flush=True)
-        require(whole <= 2e-2, f"train parity {net}: whole-net gradient {whole:.3g} of its norm")
+        require_gradients_close("train parity", "card vs CPU", net, got, want,
+                                [p for p, _ in T.tree_leaves(params)])
     print(f"train parity (32px, 512 channels, batch {TRAIN_BATCH}, R1 and PL): losses "
           f"{ {k: round(float(v), 6) for k, v in mc.items()} } within 1e-3 of the CPU's", flush=True)
 
@@ -1957,7 +2024,7 @@ def projector_parity_phase(params, config) -> None:
 
 
 def projection_run(projector, config, label: str, targets: np.ndarray, steps: int, phase: bool,
-                   card: str) -> Tuple[dict, Dict[str, int]]:
+                   card: str, remat: bool = False) -> Tuple[dict, Dict[str, int]]:
     """One `project_batch` from the dlatent average with seeded planes, the
     counts set to 0 just before it and read just after: the launches against
     `projection_launches`, finite outputs, the clean distance (evaluate_distance)
@@ -1996,7 +2063,7 @@ def projection_run(projector, config, label: str, targets: np.ndarray, steps: in
     wall = time.perf_counter() - start
     counts = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = projection_launches(config, steps, phase)
+    want = projection_launches(config, steps, phase, remat)
     require(counts == want, f"projection {label}: launches {counts} != {want}")
     latents = np.stack([r.final_latents[0] for r in results])
     noises = [np.concatenate(n) for n in zip(*[r.noises for r in results])]
@@ -3229,6 +3296,401 @@ def serving_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return ledger.totals
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 13: network metrics, remat, scanned segments, the train CLI's metrics
+# ---------------------------------------------------------------------------
+
+
+def count_launches(totals: Dict[str, int], label: str, want: Dict[str, int]) -> None:
+    """Check the launches counted since the last reset against `want` and
+    add them to `totals`."""
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES
+
+    counts = dict(LAUNCHES)
+    require(counts == want, f"{label}: launches {counts} != {want}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def timed_stream(seconds: Dict[str, float]):
+    """A `feature_stream_hook` that adds each side's seconds (its chunks
+    drawn, synthesised or read, and featurised) to `seconds`."""
+
+    def hook(name: str, stream):
+        seconds.setdefault(name, 0.0)
+        while True:
+            start = time.perf_counter()
+            try:
+                features = next(stream)
+            except StopIteration:
+                return
+            seconds[name] += time.perf_counter() - start
+            yield features
+
+    return hook
+
+
+def metrics_phase(params, config, workdir: Path, card: str) -> Dict[str, int]:
+    """13a: PPL (w/full, METRICS_SAMPLES pairs at batch METRICS_BATCH, epsilon
+    1e-4, fp32) and the Fréchet feature distance (METRICS_SAMPLES generated
+    against a folder of METRICS_SAMPLES seeded smooth 1024px PNGs) with the
+    random-VGG metric, each twice: the two results equal bit for bit,
+    launches METRICS_SAMPLES / METRICS_BATCH forwards of `forward_launches`.
+    PPL runs once more twice with the metrics' `deterministic_cudnn` turned
+    off, to show whether cuDNN's default algorithms repeat and what the
+    deterministic ones cost. The first chunk's distances at batch 2 within
+    1e-2 relative of the port's CPU path on the same draws."""
+    from gance_tpu_torch.metrics import frechet as FR
+    from gance_tpu_torch.metrics import ppl as PPL
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.projection.lpips import random_vgg_params, vgg_params_to_device
+    from gance_tpu_torch.synthesis.runtime import params_to_device
+    from PIL import Image
+
+    set_phase("off")
+    totals: Dict[str, int] = {}
+    perceptual = random_vgg_params(seed=0)
+    forwards = METRICS_SAMPLES // METRICS_BATCH
+    want = {k: v * forwards for k, v in forward_launches(config).items()}
+    ppl_kwargs = dict(num_samples=METRICS_SAMPLES, batch_size=METRICS_BATCH,
+                      epsilon=METRICS_EPSILON, seed=SEED, device="cuda")
+    runs = {}
+    for label in ("deterministic", "deterministic again", "default", "default again"):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if label.startswith("default"):
+                # the metrics' own switch, replaced for this run only
+                stack.enter_context(mock.patch.object(PPL, "deterministic_cudnn",
+                                                      contextlib.nullcontext))
+            result = PPL.perceptual_path_length(params, config, perceptual, **ppl_kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        count_launches(totals, f"13a PPL {label}", want)
+        require(math.isfinite(result.ppl) and result.ppl > 0, f"13a PPL {label}: {result}")
+        runs[label] = result.ppl, seconds
+        print(f"13a PPL w/full {label} cuDNN, {METRICS_SAMPLES} pairs at batch {METRICS_BATCH}, "
+              f"{config.resolution}px fp32, epsilon {METRICS_EPSILON}: {result.ppl!r} "
+              f"({result.num_filtered} kept); {seconds:.3f} s, "
+              f"{METRICS_SAMPLES / seconds:.2f} pairs/s on {card}", flush=True)
+    require(runs["deterministic"][0] == runs["deterministic again"][0],
+            f"13a: PPL does not repeat: {runs}")
+    print(f"13a PPL repeats bit for bit under deterministic cuDNN; with cuDNN's default "
+          f"algorithms the two runs are {'equal' if runs['default'][0] == runs['default again'][0] else 'NOT equal'}"
+          f" ({runs['default'][0]!r} vs {runs['default again'][0]!r}); deterministic costs "
+          f"{runs['deterministic again'][1] / runs['default again'][1]:.3f}x the time", flush=True)
+
+    # the first chunk at batch 2, card against the port's CPU path
+    z, t = PPL.default_pair_draws(SEED, config.latent_size, "full")(0, 2)
+    distances = {}
+    for device in ("cuda", "cpu"):
+        start = time.perf_counter()
+        with torch.inference_mode(), deterministic_cudnn():
+            d = PPL.chunk_distances(
+                params_to_device(params, device), vgg_params_to_device(perceptual, device),
+                torch.from_numpy(z).to(device), torch.from_numpy(t).to(device), config, "w",
+                METRICS_EPSILON, False, None, torch.float32)
+        distances[device] = d.cpu().numpy().astype(np.float64)
+        print(f"13a PPL first chunk at batch 2 on {device}: {distances[device].tolist()} in "
+              f"{time.perf_counter() - start:.2f} s", flush=True)
+    reset_launch_counts()  # a comparison's launches do not count
+    err = float(np.max(np.abs(distances["cuda"] - distances["cpu"]) / np.abs(distances["cpu"])))
+    require(err <= 1e-2, f"13a: the card's first-chunk distances {err:.3g} from the CPU's")
+    print(f"13a PPL first chunk, card vs CPU: {err:.3g} relative (limit 1e-2)", flush=True)
+
+    # Fréchet: a folder of seeded smooth PNGs at the network's size
+    real = workdir / "metrics_real"
+    real.mkdir()
+    start = time.perf_counter()
+    frames = smooth_frames(METRICS_SAMPLES, config.resolution,
+                           torch.Generator(device="cuda").manual_seed(SEED + 40))
+    for i, frame in enumerate(frames):
+        Image.fromarray(frame).save(real / f"{i:03d}.png", compress_level=0)
+    print(f"13a wrote {METRICS_SAMPLES} {config.resolution}px PNGs in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    results = []
+    for label in ("first", "again"):
+        seconds: Dict[str, float] = {}
+        reset_launch_counts()
+        start = time.perf_counter()
+        result = FR.frechet_distance_network_vs_images(
+            params, config, perceptual, real, num_samples=METRICS_SAMPLES,
+            batch_size=METRICS_BATCH, seed=SEED, device="cuda",
+            feature_stream_hook=timed_stream(seconds))
+        wall = time.perf_counter() - start
+        count_launches(totals, f"13a Fréchet {label}", want)
+        require(result["feature_dim"] == 1472 and result["num_fake"] == METRICS_SAMPLES
+                and result["num_real"] == METRICS_SAMPLES and math.isfinite(result["distance"]),
+                f"13a Fréchet {label}: {result}")
+        results.append(result["distance"])
+        print(f"13a Fréchet feature distance {label}: {result['distance']!r} over "
+              f"{result['feature_dim']} dims; {wall:.3f} s: generated side "
+              f"{seconds['fake']:.3f} s ({METRICS_SAMPLES / seconds['fake']:.2f} samples/s), "
+              f"image side {seconds['real']:.3f} s ({METRICS_SAMPLES / seconds['real']:.2f} "
+              f"samples/s), the rest (moments, sqrtm) {wall - sum(seconds.values()):.3f} s on "
+              f"{card}", flush=True)
+    require(results[0] == results[1], f"13a: the Fréchet distance does not repeat: {results}")
+    shutil.rmtree(real)
+    return totals
+
+
+def remat_phase(config, card: str) -> Dict[str, int]:
+    """13b: one fp32 step's gradients (D with R1, G with PL) at batch
+    TRAIN_BATCH from one state, without remat and with it: losses within 1e-3
+    relative, gradients within phase 7a's bounds; peak memory and ms (CUDA
+    events) of each, launches as derived. Then one G step with PL on the
+    phase path under remat (losses against the standard path's), and the
+    projector at batch 4 for REMAT_PROJECTION_STEPS fp32 steps with and
+    without remat, their ms per step and peak memory side by side."""
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
+    from gance_tpu_torch.synthesis.runtime import params_to_device
+
+    set_phase("off")
+    torch.cuda.empty_cache()
+    totals: Dict[str, int] = {}
+    plain_tc, remat_tc = T.TrainingConfig(), T.TrainingConfig(remat=True)
+    state = T.init_training_state(SEED + 20, config, plain_tc, "cuda")
+    reals = torch.from_numpy(SeededImages(SEED + 20, TRAIN_BATCH, config.resolution).images).cuda()
+    draws = T.draw_step(SEED, 0, TRAIN_BATCH, config, plain_tc, "cuda")
+    out, times, peaks = {}, {"plain": [], "remat": []}, {"plain": [], "remat": []}
+    # in turns, plain, remat, remat, plain: the gradients of the first two
+    # are compared, the times and peaks of all four kept
+    for label in ("plain", "remat", "remat", "plain"):
+        tc = remat_tc if label == "remat" else plain_tc
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        d_grads, d_m = T.d_step_gradients(state.g_params, state.d_params, reals, draws, True,
+                                          config, tc)
+        d_grads = [g.cpu() for g in d_grads]
+        g_grads, g_m = T.g_step_gradients(state.g_params, state.d_params, draws, state.pl_mean,
+                                          True, config, tc)
+        end.record()
+        end.synchronize()
+        peaks[label].append(torch.cuda.max_memory_allocated() / 2**30)
+        times[label].append(start.elapsed_time(end))
+        count_launches(totals, f"13b {label}", train_launches(config, True, True, tc.remat))
+        losses = {k: float(v) for k, v in {**d_m, **g_m}.items()}
+        if label not in out:
+            out[label] = d_grads, [g.cpu() for g in g_grads], losses
+        del g_grads, d_grads
+        print(f"13b train step gradients {label}, fp32 batch {TRAIN_BATCH} {config.resolution}px, "
+              f"R1 and PL: {times[label][-1]:.3f} ms (CUDA events), peak {peaks[label][-1]:.2f} "
+              f"GiB, losses {losses} on {card}", flush=True)
+    (pd, pg, pm), (rd, rg, rm) = out["plain"], out["remat"]
+    for name, value in pm.items():
+        err = abs(rm[name] - value) / max(abs(value), 1e-30)
+        require(err <= 1e-3, f"13b {name}: remat {rm[name]} vs plain {value}")
+    require_gradients_close("13b remat", "remat vs plain", "D", rd, pd,
+                            [p for p, _ in T.tree_leaves(state.d_params)])
+    require_gradients_close("13b remat", "remat vs plain", "G", rg, pg,
+                            [p for p, _ in T.tree_leaves(state.g_params)])
+    p_ms, r_ms = np.mean(times["plain"]), np.mean(times["remat"])
+    p_peak, r_peak = max(peaks["plain"]), max(peaks["remat"])
+    print(f"13b remat: {r_ms:.3f} ms vs {p_ms:.3f} ms ({r_ms / p_ms:.3f}x; means of two runs "
+          f"each, in turns), peak {r_peak:.2f} vs {p_peak:.2f} GiB ({r_peak / p_peak:.3f}x) on "
+          f"{card}", flush=True)
+    del out, pd, pg, rd, rg
+
+    # one G step with PL on the phase path, under remat
+    set_phase("on")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    start = time.perf_counter()
+    grads, metrics = T.g_step_gradients(state.g_params, state.d_params, draws, state.pl_mean,
+                                        True, config, remat_tc)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    set_phase("off")
+    count_launches(totals, "13b phase path remat G step", g_step_launches(config, True, True, True))
+    values = {k: float(v) for k, v in metrics.items()}
+    norm = float(torch.sqrt(sum(g.float().square().sum() for g in grads)))
+    del grads
+    for name in ("g_loss", "pl", "pl_length"):
+        err = abs(values[name] - pm[name]) / max(abs(pm[name]), 1e-30)
+        require(err <= 1e-3 and math.isfinite(norm),
+                f"13b phase path remat G step {name}: {values[name]} vs standard {pm[name]}")
+    print(f"13b G step with PL, phase path, remat: {seconds:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {values} (within 1e-3 of "
+          f"the standard path's), gradient norm {norm:.6g} on {card}", flush=True)
+    del state, reals, draws
+    torch.cuda.empty_cache()
+
+    # the projector at batch 4, fp32, with and without remat
+    params = smoke_params(SEED, config)
+    targets, _ = own_frames(params_to_device(params, torch.device("cuda")), config, 4, SEED + 15)
+    runs = {}
+    for remat in (True, False):
+        projector = Projector(params, config, settings=ProjectorSettings(remat=remat),
+                              device="cuda")
+        runs[remat], counts = projection_run(projector, config, f"13b remat={remat} float32",
+                                             targets, REMAT_PROJECTION_STEPS, False, card,
+                                             remat=remat)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del projector
+        torch.cuda.empty_cache()
+    print(f"13b projector, fp32 batch 4: remat {runs[True]['ms']:.3f} ms per step, peak "
+          f"{runs[True]['peak']:.2f} GiB; without {runs[False]['ms']:.3f} ms, peak "
+          f"{runs[False]['peak']:.2f} GiB on {card}", flush=True)
+    return totals
+
+
+def scan_phase(config, card: str) -> Dict[str, int]:
+    """13c: SCAN_STEPS bf16 steps at batch TRAIN_BATCH from one seeded state,
+    step by step untimed (a warm-up), then as one `make_train_scan` segment
+    and step by step again, all under cuDNN's
+    deterministic algorithms (two runs of default algorithms differ by
+    their weight gradients' summation order, which Adam amplifies): each
+    step's losses within phase 7c's bounds, launches as derived; ms per step
+    of each by the host clock around work that ends in a synchronize."""
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+
+    set_phase("off")
+    torch.cuda.empty_cache()
+    totals: Dict[str, int] = {}
+    bf16 = T.TrainingConfig(compute_dtype="bfloat16")
+    data = SeededImages(SEED + 30, 8, config.resolution)
+    block = np.stack([b for _, b in data.batches(0, SCAN_STEPS, TRAIN_BATCH)])
+    want: Dict[str, int] = {}
+    for step in range(SCAN_STEPS):
+        for k, v in train_launches(config, step % bf16.r1_interval == 0,
+                                   step % bf16.pl_interval == 0).items():
+            want[k] = want.get(k, 0) + v
+    results = {}
+    # a first, untimed run step by step warms cuDNN's deterministic algorithms
+    for label in ("warm-up", "scanned", "step by step"):
+        state = T.init_training_state(SEED + 30, config, bf16, "cuda")
+        draws = [T.draw_step(SEED, s, TRAIN_BATCH, config, bf16, "cuda") for s in range(SCAN_STEPS)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        start = time.perf_counter()
+        with deterministic_cudnn():
+            if label == "scanned":
+                state, stacked = T.make_train_scan(config, bf16)(state, block, draws)
+            else:
+                step_fn = T.make_train_step(config, bf16)
+                per_step = []
+                for s in range(SCAN_STEPS):
+                    state, m = step_fn(state, torch.from_numpy(block[s]).cuda(), draws[s])
+                    per_step.append(m)
+                stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3 / SCAN_STEPS
+        count_launches(totals, f"13c {label}", want)
+        losses = {k: v.cpu().numpy().astype(np.float64) for k, v in stacked.items()}
+        require(all(np.isfinite(v).all() for v in losses.values()), f"13c {label}: {losses}")
+        results[label] = losses, {p: v.detach().clone() for p, v in T.tree_leaves(state.g_params)}
+        print(f"13c {SCAN_STEPS} bf16 steps {label}, batch {TRAIN_BATCH} {config.resolution}px: "
+              f"{ms:.3f} ms per step (host clock, deterministic cuDNN); d_loss "
+              f"{losses['d_loss'].tolist()} on {card}", flush=True)
+        del state, draws, stacked
+        torch.cuda.empty_cache()
+    (scanned, g_scan), (single, g_single) = results["scanned"], results["step by step"]
+    for name, limit in (("d_loss", 1e-5), ("r1", 1e-5), ("g_loss", 1e-3), ("pl", 1e-3)):
+        for other in ("step by step", "warm-up"):
+            want_losses = results[other][0][name]
+            err = np.abs(scanned[name] - want_losses) / np.maximum(np.abs(want_losses), 1e-30)
+            require(bool(np.all(err <= limit)),
+                    f"13c {name}: scanned {scanned[name]} vs {other} {want_losses}")
+    worst = max(float((g_scan[p] - g_single[p]).abs().max()) for p in g_scan)
+    print(f"13c scanned losses within phase 7c's bounds of the single steps'; G params max abs "
+          f"difference after {SCAN_STEPS} steps {worst:.3g}", flush=True)
+    return totals
+
+
+def train_cli_phase(workdir: Path, card: str) -> None:
+    """13d: `python -m gance_tpu_torch.cli.train` in two child processes at
+    CLI_RESOLUTION with config-f's widths (a depth cut: 13a holds the metrics
+    at full width), CLI_STEPS steps at batch TRAIN_BATCH, checkpoints every 2,
+    `--scan-segment 2`, cuDNN's deterministic algorithms set before the CLI
+    runs: one with `--metrics-every 2 --metrics-samples 16`, one without. The
+    sidecar holds 2 records with JAX's keys, every value finite; the two
+    final checkpoints agree within phase 7c's bounds."""
+    from gance_tpu_torch.parallel import training as T
+    from PIL import Image
+
+    data = workdir / "cli_images"
+    data.mkdir()
+    frames = smooth_frames(8, CLI_RESOLUTION, torch.Generator(device="cuda").manual_seed(SEED + 50))
+    for i, frame in enumerate(frames):
+        Image.fromarray(frame).save(data / f"{i}.png")
+    prelude = ("import runpy, torch; torch.backends.cudnn.deterministic = True; "
+               "runpy.run_module('gance_tpu_torch.cli.train', run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    children = {}
+    start = time.perf_counter()
+    for label, extra in (("metrics", ["--metrics-every", "2", "--metrics-samples", "16"]),
+                         ("plain", [])):
+        args = ["--dataset-directory", str(data), "--resolution", str(CLI_RESOLUTION),
+                "--batch-size", str(TRAIN_BATCH), "--total-steps", str(CLI_STEPS),
+                "--checkpoint-path", str(workdir / f"{label}.ckpt"), "--checkpoint-every", "2",
+                "--scan-segment", "2", "--output-network", str(workdir / f"{label}.pkl"),
+                "--seed", str(SEED), "--device", "cuda"] + extra
+        log = open(workdir / f"{label}.log", "w")  # pylint: disable=consider-using-with
+        children[label] = subprocess.Popen([sys.executable, "-c", prelude] + args, cwd=ROOT,
+                                           env=env, stdout=log, stderr=subprocess.STDOUT), log
+    try:
+        codes = {label: child.wait(timeout=600) for label, (child, _) in children.items()}
+    finally:
+        for child, log in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            log.close()
+    wall = time.perf_counter() - start
+    for label, code in codes.items():
+        require(code == 0, f"13d: the train CLI ({label}) exited {code}:\n"
+                f"{(workdir / f'{label}.log').read_text(errors='replace')[-3000:]}")
+    sidecar = workdir / "metrics.ckpt.metrics.jsonl"
+    records = [json.loads(line) for line in sidecar.read_text().splitlines()]
+    require([r.get("step") for r in records] == [2, 4], f"13d: records {records}")
+    for record in records:
+        require(list(record) == JAX_METRICS_KEYS, f"13d: keys {list(record)}")
+        require(all(math.isfinite(record[k]) for k in JAX_METRICS_KEYS), f"13d: {record}")
+    a = T.load_checkpoint(workdir / "metrics.ckpt", T.TrainingConfig(), "cpu")
+    b = T.load_checkpoint(workdir / "plain.ckpt", T.TrainingConfig(), "cpu")
+    require(a.step == b.step == CLI_STEPS, f"13d: steps {a.step}, {b.step}")
+    lr = T.TrainingConfig().learning_rate
+    worst_max, worst_mean = 0.0, 0.0
+    for which in ("g_params", "d_params", "ema_params"):
+        for (_, x), (_, y) in zip(T.tree_leaves(getattr(a, which)), T.tree_leaves(getattr(b, which))):
+            diff = (x.detach() - y.detach()).abs()
+            worst_max, worst_mean = max(worst_max, float(diff.max())), max(worst_mean, float(diff.mean()))
+    require(worst_max <= 2.5 * lr and worst_mean <= 0.05 * lr,
+            f"13d: checkpoints differ: max {worst_max:.3g}, worst leaf mean {worst_mean:.3g}")
+    print(f"13d train CLI, {CLI_RESOLUTION}px config-f widths, {CLI_STEPS} steps in segments of "
+          f"2, two children at once in {wall:.1f} s: records {records}; final checkpoint with "
+          f"metrics vs without: max abs {worst_max:.3g} (limit {2.5 * lr}), worst leaf mean "
+          f"{worst_mean:.3g} (limit {0.05 * lr}) on {card}", flush=True)
+
+
+def metrics_training_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 13; returns the launches of 13a-13c's main-path runs."""
+    totals: Dict[str, int] = {}
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    for counts in (metrics_phase(smoke_params(SEED, config), config, workdir, card),
+                   remat_phase(config, card), scan_phase(config, card)):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    train_cli_phase(workdir, card)
+    print(f"phase 13 took {time.perf_counter() - start:.1f} s; its launches (13a-13c) {totals}",
+          flush=True)
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -3278,9 +3740,10 @@ def main() -> None:
         projector_totals = projector_phase(config, Path(nets_dir), smi)
         resume_totals = resume_phase(config, Path(nets_dir), smi)
         serving_totals = serving_phase(config, Path(nets_dir), smi)
+        metrics_totals = metrics_training_phase(config, Path(nets_dir), smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
-                       resume_totals, serving_totals):
+                       resume_totals, serving_totals, metrics_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

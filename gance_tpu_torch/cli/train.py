@@ -6,18 +6,19 @@ default, `--device cpu` to run on the CPU): the loop is
 `parallel/training.py::run_training` over `parallel/data.py`'s streaming
 dataset. It checkpoints every N steps, resumes from the checkpoint
 automatically, and exports the EMA generator as an NVlabs-format .pkl that
-both packages load.
+both packages load. `--metrics-every N` evaluates the EMA generator's PPL and
+Fréchet feature distance at checkpoint boundaries into a JSONL sidecar.
 
     python -m gance_tpu_torch.cli.train --dataset-directory images \
         --resolution 64 --checkpoint-path ckpt.pkl --output-network net.pkl
 
 Not ported yet, so absent here: --data-parallel and --dist-* (ROADMAP.md
-Queue 1 item 12), --remat and --scan-segment (item 11), --metrics-* (item 10).
+Queue 1 item 12).
 """
 
 import json
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import click
 
@@ -49,6 +50,38 @@ import click
     "--compute-dtype", type=click.Choice(["float32", "bfloat16"]), default="float32",
     help="bfloat16: bf16 forward and backward, fp32 master weights, Adam, EMA and losses.",
 )
+@click.option(
+    "--remat/--no-remat", default=False,
+    help="Recompute G and D blocks in the backward pass (torch.utils.checkpoint): "
+    "less device memory for more forward work.",
+)
+@click.option(
+    "--scan-segment", type=click.IntRange(min=1), default=1,
+    help="Run this many train steps per segment, with no host sync inside a "
+    "segment (one copy of its batches to the device; metrics read once). "
+    "Segments end at each checkpoint; best when it divides --checkpoint-every.",
+)
+@click.option(
+    "--metrics-every", type=click.IntRange(min=1), default=None,
+    help="Evaluate the EMA generator every N steps (PPL + Fréchet feature "
+    "distance vs the training images) and append one JSON line per eval to "
+    "--metrics-path. Evaluations run at checkpoint boundaries, so N is "
+    "effectively rounded up to a multiple of --checkpoint-every.",
+)
+@click.option(
+    "--metrics-samples", type=click.IntRange(min=2), default=64,
+    help="Sample count per metric per evaluation (training-curve cheapness "
+    "over publication precision).",
+)
+@click.option(
+    "--metrics-path", type=click.Path(dir_okay=False), default=None,
+    help="Metrics JSONL sidecar; default: <checkpoint-path>.metrics.jsonl.",
+)
+@click.option(
+    "--metrics-vgg-weights", type=click.Path(exists=True, dir_okay=False), default=None,
+    help="Perceptual weights for the metrics (NVlabs vgg16_zhang_perceptual.pkl "
+    "or imported .npz); default: the deterministic random-VGG metric.",
+)
 @click.option("--seed", type=int, default=0)
 @click.option("--device", type=str, default="cuda", show_default=True,
               help="Torch device to train on ('cuda' or 'cpu').")
@@ -72,6 +105,12 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     checkpoint_every: int,
     output_network: str,
     compute_dtype: str,
+    remat: bool,
+    scan_segment: int,
+    metrics_every: Optional[int],
+    metrics_samples: int,
+    metrics_path: Optional[str],
+    metrics_vgg_weights: Optional[str],
     seed: int,
     device: str,
     run_config: Optional[str],
@@ -98,14 +137,48 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     )
     train_config = TrainingConfig(
         learning_rate=learning_rate, r1_gamma=r1_gamma, pl_weight=pl_weight,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=remat,
     )
     # the batch of step s is a function of (seed + 1, s), as in gance_tpu's CLI
     dataset = StreamingImageDataset(Path(dataset_directory), resolution, seed=seed + 1)
+    ckpt = Path(checkpoint_path)
+    metrics_file = Path(metrics_path) if metrics_path else ckpt.with_name(
+        ckpt.name + ".metrics.jsonl")
+    last_eval: Optional[int] = None  # the step of the last evaluation
+    perceptual = None
+
+    def note_start(step: int) -> None:
+        nonlocal last_eval
+        if last_eval is None:
+            last_eval = step  # the run's first step: no evaluation before it
+
+    def maybe_eval_metrics(step: int, state: Any) -> None:
+        """An EMA-quality eval at a checkpoint boundary, every --metrics-every steps."""
+        nonlocal last_eval, perceptual
+        if step - last_eval < metrics_every:
+            return
+        last_eval = step
+        from gance_tpu_torch.metrics.training_eval import (
+            append_metrics_record,
+            evaluate_training_metrics,
+        )
+        from gance_tpu_torch.projection.lpips import load_vgg_params, random_vgg_params
+
+        if perceptual is None:
+            perceptual = (load_vgg_params(Path(metrics_vgg_weights)) if metrics_vgg_weights
+                          else random_vgg_params(seed=0))
+        record = evaluate_training_metrics(
+            state.ema_params, model_config, perceptual, Path(dataset_directory), step=step,
+            num_samples=metrics_samples, seed=seed,
+        )
+        append_metrics_record(metrics_file, record)
+
     run_training(
-        dataset, model_config, train_config, Path(checkpoint_path), total_steps, batch_size,
+        dataset, model_config, train_config, ckpt, total_steps, batch_size,
         checkpoint_every=checkpoint_every, output_network=Path(output_network), seed=seed,
-        device=device,
+        device=device, scan_segment=scan_segment,
+        before_step=note_start if metrics_every is not None else None,
+        metrics_hook=maybe_eval_metrics if metrics_every is not None else None,
     )
 
 

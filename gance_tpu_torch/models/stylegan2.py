@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gance_tpu_torch.ops import phase_block
 from gance_tpu_torch.ops.bias_act import bias_act
@@ -335,6 +336,7 @@ def synthesis_apply(
     phase_top_block_mode: Optional[bool] = None,
     uint8_output: bool = False,
     noise_planes: Optional[Sequence[torch.Tensor]] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
     """
     G_synthesis (skip architecture): w+ (B, num_style_rows, 512) -> image
@@ -354,6 +356,11 @@ def synthesis_apply(
     :param uint8_output: on the phase path the skip add, bias and quantisation
         run per phase (`phase_top_block_uint8`, bit for bit
         `images_to_uint8` of the float output); elsewhere `images_to_uint8`.
+    :param remat: under autograd, recompute each block (and the phase top
+        block) in the backward pass instead of keeping its activations: one
+        non-reentrant `torch.utils.checkpoint` per block. A block's noise is
+        drawn before its checkpoint, so the recompute sees the same planes.
+        With remat the uint8 output keeps the float path, as in JAX.
     """
     if noise_mode not in ("const", "random", "none"):
         raise ValueError(f"bad noise_mode {noise_mode!r}")
@@ -388,34 +395,49 @@ def synthesis_apply(
     top = config.resolution_log2
     use_phase = resolve_phase_top_block(config, phase_top_block_mode)
 
+    checkpointed = remat and torch.is_grad_enabled()
+
+    def block_fn(x: torch.Tensor, y: torch.Tensor, block: Params, dl_rows: Tuple[torch.Tensor, ...],
+                 noise_up: Optional[torch.Tensor],
+                 noise_c1: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = _synthesis_layer(x, block["Conv0_up"], dl_rows[0], noise_up, True, config,
+                             compute_dtype)
+        x = _synthesis_layer(x, block["Conv1"], dl_rows[1], noise_c1, False, config,
+                             compute_dtype)
+        y = upsample_2d_nchw(y, kernel=config.resample_kernel)
+        return x, _torgb(x, block["ToRGB"], dl_rows[2], y, config, compute_dtype)
+
+    def phase_fn(x: torch.Tensor, block: Params, dl_rows: Tuple[torch.Tensor, ...],
+                 noise_up: Optional[torch.Tensor], noise_c1: Optional[torch.Tensor],
+                 y: torch.Tensor) -> torch.Tensor:
+        return phase_block.phase_top_block(x, block, dl_rows, noise_up, noise_c1, y,
+                                           config.resample_kernel, compute_dtype)
+
     for res in range(3, top + 1):
         block = synthesis[f"{2**res}x{2**res}"]
         size = 2**res
         dl_rows = (dlatents[:, res * 2 - 5], dlatents[:, res * 2 - 4], dlatents[:, res * 2 - 3])
+        # both layers' noise, in draw order, outside any checkpoint
+        noise_up = layer_noise(res * 2 - 5, size)
+        noise_c1 = layer_noise(res * 2 - 4, size)
         if res == top and use_phase:
-            # the same draws, in the same order, as the standard path
-            noise_up = layer_noise(res * 2 - 5, size)
-            noise_c1 = layer_noise(res * 2 - 4, size)
-            if uint8_output:
+            if uint8_output and not remat:
                 return phase_block.phase_top_block_uint8(
                     x, block, dl_rows, noise_up, noise_c1, y, config.resample_kernel,
                     compute_dtype,
                 )
             y = upsample_2d_nchw(y, kernel=config.resample_kernel)
-            y = phase_block.phase_top_block(
-                x, block, dl_rows, noise_up, noise_c1, y, config.resample_kernel, compute_dtype
-            )
+            if checkpointed:
+                y = checkpoint(phase_fn, x, block, dl_rows, noise_up, noise_c1, y,
+                               use_reentrant=False)
+            else:
+                y = phase_fn(x, block, dl_rows, noise_up, noise_c1, y)
             break
-        x = _synthesis_layer(
-            x, block["Conv0_up"], dl_rows[0], layer_noise(res * 2 - 5, size),
-            True, config, compute_dtype,
-        )
-        x = _synthesis_layer(
-            x, block["Conv1"], dl_rows[1], layer_noise(res * 2 - 4, size),
-            False, config, compute_dtype,
-        )
-        y = upsample_2d_nchw(y, kernel=config.resample_kernel)
-        y = _torgb(x, block["ToRGB"], dl_rows[2], y, config, compute_dtype)
+        if checkpointed:
+            x, y = checkpoint(block_fn, x, y, block, dl_rows, noise_up, noise_c1,
+                              use_reentrant=False)
+        else:
+            x, y = block_fn(x, y, block, dl_rows, noise_up, noise_c1)
 
     image = y.permute(0, 2, 3, 1).float()
     return images_to_uint8(image) if uint8_output else image
@@ -548,11 +570,16 @@ def discriminator_apply(
     images: torch.Tensor,
     config: GeneratorConfig,
     compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
 ) -> torch.Tensor:
     """
     D_stylegan2 (resnet): images (B, R, R, 3) NHWC, as synthesis returns them
     -> fp32 logits (B, 1). Runs NCHW inside; each block's Conv1_down and Skip
     blur through kernel D.
+
+    :param remat: under autograd, recompute each resnet block in the backward
+        pass instead of keeping its activations (one non-reentrant
+        `torch.utils.checkpoint` per block).
     """
     apply_conv_precision()
     top = config.resolution_log2
@@ -562,8 +589,8 @@ def discriminator_apply(
     frgb = params[f"{2**top}x{2**top}"]["FromRGB"]
     x = bias_act(conv2d_layer(x, frgb["weight"]), frgb["bias"], act="lrelu")
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
-    for res in range(top, 2, -1):
-        block = params[f"{2**res}x{2**res}"]
+
+    def d_block(x: torch.Tensor, block: Params) -> torch.Tensor:
         t = x
         x = bias_act(conv2d_layer(x, block["Conv0"]["weight"]), block["Conv0"]["bias"],
                      act="lrelu")
@@ -572,7 +599,12 @@ def discriminator_apply(
         x = bias_act(x, block["Conv1_down"]["bias"], act="lrelu")
         t = conv2d_layer(t, block["Skip"]["weight"], down=True,
                          resample_kernel=config.resample_kernel)
-        x = (x + t) * inv_sqrt2
+        return (x + t) * inv_sqrt2
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for res in range(top, 2, -1):
+        block = params[f"{2**res}x{2**res}"]
+        x = checkpoint(d_block, x, block, use_reentrant=False) if checkpointed else d_block(x, block)
     block = params["4x4"]
     x = minibatch_stddev(x, config.mbstd_group_size, config.mbstd_num_features)
     x = bias_act(conv2d_layer(x, block["Conv"]["weight"]), block["Conv"]["bias"], act="lrelu")

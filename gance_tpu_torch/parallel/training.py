@@ -26,14 +26,20 @@ Differences from JAX, each forced by PyTorch:
   * Leaves that get no gradient (the noise buffers, `dlatent_avg`) get a zero
     one, so every leaf's Adam step count stays optax's single `count` and
     their update is exactly 0, as in optax.
-  * `remat`, `make_train_scan` and a mesh are not ported yet (ROADMAP.md
-    Queue 1 items 11 and 12) and raise NotImplementedError.
+  * `make_train_scan` runs a block of steps eagerly, one after another, with
+    no host sync between them (one copy of the block to the device, the
+    metrics stacked on the device); it is not one compiled program as JAX's
+    `lax.scan` is.
+  * `remat` wraps each synthesis block and each resnet block of D in a
+    non-reentrant `torch.utils.checkpoint` (JAX's `jax.checkpoint`).
+  * A mesh is not ported yet (ROADMAP.md Queue 1 item 12) and raises
+    NotImplementedError.
 """
 
 import pickle
 from dataclasses import dataclass, fields, replace
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -314,10 +320,11 @@ def mixed_dlatents(
 
 def _generate(g_params: Params, z1: torch.Tensor, z2: torch.Tensor, take_second: torch.Tensor,
               noise: List[torch.Tensor], model_config: GeneratorConfig,
-              compute_dtype: torch.dtype) -> torch.Tensor:
+              train_config: TrainingConfig) -> torch.Tensor:
     dlatents = mixed_dlatents(g_params, z1, z2, take_second, model_config)
     return synthesis_apply(g_params, dlatents, model_config, noise_mode="random",
-                           noise_planes=noise, compute_dtype=compute_dtype)
+                           noise_planes=noise, compute_dtype=compute_dtype_of(train_config),
+                           remat=train_config.remat)
 
 
 def _grads(loss: torch.Tensor, params: Params) -> List[torch.Tensor]:
@@ -336,10 +343,11 @@ def d_step_gradients(
     dtype = compute_dtype_of(train_config)
     with torch.no_grad():
         fakes = _generate(g_params, draws.z1, draws.z2, draws.d_mix, draws.d_noise,
-                          model_config, dtype)
-    fake_logits = discriminator_apply(d_params, fakes, model_config, dtype)
+                          model_config, train_config)
+    remat = train_config.remat
+    fake_logits = discriminator_apply(d_params, fakes, model_config, dtype, remat)
     reals = reals.float().detach().requires_grad_(apply_r1)
-    real_logits = discriminator_apply(d_params, reals, model_config, dtype)
+    real_logits = discriminator_apply(d_params, reals, model_config, dtype, remat)
     loss = F.softplus(fake_logits).mean() + F.softplus(-real_logits).mean()
     r1 = torch.zeros((), device=loss.device)
     if apply_r1:
@@ -357,8 +365,9 @@ def g_step_gradients(
     """The G step's gradients (w.r.t. G's leaves only) and its metrics."""
     dtype = compute_dtype_of(train_config)
     fakes = _generate(g_params, draws.z1g, draws.z2g, draws.g_mix, draws.g_noise,
-                      model_config, dtype)
-    loss = F.softplus(-discriminator_apply(d_params, fakes, model_config, dtype)).mean()
+                      model_config, train_config)
+    loss = F.softplus(-discriminator_apply(d_params, fakes, model_config, dtype,
+                                           train_config.remat)).mean()
     pl_penalty = pl_length = torch.zeros((), device=loss.device)
     if apply_pl:
         # NVlabs pathreg: |d sum(images * probe) / d w+| per sample, averaged
@@ -369,7 +378,8 @@ def g_step_gradients(
         dlatents = mixed_dlatents(g_params, draws.z1g[:pl_batch], draws.z2g[:pl_batch],
                                   draws.pl_mix, model_config)
         images = synthesis_apply(g_params, dlatents, model_config, noise_mode="random",
-                                 noise_planes=draws.pl_noise, compute_dtype=dtype).float()
+                                 noise_planes=draws.pl_noise, compute_dtype=dtype,
+                                 remat=train_config.remat).float()
         (pl_grads,) = torch.autograd.grad((images * draws.pl_probe).sum(), dlatents,
                                           create_graph=True)
         lengths = torch.sqrt(pl_grads.square().sum(dim=2).mean(dim=1))
@@ -400,8 +410,6 @@ def make_train_step(
     """
     if mesh is not None:
         raise NotImplementedError("training over a mesh " + _NOT_PORTED.format(12))
-    if train_config.remat:
-        raise NotImplementedError("remat " + _NOT_PORTED.format(11))
     compute_dtype_of(train_config)
 
     def train_step(state: TrainingState, reals: torch.Tensor,
@@ -441,10 +449,37 @@ def make_train_step(
     return train_step
 
 
-def make_train_scan(*args: Any, **kwargs: Any) -> None:
-    """Not ported: PyTorch runs eagerly, so a scanned block of steps has no
-    counterpart yet (a CUDA graph would be one)."""
-    raise NotImplementedError("make_train_scan " + _NOT_PORTED.format(11))
+def make_train_scan(
+    model_config: GeneratorConfig,
+    train_config: TrainingConfig = TrainingConfig(),
+    mesh: Optional[Any] = None,
+) -> Callable[[TrainingState, Any, Sequence[StepDraws]], Tuple[TrainingState, Metrics]]:
+    """
+    A block of S train steps with no host sync between them, the counterpart
+    of JAX's `make_train_scan`: (state, real images (S, B, R, R, 3) float in
+    [-1, 1], anywhere, the S steps' draws on the state's device) -> (the same
+    state, updated in place, and the metrics of `make_train_step` stacked on
+    the device as (S,) tensors). The block goes to the device in one copy and
+    nothing is read back; the steps are those of `make_train_step`, so S
+    scanned steps equal S single steps.
+    """
+    train_step = make_train_step(model_config, train_config, mesh)
+
+    def train_segment(state: TrainingState, reals_block: Any,
+                      draws: Sequence[StepDraws]) -> Tuple[TrainingState, Metrics]:
+        if len(draws) != len(reals_block):
+            raise ValueError(f"{len(reals_block)} batches of reals but {len(draws)} draws")
+        device = state.pl_mean.device
+        if not isinstance(reals_block, torch.Tensor):
+            reals_block = torch.from_numpy(np.ascontiguousarray(reals_block, np.float32))
+        block = reals_block.to(device, torch.float32)
+        per_step = []
+        for reals, step_draws in zip(block, draws):
+            state, metrics = train_step(state, reals, step_draws)
+            per_step.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return train_segment
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +541,8 @@ def run_training(
     device: Union[str, torch.device] = "cuda",
     before_step: Optional[Callable[[int], None]] = None,
     after_step: Optional[Callable[[int, TrainingState, Metrics], None]] = None,
+    scan_segment: int = 1,
+    metrics_hook: Optional[Callable[[int, TrainingState], None]] = None,
 ) -> TrainingState:
     """
     Train to `total_steps`, resuming from `checkpoint_path` when it exists
@@ -515,13 +552,23 @@ def run_training(
     generator to `output_network` as an NVlabs-format pickle. `dataset` is
     anything with `batches(start_step, total_steps, batch_size)` yielding
     (step, (B, R, R, 3) float32 in [-1, 1]), such as
-    `parallel/data.py::StreamingImageDataset`. The optional hooks run just
-    before each step and just after it, before any checkpoint is written.
-    Needs neither click nor cv2.
+    `parallel/data.py::StreamingImageDataset`. Needs neither click nor cv2.
+
+    The steps run in segments of up to `scan_segment` through
+    `make_train_scan`, as JAX's CLI loop runs them: a segment ends early at
+    each checkpoint boundary, and its metrics are read only there (for the
+    log). `before_step(s)` runs before the segment whose first step is s;
+    `after_step(s, state, metrics)` after it, with s its last step and that
+    step's metrics, before any checkpoint is written; with the default
+    segment of 1 both run around every step. `metrics_hook(step, state)` runs
+    at each checkpoint boundary, after the checkpoint, with the count of
+    steps taken (the CLI's `--metrics-every` evaluation).
     """
     from gance_tpu_torch.models.pickle_loader import save_generator_pickle
     from gance_tpu_torch.utils.logging import LOGGER
 
+    if scan_segment < 1:
+        raise ValueError(f"scan_segment must be at least 1, got {scan_segment}")
     device = resolve_device(device)
     ckpt = Path(checkpoint_path)
     if ckpt.exists():
@@ -529,21 +576,31 @@ def run_training(
         LOGGER.info("Resumed from %s at step %d", ckpt, state.step)
     else:
         state = init_training_state(seed, model_config, train_config, device)
-    train_step = make_train_step(model_config, train_config)
+    train_segment = make_train_scan(model_config, train_config)
+    pending: List[Tuple[int, np.ndarray]] = []
     for step, reals in dataset.batches(state.step, total_steps, batch_size):
+        pending.append((step, np.asarray(reals)))
+        boundary = (step + 1) % checkpoint_every == 0 or step + 1 == total_steps
+        if len(pending) < scan_segment and not boundary:
+            continue
         if before_step is not None:
-            before_step(step)
-        draws = draw_step(seed, step, batch_size, model_config, train_config, device)
-        state, metrics = train_step(state, torch.from_numpy(np.asarray(reals)).to(device), draws)
+            before_step(pending[0][0])
+        draws = [draw_step(seed, s, batch_size, model_config, train_config, device)
+                 for s, _ in pending]
+        state, stacked = train_segment(state, np.stack([r for _, r in pending]), draws)
+        metrics = {k: v[-1] for k, v in stacked.items()}
+        pending.clear()
         if after_step is not None:
             after_step(step, state, metrics)
-        if (step + 1) % checkpoint_every == 0 or step + 1 == total_steps:
+        if boundary:
             save_checkpoint(ckpt, state)
             LOGGER.info(
                 "step %d: d_loss=%.4f g_loss=%.4f r1=%.4f pl=%.4f (checkpointed)", step + 1,
                 float(metrics["d_loss"]), float(metrics["g_loss"]), float(metrics["r1"]),
                 float(metrics["pl"]),
             )
+            if metrics_hook is not None:
+                metrics_hook(step + 1, state)
     if output_network is not None:
         save_generator_pickle(state.ema_params, Path(output_network))
         LOGGER.info("Wrote EMA generator to %s", output_network)

@@ -64,7 +64,6 @@ from gance_tpu_torch.utils.logging import LOGGER
 StepCallback = Callable[[int, np.ndarray, List[np.ndarray], np.ndarray], None]
 
 _MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-_REMAT_ITEM = "ROADMAP.md Queue 1 item 11 (training, the rest: remat)"
 
 
 class ProjectionResult(NamedTuple):
@@ -125,8 +124,8 @@ class ProjectorSettings:
         if self.convergence_min_steps is not None:
             return self.convergence_min_steps
         return max(2 * self.convergence_window, self.num_steps // 10)
-    # Rematerialize synthesis blocks in the backward pass. Not ported:
-    # True raises NotImplementedError (ROADMAP.md Queue 1 item 11).
+    # Recompute each synthesis block in the backward pass instead of keeping
+    # its activations (less device memory, more forward work).
     remat: bool = False
 
 
@@ -230,7 +229,8 @@ class Projector:
     counterpart of gance_tpu's `TPUProjector`, with its constructor, `from_pkl`,
     `project`, `project_batch` and `evaluate_distance`. Params stay on
     `device` ("cuda" unless the caller asks for the CPU) and are never
-    differentiated. `mesh` and `settings.remat` are not ported and raise.
+    differentiated. `mesh` is not ported and raises; `settings.remat`
+    recomputes each synthesis block in the backward pass.
     """
 
     def __init__(
@@ -252,8 +252,6 @@ class Projector:
         self.settings = replace(settings) if settings else ProjectorSettings()
         if num_steps is not None:
             self.settings.num_steps = num_steps
-        if self.settings.remat:
-            raise NotImplementedError(f"ProjectorSettings.remat is not ported yet: {_REMAT_ITEM}")
         self.config = config
         self.device = resolve_device(device)
         self.params = params_to_device(params, self.device)
@@ -316,6 +314,7 @@ class Projector:
             self.params, dlatents, self.config, noise_mode="random", noise_planes=list(noises),
             compute_dtype=self._compute_dtype,
             phase_top_block_mode=resolve_phase_top_block(self.config),
+            remat=self.settings.remat,
         )
 
     def _target_proc(self, target_images: np.ndarray) -> torch.Tensor:

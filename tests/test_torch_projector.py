@@ -460,7 +460,6 @@ def test_initial_starts_validated_eagerly():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 12"),
-    (dict(settings=port_proj.ProjectorSettings(remat=True)), "item 11"),
 ])
 def test_unported_options_raise(kwargs, item):
     params = params_from_reference(jax_params(40, TINY))

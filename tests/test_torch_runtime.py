@@ -266,7 +266,10 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.pipelines.check_move_networks",
                "gance_tpu_torch.overlay.selection", "gance_tpu_torch.serving",
                "gance_tpu_torch.serving.batcher", "gance_tpu_torch.serving.client",
-               "gance_tpu_torch.serving.daemon", "gance_tpu_torch.serving.audio", "chip_smoke"]
+               "gance_tpu_torch.serving.daemon", "gance_tpu_torch.serving.audio",
+               "gance_tpu_torch.metrics", "gance_tpu_torch.metrics.frechet",
+               "gance_tpu_torch.metrics.ppl", "gance_tpu_torch.metrics.training_eval",
+               "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -485,11 +485,7 @@ def test_draw_step_is_a_function_of_seed_and_step():
 
 def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_training.make_train_step(PORT_TINY, port_training.TrainingConfig(remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_training.make_train_step(PORT_TINY, PORT_TC, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_training.make_train_scan(PORT_TINY, PORT_TC)
 
 
 def test_training_config_defaults_match_jax():
