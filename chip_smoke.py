@@ -147,7 +147,7 @@ in order (any failure exits non-zero; no phase's failure is caught):
    regulariser's weight at 0, since at 1e5 its gradient hides the noise
    gradients that come through A and E) with respect to w, and to the 17
    planes taken together, norm-wise within 2e-2, each plane within 1e-1
-   (phase 7a's bounds and reason). (b) `project_batch` of 50 steps from
+   (phase 7a's bounds and reason). (b) `project_batch` of 30 steps from
    the dlatent average with seeded planes, targets the network's own frames
    from seeded rows-identical w: fp32 at batch 4, then bf16 at batch 8, on
    the standard path; the clean distance (`evaluate_distance`) must fall for
@@ -155,13 +155,13 @@ in order (any failure exits non-zero; no phase's failure is caught):
    derived from the architecture (`projection_launches`: per step a forward
    and one D per C in the backward, then the final render); it prints ms
    per step (CUDA events), frame-steps/s, frames per hour at 1000 steps and
-   peak memory. (c) bf16 at batch 8 for 20 steps on the phase path (E
+   peak memory. (c) bf16 at batch 8 for 10 steps on the phase path (E
    forward and E's backward), its ms per step beside (b)'s; then one fp32
    step at batch 2 on each path with the same inputs, the synthesis term's
    gradients within 2e-2 norm-wise. (d) `_projection_write_loop` over 8
-   seeded 1024px frames at batch 4, 20 steps in segments of 8, latents
+   seeded 1024px frames at batch 4, 12 steps in segments of 8, latents
    histories on, into an in-memory writer (the card machine has no h5py):
-   rows identical, histories of 20 steps, noise shapes in JAX's (1, h, w, 1)
+   rows identical, histories of 12 steps, noise shapes in JAX's (1, h, w, 1)
    layout, launches derived; then the flagship's `_blend_from_reader` over
    the result (`MemoryProjectionReader`, 16 frames at 30 fps, side 512, phase
    8's WAV cut to the clip) with the frame count, the audio and the launches
@@ -222,38 +222,71 @@ in order (any failure exits non-zero; no phase's failure is caught):
    parameter bytes; the serve CLI's `run_server` in a child process,
    SIGTERM while a 96-frame request is in flight: the request completes, a
    new one gets 503, the child exits 0. (d) Peak memory per warm bucket in
-   fp32 and bf16; then 6 concurrent clients of 8 frames for 10 s against a
+   fp32 and bf16; then 6 concurrent clients of 8 frames for 4 s against a
    daemon over network 0 in fp32, in bf16, and in bf16 on the phase path
    (E): frames/s, requests/s, client latency p50 and p99, batches, mean
    batch and occupancy (`serving_load`, which tools/time_torch_serving.py
    also runs).
 13. drives the network metrics (gance_tpu_torch/metrics) and the rest of
    training (remat, scanned segments) at config-f 1024px, the launches of
-   each part counted from 0 and checked. (a) PPL, w/full, 64 pairs at batch
+   each part counted from 0 and checked. (a) PPL, w/full, 32 pairs at batch
    8, epsilon 1e-4, fp32, with phase 3's network 0 and the random-VGG
    metric, twice under the metrics' deterministic cuDNN algorithms (bit for
    bit) and twice with cuDNN's defaults (whether they repeat, and the
-   cost); the first chunk's distances at batch 2 within 1e-2 relative of
+   cost); the first chunk's distances at batch 1 within 1e-2 relative of
    the port's CPU path on the same draws; the Fréchet feature distance of
-   64 generated samples against 64 seeded smooth 1024px PNGs, twice, bit
+   32 generated samples against 32 seeded smooth 1024px PNGs, twice, bit
    for bit, 1472 feature dims; seconds and samples/s of each side. (b) One
    fp32 step's gradients (D with R1, G with PL) at batch 4 from one state
    without and with remat: losses within 1e-3, gradients within phase 7a's
    bounds, ms and peak memory of each; a G step with PL on the phase path
-   under remat; the projector at batch 4, fp32, 10 steps with and without
+   under remat; the projector at batch 4, fp32, 6 steps with and without
    remat, their peak memory side by side. (c) 4 bf16 steps at batch 4
    as one `make_train_scan` segment and step by step, under deterministic
    cuDNN: losses within phase 7c's bounds, ms per step of each. (d) The
    train CLI in two child processes at 256px with config-f's widths (a
-   depth cut), 4 steps in segments of 2, with `--metrics-every 2
-   --metrics-samples 16` and without: 2 records with JAX's keys, finite
+   depth cut), 2 steps in a segment of 2, with `--metrics-every 2
+   --metrics-samples 16` and without: a record with JAX's keys, finite
    values; the two final checkpoints within phase 7c's bounds.
+14. drives multi-device work (gance_tpu_torch/parallel/) on the one card,
+   with phase 3's networks and phase 8's WAV, at config-f 1024px. Two
+   ranks on one card are no scaling figure: the card runs both. (a)
+   In-process meshes whose device list names the card twice:
+   `SynthesisNetwork(mesh=create_mesh(devices=[cuda:0, cuda:0]))` serves
+   vectors and matrices at batch 8, two shards of 4 (two forwards'
+   launches), within 1 uint8 step on 99.9% of the single-device net's
+   frames; `MultiNetwork(network_parallel=True, devices=[cuda:0, cuda:0])`
+   streams phase 3's 40 frames of 2 networks on the standard and the phase
+   path (6 cell forwards each) against the default stream. (b) Two ranks
+   on the card joined over gloo (`initialize_distributed` picks it: NCCL
+   refuses two ranks on one device), run as child processes of this script
+   while this process runs (a) and the references that fit beside them:
+   a noise-blend render of the WAV at 512px bf16 on the phase path (pure
+   data parallelism by default; each rank launches one shard of every
+   forward; only rank 0 writes); two fp32 data-parallel train steps at a
+   global batch of 4 (step 0 with R1 and PL, whose rows all lie on rank 0;
+   the minibatch stddev's groups span the ranks); five projector steps at a
+   global batch of 4 (cold start: each rank keeps its rows of the whole
+   batch's draws); the train and projector steps under deterministic
+   cuDNN. Each is held against one process
+   over two slots of the card, at the ranks' batch shapes (convolutions
+   round by batch shape): frames within 1 step on 99.9%; losses within
+   1e-3 relative and step 0's gradients within phase 7a's bounds;
+   distances within 1e-4 relative and latents within 2e-2 norm-wise
+   (phase 10a's bound). Every rank's launches are held to its shards'
+   forwards. (c) A world of one over NCCL in this process, against the
+   same calls without a process group: sharded synthesis (the frames'
+   all_gather through NCCL), and a data-parallel train step (the stddev's
+   gather and the gradients' all_reduce through NCCL), at phase 7a's
+   bounds. Each part prints its wall seconds and the frame gathers their
+   MB/s.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
-phases 10 and 13's; E's launches include the phase-path G steps'; A, B, C
-and E's include phases 8-13's); the last line is {"ok": true, "device":
-{...}}. Without a CUDA device it exits 1 and prints no result.
+phases 10, 13 and 14's; E's launches include the phase-path G steps'; A, B, C
+and E's include phases 8-14's, each child rank's included); the last line
+is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
+prints no result.
 """
 
 import base64
@@ -300,32 +333,36 @@ FLAGSHIP_PROJECTION_FPS = 15.0
 FLAGSHIP_FPS = 30.0  # a frame multiplier of 2
 FLAGSHIP_BLEND_DEPTH = 10
 FLAGSHIP_OVERLAY = (30, 50.0, 5)  # the README's phash, bbox and track-length gates
-PROJECTION_STEPS = 50  # 10b: num_steps, so the whole LR and jitter schedule runs
+PROJECTION_STEPS = 30  # 10b: num_steps, so the whole LR and jitter schedule runs
 PROJECTION_RUNS = (("float32", 4), ("bfloat16", 8))  # 10b: (compute dtype, batch)
-PROJECTION_PHASE_STEPS = 20  # 10c: bf16 at batch 8 on the phase path
+PROJECTION_PHASE_STEPS = 10  # 10c: bf16 at batch 8 on the phase path
 PROJECTION_WRITE_FRAMES = 8  # 10d: the writer loop's source frames
 PROJECTION_WRITE_BATCH = 4
-PROJECTION_WRITE_STEPS = 20
-PROJECTION_WRITE_SEGMENT = 8  # segments of 8, 8 and 4 steps
+PROJECTION_WRITE_STEPS = 12
+PROJECTION_WRITE_SEGMENT = 8  # segments of 8 and 4 steps
 PROJECTION_WRITE_FPS = 15.0  # divides the flagship's 30 fps
-STILL_IMAGES = 16  # 11a: face-free images per network
+STILL_IMAGES = 4  # 11a: face-free images per network
 STILL_SEED = 1234  # the images-from-network default
 RESUME_FRAMES = 120  # 11c: the phase-8 WAV at 30 fps
 RESUME_CHUNK = 32  # a multiple of the stream window (batch 8 x lookahead 2)
-RESUME_CHUNK_DELAY = 5.0  # 11c: seconds between durable chunks in the child
+RESUME_CHUNK_DELAY = 2.0  # 11c: seconds between durable chunks in the child
 RESUME_DECISION_DELAY = 0.2  # 11d: seconds per overlay decision in the child
 SPILL_SEGMENT_FRAMES = 2  # 11e: frames per segment of the segmented spill
 SERVE_MAX_BATCH = 48  # 12: the daemon's batch ceiling (buckets 8, 16, 32, 48)
-SERVE_LOAD = (6, 8, 10.0)  # 12d: concurrent clients, frames per request, timed seconds
-SERVE_SETTLE_S = 2.0  # 12d: traffic before the timed window
-METRICS_SAMPLES = 64  # 13a: PPL pairs and Fréchet samples per side
+SERVE_LOAD = (6, 8, 4.0)  # 12d: concurrent clients, frames per request, timed seconds
+SERVE_SETTLE_S = 1.0  # 12d: traffic before the timed window
+METRICS_SAMPLES = 32  # 13a: PPL pairs and Fréchet samples per side
 METRICS_BATCH = 8
 METRICS_EPSILON = 1e-4  # NVlabs' PPL epsilon
-REMAT_PROJECTION_STEPS = 10  # 13b: projector steps with and without remat
+REMAT_PROJECTION_STEPS = 6  # 13b: projector steps with and without remat
 SCAN_STEPS = 4  # 13c: the steps of one make_train_scan segment
 CLI_RESOLUTION = 256  # 13d: the train CLI's depth cut (config-f widths)
-CLI_STEPS = 4
+CLI_STEPS = 2
 # 13d: the metrics record's keys, gance_tpu/metrics/training_eval.py:67-74
+DIST_BATCH = 4  # 14b: the global batch of the two ranks' train and projector steps
+DIST_TRAIN = dict(r1_interval=2, pl_interval=2)  # 14b: step 0 with R1 and PL, step 1 plain
+DIST_TRAIN_STEPS = 2
+DIST_PROJECTION_STEPS = 5
 JAX_METRICS_KEYS = ["step", "ppl_w_full", "frechet_feature_distance", "num_samples",
                     "feature_dim", "eval_seconds"]
 RATES: Dict[str, dict] = {}  # 8b-8d and 9d's results, printed beside phase 11's
@@ -3339,7 +3376,7 @@ def metrics_phase(params, config, workdir: Path, card: str) -> Dict[str, int]:
     launches METRICS_SAMPLES / METRICS_BATCH forwards of `forward_launches`.
     PPL runs once more twice with the metrics' `deterministic_cudnn` turned
     off, to show whether cuDNN's default algorithms repeat and what the
-    deterministic ones cost. The first chunk's distances at batch 2 within
+    deterministic ones cost. The first chunk's distances at batch 1 within
     1e-2 relative of the port's CPU path on the same draws."""
     from gance_tpu_torch.metrics import frechet as FR
     from gance_tpu_torch.metrics import ppl as PPL
@@ -3383,8 +3420,8 @@ def metrics_phase(params, config, workdir: Path, card: str) -> Dict[str, int]:
           f" ({runs['default'][0]!r} vs {runs['default again'][0]!r}); deterministic costs "
           f"{runs['deterministic again'][1] / runs['default again'][1]:.3f}x the time", flush=True)
 
-    # the first chunk at batch 2, card against the port's CPU path
-    z, t = PPL.default_pair_draws(SEED, config.latent_size, "full")(0, 2)
+    # the first chunk at batch 1, card against the port's CPU path
+    z, t = PPL.default_pair_draws(SEED, config.latent_size, "full")(0, 1)
     distances = {}
     for device in ("cuda", "cpu"):
         start = time.perf_counter()
@@ -3394,7 +3431,7 @@ def metrics_phase(params, config, workdir: Path, card: str) -> Dict[str, int]:
                 torch.from_numpy(z).to(device), torch.from_numpy(t).to(device), config, "w",
                 METRICS_EPSILON, False, None, torch.float32)
         distances[device] = d.cpu().numpy().astype(np.float64)
-        print(f"13a PPL first chunk at batch 2 on {device}: {distances[device].tolist()} in "
+        print(f"13a PPL first chunk at batch 1 on {device}: {distances[device].tolist()} in "
               f"{time.perf_counter() - start:.2f} s", flush=True)
     reset_launch_counts()  # a comparison's launches do not count
     err = float(np.max(np.abs(distances["cuda"] - distances["cpu"]) / np.abs(distances["cpu"])))
@@ -3616,7 +3653,7 @@ def train_cli_phase(workdir: Path, card: str) -> None:
     at full width), CLI_STEPS steps at batch TRAIN_BATCH, checkpoints every 2,
     `--scan-segment 2`, cuDNN's deterministic algorithms set before the CLI
     runs: one with `--metrics-every 2 --metrics-samples 16`, one without. The
-    sidecar holds 2 records with JAX's keys, every value finite; the two
+    sidecar holds a record every 2 steps with JAX's keys, every value finite; the two
     final checkpoints agree within phase 7c's bounds."""
     from gance_tpu_torch.parallel import training as T
     from PIL import Image
@@ -3655,7 +3692,8 @@ def train_cli_phase(workdir: Path, card: str) -> None:
                 f"{(workdir / f'{label}.log').read_text(errors='replace')[-3000:]}")
     sidecar = workdir / "metrics.ckpt.metrics.jsonl"
     records = [json.loads(line) for line in sidecar.read_text().splitlines()]
-    require([r.get("step") for r in records] == [2, 4], f"13d: records {records}")
+    require([r.get("step") for r in records] == list(range(2, CLI_STEPS + 1, 2)),
+            f"13d: records {records}")
     for record in records:
         require(list(record) == JAX_METRICS_KEYS, f"13d: keys {list(record)}")
         require(all(math.isfinite(record[k]) for k in JAX_METRICS_KEYS), f"13d: {record}")
@@ -3688,6 +3726,488 @@ def metrics_training_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     train_cli_phase(workdir, card)
     print(f"phase 13 took {time.perf_counter() - start:.1f} s; its launches (13a-13c) {totals}",
           flush=True)
+    return totals
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class GatherMeter:
+    """Counts the bytes and seconds of the port's cross-process frame gathers
+    (`parallel/mesh.py::all_gather_host`) while in use."""
+
+    def __init__(self) -> None:
+        self.bytes, self.seconds, self.calls = 0, 0.0, 0
+
+    @contextlib.contextmanager
+    def measuring(self):
+        from gance_tpu_torch.parallel import mesh as M
+
+        real = M.all_gather_host
+
+        def timed(value):
+            start = time.perf_counter()
+            out = real(value)
+            self.seconds += time.perf_counter() - start
+            self.bytes += sum(part.nbytes for part in out)
+            self.calls += 1
+            return out
+
+        with mock.patch.object(M, "all_gather_host", timed):
+            yield self
+
+    def describe(self) -> str:
+        rate = self.bytes / self.seconds / 1e6 if self.seconds else 0.0
+        return (f"{self.calls} frame gathers, {self.bytes} bytes in {self.seconds:.3f} s "
+                f"({rate:.1f} MB/s)")
+
+
+def mesh_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """14a: in-process meshes that name the card twice."""
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork, SynthesisNetwork
+
+    start = time.perf_counter()
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    twice = [torch.device("cuda", 0)] * 2
+    totals: Dict[str, int] = {}
+    rng = np.random.RandomState(SEED + 140)
+    z = rng.standard_normal((BATCH, config.latent_size)).astype(np.float32)
+    w_plus = rng.standard_normal(
+        (BATCH, config.num_style_rows, config.dlatent_size)).astype(np.float32)
+    set_phase("off")
+    staged = SynthesisNetwork.stage_pkl(paths[0])
+    single = SynthesisNetwork.from_staged(staged, paths[0], device="cuda")
+    want = {"vectors": single.images_from_vectors(z), "matrices": single.images_from_matrices(w_plus)}
+    del single
+    meshed = SynthesisNetwork.from_staged(staged, paths[0], mesh=create_mesh(devices=twice))
+    require(meshed.mesh.shape == {"data": 2, "model": 1}, f"14a mesh {meshed.mesh.shape}")
+    for label, request in (("vectors", lambda: meshed.images_from_vectors(z)),
+                           ("matrices", lambda: meshed.images_from_matrices(w_plus))):
+        reset_launch_counts()
+        got = request()
+        for k, v in launches_per_forward(f"14a mesh {label} (2 shards of 4)", 2, config).items():
+            totals[k] = totals.get(k, 0) + v
+        check_frames(f"14a mesh {label}", got, BATCH, config.resolution)
+        require_close_frames(f"14a mesh {label} vs one device", got, want[label])
+    del meshed
+    # the render's configuration (bf16, phase path, resized): the mesh's
+    # shards of 4 against one device at batches of 4, the same shapes, and
+    # one device at a batch of 8 beside them (bf16 rounds by batch shape)
+    set_phase("on")
+    render_net = dict(compute_dtype=torch.bfloat16, output_side_length=RESIZE_SIDE)
+    single = SynthesisNetwork.from_staged(staged, paths[0], device="cuda", **render_net)
+    fours = np.concatenate([single.images_from_vectors(z[:4]), single.images_from_vectors(z[4:])])
+    eight = single.images_from_vectors(z)
+    del single
+    meshed = SynthesisNetwork.from_staged(staged, paths[0], mesh=create_mesh(devices=twice),
+                                          **render_net)
+    reset_launch_counts()
+    got = meshed.images_from_vectors(z)
+    label = "14a mesh bf16 phase path at the render's side (2 shards of 4)"
+    for k, v in launches_per_forward(label, 2, config, phase=True, resize=True).items():
+        totals[k] = totals.get(k, 0) + v
+    check_frames(label, got, BATCH, RESIZE_SIDE)
+    require_close_frames(f"{label} vs one device at batches of 4", got, fours)
+    worst, share = share_within_one_step(got, eight)
+    print(f"{label} vs one device at a batch of 8: max {worst} steps, {share:.6f} within 1 step "
+          "(information: bf16 rounds by batch shape)", flush=True)
+    del meshed
+    set_phase("off")
+    frames = rng.standard_normal((40, config.latent_size)).astype(np.float32)
+    indices = np.arange(40) % 2
+    streams = {}
+    with MultiNetwork(paths, device="cuda") as plain:
+        for phase in (False, True):
+            set_phase("on" if phase else "off")
+            streams[phase] = plain.synthesize_all(frames, indices)
+    with MultiNetwork(paths, network_parallel=True, devices=twice, device="cuda") as np_mode:
+        for phase in (False, True):
+            set_phase("on" if phase else "off")
+            reset_launch_counts()
+            got = np_mode.synthesize_all(frames, indices)
+            label = f"14a network-parallel stream, phase path {'on' if phase else 'off'}"
+            # windows of 16, 16 and 8 frames: one round of both networks' cells each
+            for k, v in launches_per_forward(label, 6, config, phase=phase).items():
+                totals[k] = totals.get(k, 0) + v
+            require_close_frames(f"{label} vs the default stream", got, streams[phase])
+    set_phase("off")
+    torch.cuda.empty_cache()
+    print(f"14a took {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+def dist_inputs(config, tc) -> Tuple[np.ndarray, List[object], np.ndarray]:
+    """14b's seeded inputs, the same in every process: the global reals of
+    both train steps, their draws, and the projector's targets (the state
+    is `init_training_state(SEED + 141, ...)`)."""
+    from gance_tpu_torch.parallel import training as T
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 142)
+    reals = (torch.rand((DIST_TRAIN_STEPS, DIST_BATCH, config.resolution, config.resolution, 3),
+                        generator=gen, device="cuda") * 2 - 1).cpu().numpy()
+    draws = [T.draw_step(SEED, s, DIST_BATCH, config, tc, "cuda") for s in range(DIST_TRAIN_STEPS)]
+    targets = smooth_frames(DIST_BATCH, config.resolution,
+                            torch.Generator(device="cuda").manual_seed(SEED + 143))
+    return reals, draws, targets
+
+
+def dist_projector(path: Path, mesh=None):
+    from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
+
+    settings = ProjectorSettings(num_steps=DIST_PROJECTION_STEPS, dlatent_avg_samples=2000)
+    return Projector.from_pkl(path, settings=settings, mesh=mesh, device="cuda")
+
+
+def dist_child(spec: dict) -> None:
+    """14b: one rank of two on the card, `python3 -c "import chip_smoke;
+    chip_smoke.dist_child(...)"`; writes its results to dist_RANK.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.parallel.distributed import global_batch, initialize_distributed
+    from gance_tpu_torch.parallel.mesh import create_mesh, process_rows
+    from gance_tpu_torch.pipelines.noise_blend import noise_blend_api
+
+    rank, workdir, config = spec["rank"], Path(spec["workdir"]), GeneratorConfig()
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    out: Dict[str, object] = {"backend": initialize_distributed(
+        f"localhost:{spec['port']}", 2, rank, device="cuda")}
+    meter = GatherMeter()
+
+    # the render: pure data parallelism over both ranks by default
+    os.environ["GANCE_TPU_EGRESS"] = "raw-spill"
+    set_phase("on")
+    reset_launch_counts()
+    start = time.perf_counter()
+    with meter.measuring():
+        noise_blend_api([workdir / "song.wav"], workdir / f"dist_render_{rank}.avi", paths, None,
+                        PIPELINE_FPS, RESIZE_SIDE, None, None, None, PIPELINE_ALPHA, False,
+                        (-1.0, 1.0), compute_dtype="bfloat16", device="cuda")
+    out.update(render_s=time.perf_counter() - start, render_launches=dict(LAUNCHES),
+               render_gather=meter.describe())
+    set_phase("off")
+
+    # training: each rank hands in its rows of the global reals
+    tc = T.TrainingConfig(**DIST_TRAIN)
+    reals, draws, targets = dist_inputs(config, tc)
+    mesh = create_mesh(device="cuda")
+    state = T.shard_training_state(mesh, T.init_training_state(SEED + 141, config, tc, "cuda"), tc)
+    step = T.make_train_step(config, tc, mesh)
+    metrics, launches, seconds = [], [], []
+    for s in range(DIST_TRAIN_STEPS):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        mine = reals[s][process_rows(mesh, DIST_BATCH)]
+        with deterministic_cudnn():
+            state, m = step(state, global_batch(mesh, mine), draws[s])
+        metrics.append({k: float(v) for k, v in m.items()})
+        seconds.append(time.perf_counter() - start)
+        launches.append(dict(LAUNCHES))
+        if rank == 0 and s == 0:  # Adam's first moment is the step's gradient (b1 = 0)
+            out["moments"] = {net: T._adam_to_numpy(getattr(state, f"{net}_opt_state"),
+                                                    getattr(state, f"{net}_params"))["mu"]
+                              for net in ("g", "d")}
+    out.update(train_metrics=metrics, train_launches=launches, train_s=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the projector: a cold start of the global batch, frames split over the ranks
+    reset_launch_counts()
+    start = time.perf_counter()
+    with meter.measuring(), deterministic_cudnn():
+        results = dist_projector(paths[0], create_mesh(device="cuda")).project_batch(
+            targets, want_step_images=False, per_step_noises=False)
+    out.update(project_s=time.perf_counter() - start, project_launches=dict(LAUNCHES),
+               distances=[r.final_distance for r in results],
+               latents=np.stack([r.final_latents[0, 0] for r in results]),
+               project_gather=meter.describe())
+    with open(workdir / f"dist_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_reference_train(config, tc, device_mesh=None, steps: int = DIST_TRAIN_STEPS
+                         ) -> Tuple[List[dict], List[dict], dict]:
+    """14b/c: 14b's train steps in this process under deterministic cuDNN
+    (a noise strength's gradient sums large terms of both signs, and moved
+    13% between two runs of one step with cuDNN's defaults), on one device
+    (`device_mesh` None) or over `device_mesh`: (metrics and launches of
+    each step, each step's first moments, its gradients)."""
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+
+    reals, draws, _ = dist_inputs(config, tc)
+    state = T.init_training_state(SEED + 141, config, tc, "cuda")
+    if device_mesh is not None:
+        state = T.shard_training_state(device_mesh, state, tc)
+    step = T.make_train_step(config, tc, device_mesh)
+    metrics, launches, moments = [], [], {}
+    for s in range(steps):
+        reset_launch_counts()
+        with deterministic_cudnn():
+            state, m = step(state, torch.from_numpy(reals[s]).cuda(), draws[s])
+        metrics.append({k: float(v) for k, v in m.items()})
+        launches.append(dict(LAUNCHES))
+        moments[s] = {net: T._adam_to_numpy(getattr(state, f"{net}_opt_state"),
+                                            getattr(state, f"{net}_params"))["mu"]
+                      for net in ("g", "d")}
+    del state, step
+    torch.cuda.empty_cache()
+    return metrics, launches, moments
+
+
+def require_moments_close(label: str, got: dict, want: dict,
+                          versus: str = "data-parallel vs one process") -> None:
+    from gance_tpu_torch.parallel import training as T
+
+    for net in ("g", "d"):
+        leaves = T.tree_leaves(want[net])
+        got_leaves = dict(T.tree_leaves(got[net]))
+        require_gradients_close(label, versus, net,
+                                [torch.from_numpy(got_leaves[p]) for p, _ in leaves],
+                                [torch.from_numpy(v) for _, v in leaves], [p for p, _ in leaves])
+
+
+def require_losses_close(label: str, got: dict, want: dict) -> None:
+    for name in ("d_loss", "g_loss", "r1", "pl"):
+        limit = 1e-3 * abs(want[name])
+        require(abs(got[name] - want[name]) <= limit,
+                f"{label} {name}: {got[name]} vs {want[name]} (limit 1e-3 relative)")
+
+
+def two_rank_phase(config, workdir: Path, card: str
+                   ) -> Tuple[Dict[str, int], Tuple[dict, dict]]:
+    """14b: two ranks on the card over gloo, as child processes. While they
+    run, this process runs 14a and the references that fit beside them in
+    device memory (the render's synthesis and the projector over two slots
+    of the card); the train references (over two slots, and on one device
+    at the global batch) run after them. Returns the launches and the
+    one-device step's (metrics, first moments), 14c's reference."""
+    import pickle
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.synthesis.inputs import alpha_blend_vectors_max_rms_power_audio
+    from gance_tpu_torch.synthesis.orchestration import vector_synthesis
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork
+
+    start = time.perf_counter()
+    port = free_port()
+    code = "import json, sys, chip_smoke; chip_smoke.dist_child(json.loads(sys.argv[1]))"
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    logs = [workdir / f"dist_{rank}.log" for rank in range(2)]
+    children = []
+    for rank in range(2):
+        spec = {"rank": rank, "port": port, "workdir": str(workdir)}
+        with open(logs[rank], "wb") as log:
+            children.append(subprocess.Popen([sys.executable, "-c", code, json.dumps(spec)],
+                                             cwd=ROOT, env=env, stdout=log,
+                                             stderr=subprocess.STDOUT))
+    totals: Dict[str, int] = {}
+
+    def add(label: str, got: Dict[str, int], want: Dict[str, int]) -> None:
+        print(f"launches {label}: {got}", flush=True)
+        require(got == want, f"{label}: launches {got} != {want}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the references run at the ranks' batch shapes: one process over two
+    # slots of the card (bf16 and fp32 convolutions round by batch shape:
+    # against a one-device render at batches of 8 the two-rank frames read
+    # max 5 uint8 steps, 98.92% within 1)
+    twice = create_mesh(devices=[torch.device("cuda", 0)] * 2)
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    tc = T.TrainingConfig(**DIST_TRAIN)
+    try:
+        for k, v in mesh_phase(config, workdir, card).items():
+            totals[k] = totals.get(k, 0) + v
+        audio = read_wavs_scale_for_video([workdir / "song.wav"], PIPELINE_VECTOR,
+                                          frames_per_second=PIPELINE_FPS).wav_data
+        inputs = alpha_blend_vectors_max_rms_power_audio(
+            PIPELINE_ALPHA, False, (-1.0, 1.0), audio, PIPELINE_VECTOR, [0, 1], device="cuda")
+        indices = inputs.network_indices.result.data
+        forwards = len(stream_batches(indices))
+        set_phase("on")
+        reset_launch_counts()
+        with MultiNetwork(paths, output_side_length=RESIZE_SIDE, compute_dtype=torch.bfloat16,
+                          mesh=twice, device="cuda") as networks:
+            direct = np.stack(list(vector_synthesis(networks, inputs).synthesized_images))
+        set_phase("off")
+        add(f"14b render's synthesis over two slots in one process ({2 * forwards} shard "
+            "forwards)", dict(LAUNCHES),
+            {k: 2 * v * forwards for k, v in forward_launches(config, True, resize=True).items()})
+        want_launches = projection_launches(config, DIST_PROJECTION_STEPS, False)
+        _, _, targets = dist_inputs(config, tc)
+        reset_launch_counts()
+        with deterministic_cudnn():
+            results = dist_projector(paths[0], twice).project_batch(
+                targets, want_step_images=False, per_step_noises=False)
+        add("14b projector one process over two slots", dict(LAUNCHES),
+            {k: 2 * v for k, v in want_launches.items()})
+        torch.cuda.empty_cache()
+        for rank, child in enumerate(children):
+            code_ = child.wait(timeout=600)
+            require(code_ == 0, f"14b rank {rank} exited {code_}:\n"
+                    f"{logs[rank].read_text(errors='replace')[-4000:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    ranks_s = time.perf_counter() - start
+    outs = []
+    for rank in range(2):
+        with open(workdir / f"dist_{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+        (workdir / f"dist_{rank}.pkl").unlink()
+    for rank, out in enumerate(outs):
+        require(out["backend"] == "gloo", f"14b rank {rank}: backend {out['backend']}")
+
+    # the render: every rank one shard of each forward of the stream
+    for rank, out in enumerate(outs):
+        add(f"14b render rank {rank} ({forwards} shard forwards)", out["render_launches"],
+            {k: v * forwards for k, v in forward_launches(config, True, resize=True).items()})
+    require(not (workdir / "dist_render_1.avi").exists(), "14b: rank 1 wrote a video")
+    got_frames, _, _ = read_avi(workdir / "dist_render_0.avi")
+    (workdir / "dist_render_0.avi").unlink()
+    require(len(got_frames) == len(indices), f"14b render: {len(got_frames)} frames, "
+            f"{len(indices)} indices")
+    require_close_frames("14b two-rank render vs one process over two slots",
+                         np.stack(got_frames), direct)
+    print(f"14b render ({len(indices)} frames of {RESIZE_SIDE}px, bf16, phase path): ranks "
+          f"{outs[0]['render_s']:.3f} and {outs[1]['render_s']:.3f} s wall each, network "
+          f"loading included (rank 0: {outs[0]['render_gather']}); on {card}", flush=True)
+
+    # training: rank 0 holds the path-length rows (the first half of the batch)
+    for rank, out in enumerate(outs):
+        for s in range(DIST_TRAIN_STEPS):
+            r1, pl = s % tc.r1_interval == 0, s % tc.pl_interval == 0
+            add(f"14b train rank {rank} step {s}", out["train_launches"][s],
+                train_launches(config, r1, pl and rank == 0))
+    metrics, launches, moments = dist_reference_train(config, tc, twice)
+    for s, counts in enumerate(launches):  # both slots: path length on the first only
+        add(f"14b train one process over two slots step {s}", counts,
+            {k: a + b for (k, a), b in zip(
+                train_launches(config, s % 2 == 0, s % 2 == 0).items(),
+                train_launches(config, s % 2 == 0, False).values())})
+    for s in range(DIST_TRAIN_STEPS):
+        for out in outs:
+            require_losses_close(f"14b train step {s}", out["train_metrics"][s], metrics[s])
+    require_moments_close("14b train step 0", outs[0]["moments"], moments[0])
+    # and the plain step: one device at the global batch, no mesh code
+    one_metrics, one_launches, one_moments = dist_reference_train(config, tc, steps=1)
+    add("14b train one device step 0", one_launches[0], train_launches(config, True, True))
+    for out in outs:
+        require_losses_close("14b train step 0 vs one device", out["train_metrics"][0],
+                             one_metrics[0])
+    require_moments_close("14b train step 0", outs[0]["moments"], one_moments[0],
+                          "data-parallel vs one device at the global batch")
+    print(f"14b train (fp32, 1024px, global batch {DIST_BATCH}, deterministic cuDNN): rank step "
+          f"seconds "
+          f"{[round(x, 3) for x in outs[0]['train_s']]} and "
+          f"{[round(x, 3) for x in outs[1]['train_s']]}, peak {outs[0]['peak_gib']:.2f} / "
+          f"{outs[1]['peak_gib']:.2f} GiB; losses {outs[0]['train_metrics']} vs one process "
+          f"over two slots {metrics} and one device at step 0 {one_metrics[0]}; on {card}",
+          flush=True)
+
+    # the projector
+    for rank, out in enumerate(outs):
+        add(f"14b projector rank {rank}", out["project_launches"], want_launches)
+    distances = np.array([res.final_distance for res in results])
+    latents = np.stack([res.final_latents[0, 0] for res in results])
+    for out in outs:
+        got = np.array(out["distances"])
+        rel = float(np.max(np.abs(got - distances) / distances))
+        err = float(np.linalg.norm(out["latents"] - latents) / np.linalg.norm(latents))
+        require(rel <= 1e-4 and err <= 2e-2,
+                f"14b projector: distances {rel:.3g} relative, latents {err:.3g} norm-wise")
+    print(f"14b projector ({DIST_PROJECTION_STEPS} steps, fp32, global batch {DIST_BATCH}, cold "
+          f"start, deterministic cuDNN): distances {outs[0]['distances']} vs one process "
+          f"{distances.tolist()} ({rel:.3g} relative, latents {err:.3g} norm-wise); ranks "
+          f"{outs[0]['project_s']:.3f} / {outs[1]['project_s']:.3f} s (rank 0: "
+          f"{outs[0]['project_gather']}); on {card}", flush=True)
+    print(f"14a and 14b took {time.perf_counter() - start:.1f} s (the two ranks {ranks_s:.1f} s "
+          f"of it, 14a and two references beside them); two ranks on one card are no scaling "
+          f"figure; on {card}", flush=True)
+    return totals, (one_metrics[0], one_moments[0])
+
+
+def nccl_phase(config, workdir: Path, card: str, reference: Tuple[dict, dict]
+               ) -> Dict[str, int]:
+    """14c: a world of one over NCCL in this process, against the same calls
+    without a process group (`reference`: 14b's one-device train step)."""
+    import torch.distributed as dist
+
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.parallel.distributed import initialize_distributed
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    start = time.perf_counter()
+    totals: Dict[str, int] = {}
+    z = np.random.RandomState(SEED + 144).standard_normal(
+        (BATCH, config.latent_size)).astype(np.float32)
+    staged = SynthesisNetwork.stage_pkl(workdir / "0_net.pkl")
+    want = SynthesisNetwork.from_staged(staged, workdir / "0_net.pkl",
+                                        device="cuda").images_from_vectors(z)
+    tc = T.TrainingConfig(**DIST_TRAIN)
+    ref_metrics, ref_moments = reference
+    backend = initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    require(backend == "nccl", f"14c: a world of one on its own card chose {backend}")
+    try:
+        mesh = create_mesh(device="cuda")
+        require(mesh.grouped and mesh.shape == {"data": 1, "model": 1}, f"14c mesh {mesh}")
+        net = SynthesisNetwork.from_staged(staged, workdir / "0_net.pkl", mesh=mesh)
+        reset_launch_counts()
+        meter = GatherMeter()
+        with meter.measuring():
+            got = net.images_from_vectors(z)
+        for k, v in launches_per_forward("14c sharded synthesis over NCCL", 1, config).items():
+            totals[k] = totals.get(k, 0) + v
+        require(meter.calls == 1, f"14c: {meter.calls} gathers through NCCL")
+        require_close_frames("14c sharded synthesis over NCCL vs one device", got, want)
+        del net
+        metrics, _, moments = dist_reference_train(config, tc, mesh, steps=1)
+        count_launches(totals, "14c train step over NCCL", train_launches(config, True, True))
+        require_losses_close("14c train step 0", metrics[0], ref_metrics)
+        require_moments_close("14c train", moments[0], ref_moments,
+                              "a world of one vs one device")
+    finally:
+        dist.destroy_process_group()
+    print(f"14c (world of one over NCCL, deterministic cuDNN): {meter.describe()}; losses "
+          f"{metrics[0]} vs one device {ref_metrics}; took "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+def multi_device_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 14, with phase 3's networks and phase 8's WAV in `workdir`."""
+    start = time.perf_counter()
+    totals, reference = two_rank_phase(config, workdir, card)  # 14a runs beside 14b's ranks
+    for k, v in nccl_phase(config, workdir, card, reference).items():
+        totals[k] = totals.get(k, 0) + v
+    print(f"phase 14 took {time.perf_counter() - start:.1f} s; its launches (14a-14c, both "
+          f"ranks') {totals}", flush=True)
     return totals
 
 
@@ -3741,9 +4261,10 @@ def main() -> None:
         resume_totals = resume_phase(config, Path(nets_dir), smi)
         serving_totals = serving_phase(config, Path(nets_dir), smi)
         metrics_totals = metrics_training_phase(config, Path(nets_dir), smi)
+        multi_totals = multi_device_phase(config, Path(nets_dir), smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
-                       resume_totals, serving_totals, metrics_totals):
+                       resume_totals, serving_totals, metrics_totals, multi_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

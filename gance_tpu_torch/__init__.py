@@ -6,13 +6,21 @@ It runs StyleGAN2 (config-f family) on an NVIDIA GPU with the same TF-format
 `gance_tpu`:
   * frame synthesis (`synthesis/runtime.py`: `SynthesisNetwork`,
     `MultiNetwork`), on the standard path or the polyphase top block;
-  * training on one device (`parallel/training.py`, `cli/train.py`);
+  * training (`parallel/training.py`, `cli/train.py`);
   * the noise-blend pipeline, a WAV in and a music video out
     (`pipelines/noise_blend.py`, `cli/music_into_networks.py noise-blend`):
     the audio DSP in torch on the device (`audio/`), the inputs and
     orchestration (`synthesis/inputs.py`, `orchestration.py`) and the video
     egress with the audio track (`media/`, the native AVI muxer bound in
-    `media/native`).
+    `media/native`);
+  * the flagship projection-file blend, the projector, resumable renders,
+    online serving on one device and the network metrics;
+  * several devices and processes (`parallel/`: meshes, data-parallel and
+    network-parallel synthesis, data-parallel training and projection,
+    `--data-parallel`, `--one-network-per-device`, `--network-parallel` and
+    `--dist-*` on the render, train and projection CLIs). Still to port
+    (ROADMAP.md Queue 1 item 12, part 2): a tensor-parallel 'model' axis and
+    serving over a mesh or several hosts.
 
 Activations are NCHW and conv weights OIHW. The five kernels that `gance_tpu`
 wrote in Pallas (the noise/bias/lrelu epilogue, the skip-chain 2x upsample,

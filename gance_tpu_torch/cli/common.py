@@ -3,8 +3,9 @@ Shared click option plumbing of the port's music-video commands (the
 counterpart of gance_tpu/cli/common.py, with the same option names plus
 --device): the common options, the network-source group and the --run-config
 provenance dump. The multi-device options (--data-parallel,
---one-network-per-device, --network-parallel, --dist-*) keep their names and
-raise NotImplementedError until ROADMAP.md Queue 1 item 12.
+--one-network-per-device, --network-parallel, --dist-*) are JAX's: one
+placement flag at a time, and --dist-* joins a multi-process render in which
+every process synthesizes its share and only process 0 writes.
 
 click is imported here and in the CLI modules only; nothing on the device
 path imports them.
@@ -18,8 +19,6 @@ import click
 
 from gance_tpu_torch.models.pickle_loader import parse_network_paths
 from gance_tpu_torch.utils.logging import add_log_file
-
-MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
 
 EXTENSION_HDF5 = ".hdf5"
 EXTENSION_MP4 = ".mp4"
@@ -79,16 +78,24 @@ def common_command_options(func: Callable) -> Callable:
         ),
         click.option(
             "--data-parallel", type=click.IntRange(min=1), default=None,
-            help="Not ported yet (raises): shard synthesis over a device mesh.",
+            help="Shard synthesis over a ('data','model') device mesh with this "
+            "data-axis size; frame batches split over 'data' (a 'model' axis "
+            "above 1 is not ported and raises).",
         ),
         click.option(
             "--one-network-per-device", is_flag=True, default=False,
-            help="Not ported yet (raises): each network on its own device.",
+            help="Place each network wholly on its own device; frame groups for "
+            "different networks synthesize concurrently. Mutually exclusive "
+            "with --data-parallel.",
         ),
         click.option(
             "--dist-coordinator", type=str, default=None,
-            help="Not ported yet (raises): host:port of process 0 of a "
-            "multi-host render.",
+            help="host:port of process 0. Setting this (with the two options "
+            "below) joins a multi-process render: every process runs the same "
+            "command with its own --dist-process-id, frame batches shard "
+            "across all processes' devices (pure data parallelism unless a "
+            "placement flag says otherwise), and only process 0 writes the "
+            "output files.",
         ),
         click.option("--dist-num-processes", type=int, default=None),
         click.option("--dist-process-id", type=int, default=None),
@@ -104,7 +111,10 @@ def common_command_options(func: Callable) -> Callable:
         ),
         click.option(
             "--network-parallel", is_flag=True, default=False,
-            help="Not ported yet (raises): all networks resident on a device mesh.",
+            help="All networks resident at once on a ('network','data') mesh: "
+            "each network owns a device group (data-parallel within it). Needs "
+            ">= one device per network; mutually exclusive with the other "
+            "placement flags.",
         ),
         click.option(
             "--fft-amplitude-range", type=(float, float), default=(-1.0, 1.0)
@@ -162,11 +172,21 @@ def maybe_initialize_distributed(
     coordinator: Optional[str],
     num_processes: Optional[int],
     process_id: Optional[int],
+    device: str = "cuda",
 ) -> None:
-    """The --dist-* triple: a multi-process render is not ported yet, so any of
-    the three raises."""
-    if any(option is not None for option in (coordinator, num_processes, process_id)):
-        raise NotImplementedError(
-            f"--dist-coordinator/--dist-num-processes/--dist-process-id are not "
-            f"ported yet: {MULTI_DEVICE_ITEM}"
+    """
+    Join the torch.distributed group when the --dist-* triple is given
+    (all or none). Run it before any mesh is built or network loaded. The
+    backend follows from the ranks' devices (`parallel/distributed.py`).
+    """
+    triple = (coordinator, num_processes, process_id)
+    if all(option is None for option in triple):
+        return
+    if any(option is None for option in triple):
+        raise click.UsageError(
+            "--dist-coordinator, --dist-num-processes and --dist-process-id "
+            "must be given together"
         )
+    from gance_tpu_torch.parallel.distributed import initialize_distributed
+
+    initialize_distributed(coordinator, num_processes, process_id, device=device)

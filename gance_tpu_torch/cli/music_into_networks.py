@@ -11,7 +11,12 @@ gance_tpu/cli/music_into_networks.py, with the same option names plus
         --projection-file-path projection.hdf5 --blend-depth 10 \
         --phash-distance 30 --bbox-distance 50 --track-length 5 [--device cuda]
 
-Both commands run on one device.
+Both commands take JAX's placement options: --data-parallel N (a
+('data', 'model') mesh over this process's devices), --one-network-per-device
+and --network-parallel, one at a time, and --dist-coordinator host:port
+--dist-num-processes P --dist-process-id i to join P processes, which default
+to pure data parallelism over every process's devices; only process 0 writes
+the video.
 """
 
 from pathlib import Path
@@ -70,7 +75,7 @@ def noise_blend(  # pylint: disable=too-many-arguments,too-many-locals
 ) -> None:
     """Blend audio spectrogram with smoothed noise and synthesize a video."""
     setup_log(log)
-    maybe_initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id)
+    maybe_initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id, device)
     network_paths = resolve_networks(networks_directory, network_path, networks_json)
     dump_run_config(run_config, dict(locals()))
 
@@ -192,7 +197,7 @@ def projection_file_blend(  # pylint: disable=too-many-arguments,too-many-locals
         )
 
     setup_log(log)
-    maybe_initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id)
+    maybe_initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id, device)
     network_paths = resolve_networks(networks_directory, network_path, networks_json)
     dump_run_config(run_config, dict(locals()))
 

@@ -10,9 +10,13 @@ same commands and option names plus --device).
         --path-to-network net.pkl --directory-of-videos videos \
         --output-file-directory projections [--device cuda]
 
-Projection runs on one device: --data-parallel and --dist-* wait for ROADMAP.md
-Queue 1 item 12 (multi-device), `visualize-final-latents` for item 13 (viz),
-and each raises a usage error naming its item.
+`--data-parallel N` projects each batch's frames data-parallel over a
+('data', 'model') mesh (the batch is raised to fill the data axis);
+`--dist-coordinator host:port --dist-num-processes P --dist-process-id i`
+joins P processes, which default to pure data parallelism over every
+process's devices, with only process 0 writing the projection file.
+`visualize-final-latents` waits for ROADMAP.md Queue 1 item 13 (viz) and
+raises a usage error naming it.
 """
 
 from pathlib import Path
@@ -21,9 +25,6 @@ from typing import Callable, Optional, Tuple
 import click
 
 from gance_tpu_torch.utils.logging import add_log_file
-
-_MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-
 
 def projection_options(func: Callable) -> Callable:
     """Shared projection options (the JAX CLI's, reference :165-270)."""
@@ -50,7 +51,9 @@ def projection_options(func: Callable) -> Callable:
         ),
         click.option(
             "--data-parallel", type=click.IntRange(min=1), default=None,
-            help=f"Not ported yet ({_MULTI_DEVICE_ITEM}); raises.",
+            help="Data-parallelize each projection batch's frames over a "
+            "('data','model') device mesh with this data-axis size. Use with "
+            "--projection-batch >= data-parallel size.",
         ),
         click.option(
             "--warm-start", is_flag=True, default=False,
@@ -87,7 +90,10 @@ def projection_options(func: Callable) -> Callable:
         click.option("--images-histories-enabled", is_flag=True, default=False),
         click.option(
             "--dist-coordinator", type=str, default=None,
-            help=f"Not ported yet ({_MULTI_DEVICE_ITEM}); raises.",
+            help="host:port of process 0. Setting this (with the two options "
+            "below) joins a multi-process projection: every process runs the "
+            "same command with its own --dist-process-id, the mesh spans all "
+            "processes' devices, and only process 0 writes the projection file.",
         ),
         click.option("--dist-num-processes", type=int, default=None),
         click.option("--dist-process-id", type=int, default=None),
@@ -102,14 +108,14 @@ def projection_options(func: Callable) -> Callable:
     return func
 
 
-def _refuse_multi_device(kwargs: dict) -> None:
-    """Consume --data-parallel and --dist-*; any of them given raises."""
-    given = [name for name in ("data_parallel", "dist_coordinator", "dist_num_processes",
-                               "dist_process_id") if kwargs.pop(name) is not None]
-    if given:
-        flags = ", ".join("--" + name.replace("_", "-") for name in given)
-        raise click.UsageError(f"{flags}: multi-device projection is not ported yet "
-                               f"({_MULTI_DEVICE_ITEM})")
+def _pop_distributed_options(kwargs: dict) -> None:
+    """Consume the --dist-* options and, when given, join the process group
+    (before any mesh or projector is built)."""
+    from gance_tpu_torch.cli.common import maybe_initialize_distributed
+
+    maybe_initialize_distributed(kwargs.pop("dist_coordinator"),
+                                 kwargs.pop("dist_num_processes"),
+                                 kwargs.pop("dist_process_id"), kwargs["device"])
 
 
 @click.group()
@@ -134,6 +140,7 @@ def _run_projection(
     images_histories_enabled: bool,
     compute_dtype: Optional[str] = None,
     projection_batch: int = 1,
+    data_parallel: Optional[int] = None,
     vgg_weights: Optional[str] = None,
     warm_start: bool = False,
     convergence_stop: Optional[float] = None,
@@ -141,7 +148,16 @@ def _run_projection(
     batch_number: Optional[int] = None,
     device: str = "cuda",
 ) -> None:
+    from gance_tpu_torch.parallel.mesh import create_mesh, process_group_info
     from gance_tpu_torch.projection.file_writer import project_video_to_file
+
+    mesh = None
+    if data_parallel is not None:
+        mesh = create_mesh(data_parallel=data_parallel, device=device)
+    elif process_group_info()[1] > 1:
+        # several processes with no mesh would each project the whole batch:
+        # default to pure data parallelism over every process's devices
+        mesh = create_mesh(device=device)
 
     project_video_to_file(
         path_to_video=video_path,
@@ -157,6 +173,7 @@ def _run_projection(
         images_histories_enabled=images_histories_enabled,
         compute_dtype=compute_dtype,
         projection_batch=projection_batch,
+        mesh=mesh,
         vgg_weights_path=Path(vgg_weights) if vgg_weights else None,
         warm_start=warm_start,
         convergence_stop=convergence_stop,
@@ -176,7 +193,7 @@ def _run_projection(
 def videos(video_output: Tuple[Tuple[str, str], ...], log: Optional[str], **kwargs) -> None:
     """Project one or more (video, output) pairs."""
     add_log_file(Path(log) if log else None)
-    _refuse_multi_device(kwargs)
+    _pop_distributed_options(kwargs)
     for batch_number, (video_path, output_path) in enumerate(video_output):
         _run_projection(
             Path(video_path), Path(output_path), batch_number=batch_number, **kwargs
@@ -203,7 +220,7 @@ def directory(
 ) -> None:
     """Project every video in a directory."""
     add_log_file(Path(log) if log else None)
-    _refuse_multi_device(kwargs)
+    _pop_distributed_options(kwargs)
     out_dir = Path(output_file_directory)
     out_dir.mkdir(parents=True, exist_ok=True)
     sources = sorted(Path(directory_of_videos).glob(f"*{video_extension}"))

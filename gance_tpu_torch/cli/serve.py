@@ -14,7 +14,8 @@ The body is `run_server`, a plain function that imports no click (the card
 machine's tools run it in a child process); click is imported only by
 `build_cli`. --use-mesh, --data-parallel, --dist-*, --control-port and
 --control-bind serve over several devices or processes, which is not ported
-yet: they raise naming ROADMAP.md Queue 1 item 12.
+yet: they raise naming ROADMAP.md Queue 1 item 12, part 2 (the renders,
+training and projection over meshes and processes are part 1, ported).
 """
 
 import signal
@@ -26,7 +27,7 @@ import numpy as np
 
 from gance_tpu_torch.utils.logging import LOGGER, add_log_file
 
-MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
+MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12, part 2 (multi-device serving)"
 COMPUTE_DTYPES = ("bfloat16", "float32")
 
 

@@ -1,8 +1,8 @@
 """
 CLI: train StyleGAN2 on an image folder with the port, with crash-resume.
 
-The counterpart of gance_tpu/cli/train.py on one device (`--device cuda` by
-default, `--device cpu` to run on the CPU): the loop is
+The counterpart of gance_tpu/cli/train.py (`--device cuda` by default,
+`--device cpu` to run on the CPU): the loop is
 `parallel/training.py::run_training` over `parallel/data.py`'s streaming
 dataset. It checkpoints every N steps, resumes from the checkpoint
 automatically, and exports the EMA generator as an NVlabs-format .pkl that
@@ -12,8 +12,14 @@ Fréchet feature distance at checkpoint boundaries into a JSONL sidecar.
     python -m gance_tpu_torch.cli.train --dataset-directory images \
         --resolution 64 --checkpoint-path ckpt.pkl --output-network net.pkl
 
-Not ported yet, so absent here: --data-parallel and --dist-* (ROADMAP.md
-Queue 1 item 12).
+With more than one device (this process's, times the processes of
+--dist-*) the steps run data-parallel over a ('data', 'model') mesh, as
+JAX's CLI does: `--data-parallel N` sizes the data axis (a remainder would
+be a tensor-parallel 'model' axis, which raises: ROADMAP.md Queue 1 item 12,
+part 2). `--dist-coordinator host:port --dist-num-processes P
+--dist-process-id i` joins P processes; --batch-size is then per process,
+each process reads its shard of the images, and only process 0 writes the
+checkpoint and the network. --metrics-every is single-process only.
 """
 
 import json
@@ -46,6 +52,7 @@ import click
     "--output-network", type=click.Path(dir_okay=False), required=True,
     help="Write the EMA generator here as an NVlabs-format .pkl.",
 )
+@click.option("--data-parallel", type=int, default=None, help="Mesh data axis size.")
 @click.option(
     "--compute-dtype", type=click.Choice(["float32", "bfloat16"]), default="float32",
     help="bfloat16: bf16 forward and backward, fp32 master weights, Adam, EMA and losses.",
@@ -83,6 +90,15 @@ import click
     "or imported .npz); default: the deterministic random-VGG metric.",
 )
 @click.option("--seed", type=int, default=0)
+@click.option(
+    "--dist-coordinator", type=str, default=None,
+    help="host:port of process 0. Setting this (with the two options below) joins "
+    "a multi-process run: every process starts the same command with its own "
+    "--dist-process-id, the devices of all processes form one mesh, and the "
+    "dataset and batch shard per process (--batch-size is PER PROCESS).",
+)
+@click.option("--dist-num-processes", type=int, default=None)
+@click.option("--dist-process-id", type=int, default=None)
 @click.option("--device", type=str, default="cuda", show_default=True,
               help="Torch device to train on ('cuda' or 'cpu').")
 @click.option(
@@ -104,6 +120,7 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     checkpoint_path: str,
     checkpoint_every: int,
     output_network: str,
+    data_parallel: Optional[int],
     compute_dtype: str,
     remat: bool,
     scan_segment: int,
@@ -112,6 +129,9 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     metrics_path: Optional[str],
     metrics_vgg_weights: Optional[str],
     seed: int,
+    dist_coordinator: Optional[str],
+    dist_num_processes: Optional[int],
+    dist_process_id: Optional[int],
     device: str,
     run_config: Optional[str],
     log: Optional[str],
@@ -121,8 +141,19 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     if run_config is not None:
         Path(run_config).write_text(json.dumps(arguments, indent=2))
 
+    from gance_tpu_torch.cli.common import maybe_initialize_distributed
+
+    if metrics_every is not None and dist_coordinator is not None:
+        # checked before the rendezvous, which blocks until every process joins
+        raise click.UsageError(
+            "--metrics-every is single-process-only; evaluate multi-host "
+            "runs offline with network_metrics.py against the exported .pkl."
+        )
+    maybe_initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id, device)
+
     from gance_tpu_torch.models.stylegan2 import GeneratorConfig
     from gance_tpu_torch.parallel.data import StreamingImageDataset
+    from gance_tpu_torch.parallel.mesh import create_mesh, global_devices, process_group_info
     from gance_tpu_torch.parallel.training import TrainingConfig, run_training
     from gance_tpu_torch.utils.logging import add_log_file
 
@@ -139,8 +170,13 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
         learning_rate=learning_rate, r1_gamma=r1_gamma, pl_weight=pl_weight,
         compute_dtype=compute_dtype, remat=remat,
     )
-    # the batch of step s is a function of (seed + 1, s), as in gance_tpu's CLI
-    dataset = StreamingImageDataset(Path(dataset_directory), resolution, seed=seed + 1)
+    # the batch of step s is a function of (seed + 1, s), as in gance_tpu's CLI;
+    # across processes each reads its round-robin shard of the images
+    process_index, process_count = process_group_info()
+    dataset = StreamingImageDataset(Path(dataset_directory), resolution, seed=seed + 1,
+                                    host_index=process_index, host_count=process_count)
+    mesh = (create_mesh(data_parallel=data_parallel, device=device)
+            if len(global_devices(device=device)) > 1 else None)
     ckpt = Path(checkpoint_path)
     metrics_file = Path(metrics_path) if metrics_path else ckpt.with_name(
         ckpt.name + ".metrics.jsonl")
@@ -176,7 +212,7 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
     run_training(
         dataset, model_config, train_config, ckpt, total_steps, batch_size,
         checkpoint_every=checkpoint_every, output_network=Path(output_network), seed=seed,
-        device=device, scan_segment=scan_segment,
+        device=device, scan_segment=scan_segment, mesh=mesh,
         before_step=note_start if metrics_every is not None else None,
         metrics_hook=maybe_eval_metrics if metrics_every is not None else None,
     )

@@ -38,8 +38,6 @@ from gance_tpu_torch.types import ImageResolution, ImageSourceType, image_resolu
 from gance_tpu_torch.utils.divisor import divide_no_remainder
 from gance_tpu_torch.utils.logging import LOGGER
 
-_MULTI_PROCESS_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-
 
 class VideoFrames(NamedTuple):
     """
@@ -465,15 +463,22 @@ def write_source_to_disk_forward(
     With GANCE_TPU_EGRESS=raw-spill, or on a host with neither ffmpeg nor
     cv2, the video and its audio go to one raw AVI in a single pass instead.
 
-    One process only: under a torch.distributed group of more than one
-    process this raises.
+    In a torch.distributed group of several processes every process drives
+    the same frame loop (the host fetches inside synthesis are collectives),
+    but only process 0 owns the output: the others pass the frames through
+    without touching the disk.
     """
-    import torch.distributed as dist
+    from gance_tpu_torch.parallel.mesh import process_group_info
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"multi-process writing is not ported yet: {_MULTI_PROCESS_ITEM}"
-        )
+    index, _ = process_group_info()
+    if index != 0:
+        LOGGER.info("Process %d: coordinator-only write — passing %s frames through "
+                    "without writing.", index, video_path)
+
+        def passthrough() -> Iterator[np.ndarray]:
+            yield from source
+
+        return passthrough()
 
     source = iter(source)
     try:

@@ -548,20 +548,31 @@ def images_to_uint8(
 
 
 def minibatch_stddev(
-    x: torch.Tensor, group_size: int = 4, num_new_features: int = 1
+    x: torch.Tensor, group_size: int = 4, num_new_features: int = 1,
+    full: Optional[torch.Tensor] = None, offset: int = 0,
 ) -> torch.Tensor:
-    """Append the cross-minibatch stddev feature maps to NCHW x (in fp32, as
-    gance_tpu does, then cast back to x's dtype)."""
-    n, c, h, w = x.shape
+    """
+    Append the cross-minibatch stddev feature maps to NCHW x (in fp32, as
+    gance_tpu does, then cast back to x's dtype). The groups are strided over
+    the batch: sample i falls in group i mod (n / g).
+
+    Under data parallelism x holds rows [offset, offset + len(x)) of a larger
+    batch, and `full` (that whole batch, gathered differentiably) supplies
+    the groups, so that the statistics are the whole batch's, as JAX's
+    sharded step computes them.
+    """
+    batch = x if full is None else full
+    n, c, h, w = batch.shape
     g = min(group_size, n)
     if n % g != 0:
         g = 1
-    y = x.reshape(g, n // g, num_new_features, c // num_new_features, h, w).float()
+    y = batch.reshape(g, n // g, num_new_features, c // num_new_features, h, w).float()
     y = y - y.mean(dim=0, keepdim=True)
     y = y.square().mean(dim=0)
     y = torch.sqrt(y + 1e-8)
     y = y.mean(dim=(2, 3, 4))  # over the channel split, H and W: (n // g, F)
-    y = y.reshape(n // g, num_new_features, 1, 1).repeat(g, 1, h, w).to(x.dtype)
+    y = y.repeat(g, 1)[offset: offset + x.shape[0]].to(x.device)  # sample i: group i mod n/g
+    y = y.reshape(x.shape[0], num_new_features, 1, 1).expand(-1, -1, h, w).to(x.dtype)
     return torch.cat([x, y], dim=1)
 
 
@@ -581,6 +592,19 @@ def discriminator_apply(
         pass instead of keeping its activations (one non-reentrant
         `torch.utils.checkpoint` per block).
     """
+    return discriminator_head(
+        params, discriminator_features(params, images, config, compute_dtype, remat), config)
+
+
+def discriminator_features(
+    params: Params,
+    images: torch.Tensor,
+    config: GeneratorConfig,
+    compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+) -> torch.Tensor:
+    """D's resnet trunk: images (B, R, R, 3) -> NCHW features at 4x4, the
+    input of the minibatch stddev (`discriminator_head`)."""
     apply_conv_precision()
     top = config.resolution_log2
     # contiguous NCHW: from a permuted NHWC input cuDNN would emit channels-last
@@ -605,8 +629,21 @@ def discriminator_apply(
     for res in range(top, 2, -1):
         block = params[f"{2**res}x{2**res}"]
         x = checkpoint(d_block, x, block, use_reentrant=False) if checkpointed else d_block(x, block)
+    return x
+
+
+def discriminator_head(
+    params: Params,
+    x: torch.Tensor,
+    config: GeneratorConfig,
+    full: Optional[torch.Tensor] = None,
+    offset: int = 0,
+) -> torch.Tensor:
+    """D's 4x4 block and dense layers: trunk features -> fp32 logits (B, 1).
+    `full` and `offset` place x in a larger batch for the minibatch stddev
+    (`minibatch_stddev`)."""
     block = params["4x4"]
-    x = minibatch_stddev(x, config.mbstd_group_size, config.mbstd_num_features)
+    x = minibatch_stddev(x, config.mbstd_group_size, config.mbstd_num_features, full, offset)
     x = bias_act(conv2d_layer(x, block["Conv"]["weight"]), block["Conv"]["bias"], act="lrelu")
     x = x.reshape(x.shape[0], -1)  # NCHW order, the pickle's Dense0 row order
     x = bias_act(dense_layer(x, block["Dense0"]["weight"]), block["Dense0"]["bias"], act="lrelu")

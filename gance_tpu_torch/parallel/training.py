@@ -32,8 +32,14 @@ Differences from JAX, each forced by PyTorch:
     `lax.scan` is.
   * `remat` wraps each synthesis block and each resnet block of D in a
     non-reentrant `torch.utils.checkpoint` (JAX's `jax.checkpoint`).
-  * A mesh is not ported yet (ROADMAP.md Queue 1 item 12) and raises
-    NotImplementedError.
+  * Over a mesh (`make_train_step(mesh=)`) each data slot runs its rows of
+    the global batch with its own copy of the params, and the gradients
+    and metrics are summed over the slots (on the first device) and over
+    the torch.distributed group. The minibatch stddev's groups are strided
+    over the global batch, so D's 4x4 features are gathered with a
+    differentiable all-reduce (`_GatherRows`); path length takes the first
+    rows of the global batch, wherever they lie. A 'model' axis larger than
+    1 raises (ROADMAP.md Queue 1 item 12, part 2).
 """
 
 import pickle
@@ -48,18 +54,19 @@ import torch.nn.functional as F
 from gance_tpu_torch.models.stylegan2 import (
     GeneratorConfig,
     broadcast_dlatents,
-    discriminator_apply,
+    discriminator_features,
+    discriminator_head,
     init_discriminator_params,
     init_generator_params,
     mapping_apply,
     synthesis_apply,
 )
+from gance_tpu_torch.parallel.mesh import all_reduce_sum_
 from gance_tpu_torch.synthesis.runtime import params_to_device, resolve_device
 
 Params = Dict[str, Any]
 Metrics = Dict[str, torch.Tensor]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item {})"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -327,47 +334,191 @@ def _generate(g_params: Params, z1: torch.Tensor, z2: torch.Tensor, take_second:
                            remat=train_config.remat)
 
 
-def _grads(loss: torch.Tensor, params: Params) -> List[torch.Tensor]:
-    """d loss / d every leaf, zeros for the leaves it does not reach."""
-    leaves = [leaf for _, leaf in tree_leaves(params)]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+# ---------------------------------------------------------------------------
+# Data parallelism
+# ---------------------------------------------------------------------------
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the process group, differentiable to any order (its adjoint
+    is itself)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum_(x.clone())
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> torch.Tensor:
+        return _AllReduceSum.apply(grad)
+
+
+class _GatherRows(torch.autograd.Function):
+    """
+    Rows [offset, offset + len(local)) of a `total`-row batch from each
+    process -> the whole batch on every process (zeros elsewhere, summed
+    over the group: exact). Its gradient sums every process's gradient of
+    the whole batch and keeps this process's rows, so autograd through it,
+    to any order, is the gradient of the sum of every process's loss.
+    """
+
+    @staticmethod
+    def forward(ctx: Any, local: torch.Tensor, total: int, offset: int) -> torch.Tensor:
+        ctx.rows = (offset, offset + local.shape[0])
+        full = local.new_zeros((total,) + tuple(local.shape[1:]))
+        full[offset: offset + local.shape[0]] = local
+        return all_reduce_sum_(full)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> Tuple[torch.Tensor, None, None]:
+        start, stop = ctx.rows
+        return _AllReduceSum.apply(grad)[start:stop], None, None
+
+
+@dataclass
+class _Shard:
+    """One slot's part of a step: its rows of the global batch and the G and
+    D params it runs with (the state's own on the state's device, copies
+    elsewhere)."""
+
+    device: torch.device
+    rows: slice
+    g: Params
+    d: Params
+
+
+@dataclass
+class _Split:
+    """A step's batch as this process computes it: `batch` global rows,
+    this process's `shards` (rows [local.start, local.stop) in all), and
+    whether it is reduced over a process group (which holds the rest)."""
+
+    batch: int
+    shards: List[_Shard]
+    local: slice
+    multi_process: bool
+
+    @property
+    def master(self) -> torch.device:
+        return self.shards[0].device if self.shards else torch.device("cpu")
+
+    def discriminate(self, images: Sequence[torch.Tensor], model_config: GeneratorConfig,
+                     train_config: TrainingConfig) -> List[torch.Tensor]:
+        """D's logits of each shard's images, with the minibatch stddev over
+        the whole global batch (the features gathered differentiably)."""
+        dtype, remat = compute_dtype_of(train_config), train_config.remat
+        feats = [discriminator_features(s.d, x, model_config, dtype, remat)
+                 for s, x in zip(self.shards, images)]
+        full = torch.cat([f.to(self.master) for f in feats])
+        if self.multi_process:
+            full = _GatherRows.apply(full, self.batch, self.local.start)
+        return [discriminator_head(s.d, f, model_config, full, s.rows.start)
+                for s, f in zip(self.shards, feats)]
+
+    def total(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """This process's sum of per-shard scalars, on the master device."""
+        out = torch.zeros((), device=self.master)
+        for part in parts:
+            out = out + part.to(self.master)
+        return out
+
+
+def _rows(value: torch.Tensor, shard: _Shard, rows: Optional[slice] = None) -> torch.Tensor:
+    return value[shard.rows if rows is None else rows].to(shard.device)
+
+
+def _single_split(g_params: Params, d_params: Params, batch: int) -> _Split:
+    device = next(iter(tree_leaves(g_params)))[1].device
+    return _Split(batch, [_Shard(device, slice(0, batch), g_params, d_params)],
+                  slice(0, batch), False)
+
+
+def _reals_of(reals: Any, rows: slice) -> torch.Tensor:
+    """Rows of the global batch of reals: a tensor, an array or
+    `distributed.GlobalRows` (a process's rows only)."""
+    from gance_tpu_torch.parallel.distributed import GlobalRows
+
+    if isinstance(reals, GlobalRows):
+        return torch.from_numpy(np.ascontiguousarray(reals.rows(rows.start, rows.stop)))
+    if not torch.is_tensor(reals):
+        reals = torch.from_numpy(np.ascontiguousarray(reals))
+    return reals[rows]
+
+
+def _split_grads(loss: torch.Tensor, split: _Split, which: str) -> List[torch.Tensor]:
+    """d loss / d the G or D leaves, summed over this process's copies (on
+    the master device) and over the process group: the gradient of the
+    global loss."""
+    copies = list({id(getattr(s, which)): getattr(s, which) for s in split.shards}.values())
+    leaves = [[leaf for _, leaf in tree_leaves(tree)] for tree in copies]
+    flat = [leaf for tree in leaves for leaf in tree]
+    raw = torch.autograd.grad(loss, flat, allow_unused=True)
+    count = len(leaves[0])
+    grads = []
+    for i, leaf in enumerate(leaves[0]):
+        total = torch.zeros_like(leaf)
+        for copy in range(len(copies)):
+            g = raw[copy * count + i]
+            if g is not None:
+                total = total + g.to(leaf.device)
+        grads.append(total)
+    if split.multi_process:
+        flat_grads = torch.cat([g.reshape(-1) for g in grads])
+        all_reduce_sum_(flat_grads)
+        grads = [chunk.view_as(g) for chunk, g in
+                 zip(torch.split(flat_grads, [g.numel() for g in grads]), grads)]
+    return grads
+
+
+def _metric(value: torch.Tensor, split: _Split) -> torch.Tensor:
+    value = value.detach()
+    return all_reduce_sum_(value.clone()) if split.multi_process else value
 
 
 def d_step_gradients(
-    g_params: Params, d_params: Params, reals: torch.Tensor, draws: StepDraws, apply_r1: bool,
+    g_params: Params, d_params: Params, reals: Any, draws: StepDraws, apply_r1: bool,
     model_config: GeneratorConfig, train_config: TrainingConfig,
+    split: Optional[_Split] = None,
 ) -> Tuple[List[torch.Tensor], Metrics]:
     """The D step's gradients (leaves in sorted key order) and its metrics.
-    Fakes are made without a graph: JAX differentiates only w.r.t. D."""
-    dtype = compute_dtype_of(train_config)
+    Fakes are made without a graph: JAX differentiates only w.r.t. D. Under
+    data parallelism (`split`) each shard runs its rows of the global batch
+    and the gradients are the global loss's."""
+    split = split or _single_split(g_params, d_params, draws.z1.shape[0])
     with torch.no_grad():
-        fakes = _generate(g_params, draws.z1, draws.z2, draws.d_mix, draws.d_noise,
-                          model_config, train_config)
-    remat = train_config.remat
-    fake_logits = discriminator_apply(d_params, fakes, model_config, dtype, remat)
-    reals = reals.float().detach().requires_grad_(apply_r1)
-    real_logits = discriminator_apply(d_params, reals, model_config, dtype, remat)
-    loss = F.softplus(fake_logits).mean() + F.softplus(-real_logits).mean()
+        fakes = [_generate(s.g, _rows(draws.z1, s), _rows(draws.z2, s), _rows(draws.d_mix, s),
+                           [_rows(n, s) for n in draws.d_noise], model_config, train_config)
+                 for s in split.shards]
+    fake_logits = split.discriminate(fakes, model_config, train_config)
+    real_images = [_reals_of(reals, s.rows).to(s.device).float().detach()
+                   .requires_grad_(apply_r1) for s in split.shards]
+    real_logits = split.discriminate(real_images, model_config, train_config)
+    batch = split.batch
+    loss = (split.total([F.softplus(x).sum() for x in fake_logits]) / batch
+            + split.total([F.softplus(-x).sum() for x in real_logits]) / batch)
     r1 = torch.zeros((), device=loss.device)
     if apply_r1:
-        (r1_grads,) = torch.autograd.grad(real_logits.sum(), reals, create_graph=True)
-        penalty = r1_grads.square().sum(dim=(1, 2, 3)).mean()
+        r1_grads = torch.autograd.grad(split.total([x.sum() for x in real_logits]), real_images,
+                                       create_graph=True)
+        penalty = split.total([g.square().sum() for g in r1_grads]) / batch
         r1 = penalty * (train_config.r1_gamma * 0.5) * train_config.r1_interval
-    grads = _grads(loss + r1, d_params)
-    return grads, {"d_loss": loss.detach(), "r1": r1.detach()}
+    grads = _split_grads(loss + r1, split, "d")
+    return grads, {"d_loss": _metric(loss, split), "r1": _metric(r1, split)}
 
 
 def g_step_gradients(
     g_params: Params, d_params: Params, draws: StepDraws, pl_mean: torch.Tensor, apply_pl: bool,
     model_config: GeneratorConfig, train_config: TrainingConfig,
+    split: Optional[_Split] = None,
 ) -> Tuple[List[torch.Tensor], Metrics]:
-    """The G step's gradients (w.r.t. G's leaves only) and its metrics."""
+    """The G step's gradients (w.r.t. G's leaves only) and its metrics. Path
+    length runs on the first rows of the global batch, wherever they lie."""
+    split = split or _single_split(g_params, d_params, draws.z1g.shape[0])
     dtype = compute_dtype_of(train_config)
-    fakes = _generate(g_params, draws.z1g, draws.z2g, draws.g_mix, draws.g_noise,
-                      model_config, train_config)
-    loss = F.softplus(-discriminator_apply(d_params, fakes, model_config, dtype,
-                                           train_config.remat)).mean()
+    fakes = [_generate(s.g, _rows(draws.z1g, s), _rows(draws.z2g, s), _rows(draws.g_mix, s),
+                       [_rows(n, s) for n in draws.g_noise], model_config, train_config)
+             for s in split.shards]
+    logits = split.discriminate(fakes, model_config, train_config)
+    loss = split.total([F.softplus(-x).sum() for x in logits]) / split.batch
     pl_penalty = pl_length = torch.zeros((), device=loss.device)
     if apply_pl:
         # NVlabs pathreg: |d sum(images * probe) / d w+| per sample, averaged
@@ -375,20 +526,28 @@ def g_step_gradients(
         # gradient goes through the Jacobian (second order through synthesis)
         # and through w+'s dependence on the mapping network
         pl_batch = draws.pl_mix.shape[0]
-        dlatents = mixed_dlatents(g_params, draws.z1g[:pl_batch], draws.z2g[:pl_batch],
-                                  draws.pl_mix, model_config)
-        images = synthesis_apply(g_params, dlatents, model_config, noise_mode="random",
-                                 noise_planes=draws.pl_noise, compute_dtype=dtype,
-                                 remat=train_config.remat).float()
-        (pl_grads,) = torch.autograd.grad((images * draws.pl_probe).sum(), dlatents,
-                                          create_graph=True)
-        lengths = torch.sqrt(pl_grads.square().sum(dim=2).mean(dim=1))
-        penalty = (lengths - pl_mean.detach()).square().mean()
+        penalties, lengths_sum = [], []
+        for s in split.shards:
+            rows = slice(s.rows.start, min(s.rows.stop, pl_batch))
+            if rows.stop <= rows.start:
+                continue  # this shard holds none of the path-length rows
+            local = slice(rows.start - s.rows.start, rows.stop - s.rows.start)
+            dlatents = mixed_dlatents(s.g, _rows(draws.z1g, s)[local], _rows(draws.z2g, s)[local],
+                                      _rows(draws.pl_mix, s, rows), model_config)
+            images = synthesis_apply(s.g, dlatents, model_config, noise_mode="random",
+                                     noise_planes=[_rows(n, s, rows) for n in draws.pl_noise],
+                                     compute_dtype=dtype, remat=train_config.remat).float()
+            (pl_grads,) = torch.autograd.grad((images * _rows(draws.pl_probe, s, rows)).sum(),
+                                              dlatents, create_graph=True)
+            lengths = torch.sqrt(pl_grads.square().sum(dim=2).mean(dim=1))
+            penalties.append((lengths - pl_mean.detach().to(s.device)).square().sum())
+            lengths_sum.append(lengths.sum())
+        penalty = split.total(penalties) / pl_batch
         pl_penalty = penalty * (train_config.pl_weight * train_config.pl_interval)
-        pl_length = lengths.mean()
-    grads = _grads(loss + pl_penalty, g_params)
-    return grads, {"g_loss": loss.detach(), "pl": pl_penalty.detach(),
-                   "pl_length": pl_length.detach()}
+        pl_length = split.total(lengths_sum) / pl_batch
+    grads = _split_grads(loss + pl_penalty, split, "g")
+    return grads, {"g_loss": _metric(loss, split), "pl": _metric(pl_penalty, split),
+                   "pl_length": _metric(pl_length, split)}
 
 
 def _adam_step(opt: torch.optim.Adam, params: Params, grads: List[torch.Tensor]) -> None:
@@ -398,34 +557,86 @@ def _adam_step(opt: torch.optim.Adam, params: Params, grads: List[torch.Tensor])
     opt.zero_grad(set_to_none=True)
 
 
+class _Replicas:
+    """Copies of the state's G and D params on the mesh's other local
+    devices, refreshed from the state before each step."""
+
+    def __init__(self) -> None:
+        self._trees: Dict[torch.device, Tuple[Params, Params]] = {}
+
+    def split(self, state: TrainingState, mesh: Any, batch: int) -> _Split:
+        from gance_tpu_torch.parallel.mesh import process_rows, shard_batch
+
+        master = state.pl_mean.device
+        shards = []
+        for device, rows in shard_batch(mesh, batch):
+            if device == master:
+                shards.append(_Shard(device, rows, state.g_params, state.d_params))
+                continue
+            if device not in self._trees:
+                self._trees[device] = (_trainable(state.g_params, device),
+                                       _trainable(state.d_params, device))
+            g, d = self._trees[device]
+            with torch.no_grad():
+                for tree, source in ((g, state.g_params), (d, state.d_params)):
+                    for (_, copy), (_, leaf) in zip(tree_leaves(tree), tree_leaves(source)):
+                        copy.copy_(leaf)
+            shards.append(_Shard(device, rows, g, d))
+        if not shards:
+            raise ValueError(f"a batch of {batch} leaves this process's data slots empty")
+        return _Split(batch, shards, process_rows(mesh, batch), mesh.grouped)
+
+
+def _check_mesh(mesh: Optional[Any]) -> None:
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        from gance_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
+
+        raise NotImplementedError(MODEL_AXIS_ITEM)
+
+
 def make_train_step(
     model_config: GeneratorConfig,
     train_config: TrainingConfig = TrainingConfig(),
     mesh: Optional[Any] = None,
-) -> Callable[[TrainingState, torch.Tensor, StepDraws], Tuple[TrainingState, Metrics]]:
+) -> Callable[[TrainingState, Any, StepDraws], Tuple[TrainingState, Metrics]]:
     """
     The per-step trainer: (state, real images (B, R, R, 3) float in [-1, 1] on
     the state's device, the step's draws) -> (the same state, updated in
     place, and metrics d_loss, g_loss, r1, pl, pl_length as 0-d tensors).
-    """
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh " + _NOT_PORTED.format(12))
-    compute_dtype_of(train_config)
 
-    def train_step(state: TrainingState, reals: torch.Tensor,
+    With `mesh` (a ('data', 'model') mesh, model 1; the state placed by
+    `shard_training_state`), the global batch splits over the data axis:
+    each local slot runs its rows with its copy of the params, the
+    minibatch stddev and path length see the global batch, and gradients
+    and metrics are summed over the slots and the process group, so a step
+    equals the single-device step on the global batch. The reals are the
+    global batch, or a process's rows of it (`distributed.global_batch`);
+    the draws are the global batch's, the same on every process.
+    """
+    _check_mesh(mesh)
+    compute_dtype_of(train_config)
+    replicas = _Replicas() if mesh is not None else None
+
+    def train_step(state: TrainingState, reals: Any,
                    draws: StepDraws) -> Tuple[TrainingState, Metrics]:
         apply_r1 = state.step % train_config.r1_interval == 0
         apply_pl = train_config.pl_enabled and state.step % train_config.pl_interval == 0
+        batch = draws.z1.shape[0]
+        split = (replicas.split(state, mesh, batch) if replicas is not None
+                 else _single_split(state.g_params, state.d_params, batch))
+        if replicas is None and torch.is_tensor(reals):
+            reals = reals.to(split.master)
 
         d_grads, d_metrics = d_step_gradients(state.g_params, state.d_params, reals, draws,
-                                              apply_r1, model_config, train_config)
+                                              apply_r1, model_config, train_config, split)
         _adam_step(state.d_opt_state, state.d_params, d_grads)
         del d_grads
+        if replicas is not None:  # the G step runs against the updated D everywhere
+            split = replicas.split(state, mesh, batch)
 
-        # the G step runs against the updated D
         g_grads, g_metrics = g_step_gradients(state.g_params, state.d_params, draws,
                                               state.pl_mean, apply_pl, model_config,
-                                              train_config)
+                                              train_config, split)
         _adam_step(state.g_opt_state, state.g_params, g_grads)
         del g_grads
 
@@ -434,7 +645,10 @@ def make_train_step(
                 state.pl_mean = state.pl_mean + train_config.pl_decay * (
                     g_metrics["pl_length"] - state.pl_mean)
             # dlatent_avg ("w_avg"): no gradient; tracks the mean mapping output
-            w_avg = mapping_apply(state.g_params, draws.z1g, model_config).mean(dim=0)
+            # of the global batch (this process's rows, summed over processes)
+            w = mapping_apply(state.g_params, draws.z1g[split.local].to(split.master),
+                              model_config)
+            w_avg = _metric(w.sum(dim=0), split) / batch if split.multi_process else w.mean(dim=0)
             dlatent_avg = w_avg + (state.g_params["dlatent_avg"] - w_avg) * train_config.dlatent_avg_beta
             state.g_params["dlatent_avg"].copy_(dlatent_avg)
             beta = train_config.ema_beta
@@ -463,16 +677,20 @@ def make_train_scan(
     nothing is read back; the steps are those of `make_train_step`, so S
     scanned steps equal S single steps.
     """
+    from gance_tpu_torch.parallel.distributed import GlobalRows
+
     train_step = make_train_step(model_config, train_config, mesh)
 
     def train_segment(state: TrainingState, reals_block: Any,
                       draws: Sequence[StepDraws]) -> Tuple[TrainingState, Metrics]:
         if len(draws) != len(reals_block):
             raise ValueError(f"{len(reals_block)} batches of reals but {len(draws)} draws")
-        device = state.pl_mean.device
-        if not isinstance(reals_block, torch.Tensor):
-            reals_block = torch.from_numpy(np.ascontiguousarray(reals_block, np.float32))
-        block = reals_block.to(device, torch.float32)
+        if isinstance(reals_block, GlobalRows):  # a process's rows (global_scan_block)
+            block: Sequence[Any] = [reals_block.step(s) for s in range(len(reals_block))]
+        else:
+            if not isinstance(reals_block, torch.Tensor):
+                reals_block = torch.from_numpy(np.ascontiguousarray(reals_block, np.float32))
+            block = reals_block.to(state.pl_mean.device, torch.float32)
         per_step = []
         for reals, step_draws in zip(block, draws):
             state, metrics = train_step(state, reals, step_draws)
@@ -489,9 +707,63 @@ def make_train_scan(
 CHECKPOINT_FORMAT = "gance_tpu_torch.training/1"
 
 
+def shard_training_state(
+    mesh: Any,
+    state: TrainingState,
+    train_config: TrainingConfig = TrainingConfig(),
+) -> TrainingState:
+    """
+    Place a training state for `make_train_step(mesh=)` (JAX's
+    `shard_training_state`, with the 'model' axis at 1): on the mesh's first
+    local device, and, across processes, process 0's values everywhere
+    (params, EMA, Adam moments, step and pl_mean), so that processes that
+    loaded different checkpoints, or none, start from one state. Collective
+    across processes. The other local devices get their copies of G and D
+    at each step.
+    """
+    from gance_tpu_torch.parallel.mesh import broadcast_
+
+    _check_mesh(mesh)
+    device = mesh.first_device
+    blob = {
+        "g_params": tree_to_numpy(state.g_params), "d_params": tree_to_numpy(state.d_params),
+        "ema_params": tree_to_numpy(state.ema_params),
+        "g_adam": _adam_to_numpy(state.g_opt_state, state.g_params),
+        "d_adam": _adam_to_numpy(state.d_opt_state, state.d_params),
+    }
+    placed = training_state_from_arrays(
+        blob["g_params"], blob["d_params"], blob["ema_params"], state.step, float(state.pl_mean),
+        blob["g_adam"], blob["d_adam"], train_config, device)
+    if not mesh.grouped:
+        return placed
+    with torch.no_grad():
+        for tree in (placed.g_params, placed.d_params, placed.ema_params):
+            for _, leaf in tree_leaves(tree):
+                broadcast_(leaf.data)
+        for opt in (placed.g_opt_state, placed.d_opt_state):
+            for moments in opt.state.values():
+                broadcast_(moments["exp_avg"])
+                broadcast_(moments["exp_avg_sq"])
+        count = blob["g_adam"]["count"]
+        scalars = torch.tensor([float(placed.step), float(placed.pl_mean), float(count)],
+                               dtype=torch.float64, device=device)
+        broadcast_(scalars)
+    placed.step, placed.pl_mean = int(scalars[0]), scalars[1].float().clone()
+    for opt in (placed.g_opt_state, placed.d_opt_state):
+        for moments in opt.state.values():
+            moments["step"] = torch.tensor(float(scalars[2]), dtype=torch.float32)
+    return placed
+
+
 def save_checkpoint(path: Path, state: TrainingState) -> None:
     """Write the state as numpy trees to `path` + '.tmp', then rename it over
-    `path`, so a crash mid-write leaves the previous checkpoint whole."""
+    `path`, so a crash mid-write leaves the previous checkpoint whole. In a
+    group of several processes only process 0 writes (every process holds
+    the whole state, so nothing is gathered first)."""
+    from gance_tpu_torch.parallel.distributed import is_coordinator
+
+    if not is_coordinator():
+        return
     blob = {
         "format": CHECKPOINT_FORMAT,
         "step": int(state.step),
@@ -543,6 +815,7 @@ def run_training(
     after_step: Optional[Callable[[int, TrainingState, Metrics], None]] = None,
     scan_segment: int = 1,
     metrics_hook: Optional[Callable[[int, TrainingState], None]] = None,
+    mesh: Optional[Any] = None,
 ) -> TrainingState:
     """
     Train to `total_steps`, resuming from `checkpoint_path` when it exists
@@ -563,20 +836,34 @@ def run_training(
     segment of 1 both run around every step. `metrics_hook(step, state)` runs
     at each checkpoint boundary, after the checkpoint, with the count of
     steps taken (the CLI's `--metrics-every` evaluation).
+
+    With `mesh` the steps run data-parallel over its data axis
+    (`make_train_step(mesh=)`), the state on the mesh's first device. Across
+    processes `batch_size` is per process, as in JAX's CLI: each process
+    trains on its dataset shard's batches as its rows of the global batch of
+    batch_size x processes, the draws are the global batch's, process 0's
+    state is everyone's start, and only process 0 writes files.
     """
     from gance_tpu_torch.models.pickle_loader import save_generator_pickle
     from gance_tpu_torch.utils.logging import LOGGER
 
     if scan_segment < 1:
         raise ValueError(f"scan_segment must be at least 1, got {scan_segment}")
-    device = resolve_device(device)
+    from gance_tpu_torch.parallel.distributed import global_scan_block, is_coordinator
+
+    device = resolve_device(device) if mesh is None else mesh.first_device
     ckpt = Path(checkpoint_path)
     if ckpt.exists():
         state = load_checkpoint(ckpt, train_config, device)
         LOGGER.info("Resumed from %s at step %d", ckpt, state.step)
     else:
         state = init_training_state(seed, model_config, train_config, device)
-    train_segment = make_train_scan(model_config, train_config)
+    global_size = batch_size
+    if mesh is not None:
+        state = shard_training_state(mesh, state, train_config)
+        global_size = batch_size * mesh.process_count
+        LOGGER.info("Training over mesh %s, global batch %d", mesh.shape, global_size)
+    train_segment = make_train_scan(model_config, train_config, mesh)
     pending: List[Tuple[int, np.ndarray]] = []
     for step, reals in dataset.batches(state.step, total_steps, batch_size):
         pending.append((step, np.asarray(reals)))
@@ -585,9 +872,12 @@ def run_training(
             continue
         if before_step is not None:
             before_step(pending[0][0])
-        draws = [draw_step(seed, s, batch_size, model_config, train_config, device)
+        draws = [draw_step(seed, s, global_size, model_config, train_config, device)
                  for s, _ in pending]
-        state, stacked = train_segment(state, np.stack([r for _, r in pending]), draws)
+        block = np.stack([r for _, r in pending])
+        if mesh is not None:
+            block = global_scan_block(mesh, block)
+        state, stacked = train_segment(state, block, draws)
         metrics = {k: v[-1] for k, v in stacked.items()}
         pending.clear()
         if after_step is not None:
@@ -601,7 +891,7 @@ def run_training(
             )
             if metrics_hook is not None:
                 metrics_hook(step + 1, state)
-    if output_network is not None:
+    if output_network is not None and is_coordinator():
         save_generator_pickle(state.ema_params, Path(output_network))
         LOGGER.info("Wrote EMA generator to %s", output_network)
     return state

@@ -8,9 +8,16 @@ on one device).
 killed run resumes at the durable frame count, synthesizing only the frames
 after it.
 
-Not ported yet, so they raise NotImplementedError naming their ROADMAP item:
-the multi-device placements (`data_parallel`, `device_per_network`,
-`network_parallel`) and the debug visualization video (`debug_path`).
+The placements are JAX's, one at a time (`_resolve_placement`):
+`data_parallel` (a ('data', 'model') mesh), `device_per_network` and
+`network_parallel`; too few devices degrade loudly to the default. In a
+torch.distributed group of several processes the default is pure data
+parallelism over every process's devices: each process synthesizes its
+share of every batch, every process runs the same frame loop, and only
+process 0 writes (`media/video.py::write_source_to_disk_forward`).
+
+The debug visualization video (`debug_path`) is not ported yet and raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import contextlib
@@ -30,7 +37,6 @@ from gance_tpu_torch.utils.device import Device, resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 from gance_tpu_torch.utils.profiling import timed_iterator, timed_stage, trace
 
-MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
 DEBUG_VIDEO_ITEM = "ROADMAP.md Queue 1 item 13 (debug visualisation, viz/)"
 
 
@@ -38,6 +44,77 @@ def _compute_dtype(compute_dtype: Optional[str]):
     import torch
 
     return {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}[compute_dtype]
+
+
+def _device_count(device: Device) -> int:
+    """Every process's devices: JAX's len(jax.devices())."""
+    from gance_tpu_torch.parallel.mesh import global_devices
+
+    return len(global_devices(device=device))
+
+
+def _build_mesh(data_parallel: Optional[int], device: Device = "cuda"):
+    """('data', 'model') mesh for multi-device synthesis, or None for one device."""
+    if data_parallel is None:
+        return None
+    from gance_tpu_torch.parallel.mesh import create_mesh
+
+    if _device_count(device) < 2:
+        LOGGER.warning(
+            "--data-parallel requested but only one device is visible; "
+            "running single-device."
+        )
+        return None
+    return create_mesh(data_parallel=data_parallel, device=device)
+
+
+def _check_network_parallel(requested: bool, network_paths: List[Path],
+                            device: Device = "cuda") -> bool:
+    """Network-parallel synthesis needs >= one device per network; degrade loudly."""
+    if not requested:
+        return False
+    count = _device_count(device)
+    if count < len(network_paths):
+        LOGGER.warning(
+            "--network-parallel requested but %d networks > %d devices; "
+            "running the default resident-network path.",
+            len(network_paths), count,
+        )
+        return False
+    return True
+
+
+def _resolve_placement(
+    data_parallel: Optional[int],
+    device_per_network: bool,
+    network_parallel: bool,
+    network_paths: List[Path],
+    device: Device = "cuda",
+):
+    """
+    One placement flag at a time: conflicting flags raise (the CLI promises
+    mutual exclusion). Too few devices degrade loudly to the default
+    resident-network path. In a group of several processes with no flag,
+    pure data parallelism over every process's devices.
+    :return: (mesh or None, device_per_network, network_parallel)
+    """
+    if sum([data_parallel is not None, device_per_network, network_parallel]) > 1:
+        raise ValueError(
+            "--data-parallel, --one-network-per-device, and --network-parallel "
+            "are mutually exclusive"
+        )
+    from gance_tpu_torch.parallel.mesh import create_mesh, process_group_info
+
+    if (data_parallel is None and not device_per_network and not network_parallel
+            and process_group_info()[1] > 1):
+        LOGGER.info(
+            "Multi-process render: defaulting to pure data parallelism over all "
+            "%d devices of the group.", _device_count(device),
+        )
+        return create_mesh(device=device), False, False
+    mesh = _build_mesh(data_parallel, device)
+    return mesh, device_per_network, _check_network_parallel(network_parallel, network_paths,
+                                                             device)
 
 
 def check_resumable(resumable: bool, debug_path: Optional[Path]) -> None:
@@ -100,16 +177,11 @@ def noise_blend_api(
     """
     del debug_window, debug_side_length, debug_3d  # the debug video only
     check_resumable(resumable, debug_path)
-    for name, requested in (
-        ("data_parallel", data_parallel is not None),
-        ("device_per_network", device_per_network),
-        ("network_parallel", network_parallel),
-    ):
-        if requested:
-            raise NotImplementedError(f"{name} is not ported yet: {MULTI_DEVICE_ITEM}")
     if debug_path is not None:
         raise NotImplementedError(f"the debug video is not ported yet: {DEBUG_VIDEO_ITEM}")
     device = resolve_device(device)
+    mesh, device_per_network, network_parallel = _resolve_placement(
+        data_parallel, device_per_network, network_parallel, network_paths, device)
     audio_paths = [Path(p) for p in wav]
     dtype = _compute_dtype(compute_dtype)
     trace_ctx = trace(Path(trace_dir)) if trace_dir else contextlib.nullcontext()
@@ -119,6 +191,9 @@ def noise_blend_api(
     with trace_ctx, MultiNetwork(
         network_paths=network_paths,
         output_side_length=output_side_length,
+        mesh=mesh,
+        device_per_network=device_per_network,
+        network_parallel=network_parallel,
         device=device,
         **({"compute_dtype": dtype} if dtype is not None else {}),
     ) as multi_networks:

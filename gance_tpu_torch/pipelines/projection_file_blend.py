@@ -14,9 +14,11 @@ each overlay decision in a JSON-lines sidecar as it is made: a killed run
 resumes synthesis at the durable frame count and detection at the decided
 frame count.
 
-Not ported yet, so they raise NotImplementedError naming their ROADMAP item:
-the multi-device placements (`data_parallel`, `device_per_network`,
-`network_parallel`) and the debug visualization video (`debug_path`).
+The placements (`data_parallel`, `device_per_network`, `network_parallel`,
+and pure data parallelism across processes) are noise_blend's
+`_resolve_placement`; only process 0 writes. The debug visualization video
+(`debug_path`) is not ported yet and raises NotImplementedError naming its
+ROADMAP item.
 """
 
 import contextlib
@@ -42,8 +44,8 @@ from gance_tpu_torch.overlay.common import write_boxes_onto_image
 from gance_tpu_torch.overlay.eye_tracking import compute_eye_tracking_overlay
 from gance_tpu_torch.pipelines.noise_blend import (
     DEBUG_VIDEO_ITEM,
-    MULTI_DEVICE_ITEM,
     _compute_dtype,
+    _resolve_placement,
     check_resumable,
 )
 from gance_tpu_torch.projection.file_reader import (
@@ -110,13 +112,6 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
     """
     del debug_window, debug_side_length, debug_3d  # the debug video only
     check_resumable(resumable, debug_path)
-    for name, requested in (
-        ("data_parallel", data_parallel is not None),
-        ("device_per_network", device_per_network),
-        ("network_parallel", network_parallel),
-    ):
-        if requested:
-            raise NotImplementedError(f"{name} is not ported yet: {MULTI_DEVICE_ITEM}")
     if debug_path is not None:
         raise NotImplementedError(f"the debug video is not ported yet: {DEBUG_VIDEO_ITEM}")
     overlay_enabled = all(p is not None for p in (phash_distance, bbox_distance, track_length))
@@ -127,6 +122,8 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
     if music_mask_enabled and not overlay_enabled:
         raise ValueError("Overlay music mask without overlay being enabled is not supported!")
     device = resolve_device(device)
+    placement = _resolve_placement(data_parallel, device_per_network, network_parallel,
+                                   network_paths, device)
     trace_ctx = trace(Path(trace_dir)) if trace_dir else contextlib.nullcontext()
 
     with trace_ctx, load_projection_file(Path(projection_file_path)) as reader:
@@ -156,6 +153,7 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
             resumable=resumable,
             resume_chunk_frames=resume_chunk_frames,
             projection_file_path=Path(projection_file_path),
+            placement=placement,
         )
     LOGGER.info("projection_file_blend complete: %s", output_path)
 
@@ -183,6 +181,7 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     resumable: bool = False,
     resume_chunk_frames: int = 300,
     projection_file_path: Optional[Path] = None,
+    placement: Tuple = (None, False, False),
 ) -> None:
     """
     The render over an open projection file. `reader` needs only
@@ -191,15 +190,20 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     in-memory stand-in. `overlay_gates` is (phash, bbox distance, track
     length), or None for no overlay; a rolling-sum window turns the
     music-complexity mask on. `projection_file_path` enters a resumable
-    render's fingerprint beside the file's target md5.
+    render's fingerprint beside the file's target md5. `placement` is
+    `_resolve_placement`'s (mesh, device_per_network, network_parallel).
     """
     check_resumable(resumable, None)
+    mesh, device_per_network, network_parallel = placement
     audio_paths = [Path(p) for p in wav]
     dtype = _compute_dtype(compute_dtype)
     # No output_side_length: synthesized frames leave the device at the
     # network's size and are cubic-scaled on the host, as the targets are.
     with MultiNetwork(
         network_paths=network_paths,
+        mesh=mesh,
+        device_per_network=device_per_network,
+        network_parallel=network_parallel,
         device=device,
         **({"compute_dtype": dtype} if dtype is not None else {}),
     ) as multi_networks:

@@ -20,6 +20,7 @@ images and noises; file_reader.py detects and unswaps that layout).
 """
 
 import itertools
+import os
 from contextlib import contextmanager
 from pathlib import Path
 from typing import TYPE_CHECKING, List, Optional, Tuple, Union
@@ -310,7 +311,11 @@ def project_video_to_file(
     """
     Project every frame of a video into a network's latent space, streaming results
     into a projection file (reference projector_file_writer.py:617-802), on
-    `device`. `mesh` (multi-device projection) is not ported yet and raises.
+    `device`, or data-parallel over `mesh` (the projection batch is raised to
+    fill its data axis). In a group of several processes every process runs
+    the same loop, only process 0 writes the file (the others drive the
+    null writer), and a process that fails exits at once so that its peers
+    fail in their next collective instead of hanging there.
 
     :param vgg_weights_path: pretrained perceptual weights — the NVlabs
         `vgg16_zhang_perceptual.pkl` or an imported `.npz`; None selects the
@@ -330,9 +335,7 @@ def project_video_to_file(
     from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
     from gance_tpu_torch.utils.hashing import hash_file
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP.md Queue 1 item 12 (multi-device)")
+    from gance_tpu_torch.parallel.mesh import data_axis_size, process_group_info
 
     video = frames_in_video(
         video_path=path_to_video,
@@ -354,6 +357,14 @@ def project_video_to_file(
     else:
         num_projection_frames = video.effective_frame_count
 
+    data_axis = data_axis_size(mesh)
+    if projection_batch < data_axis:
+        # Frames are independent: fill the data axis with frames rather than
+        # pad every batch with discarded copies of the last one.
+        LOGGER.info("Raising projection batch %d -> %d to fill the mesh data axis.",
+                    projection_batch, data_axis)
+        projection_batch = data_axis
+
     settings = ProjectorSettings(num_steps=steps_per_projection)
     if compute_dtype is not None:
         settings.compute_dtype = compute_dtype
@@ -367,6 +378,7 @@ def project_video_to_file(
         path_to_network,
         expected_time_per_step=expected_time_per_step,
         settings=settings,
+        mesh=mesh,
         vgg_weights_path=vgg_weights_path,
         device=device,
     )
@@ -397,12 +409,26 @@ def project_video_to_file(
         or images_histories_enabled
     )
     frames_iterator = itertools.islice(video.frames, num_frames_to_project)
-    _projection_write_loop(
-        ProjectionFileWriter, projection_file_path, attributes, frames_iterator,
-        projection_batch, projector, batch_number, num_projection_frames,
-        any_histories, images_histories_enabled, noises_histories_enabled,
-        warm_start,
-    )
+    process_index, process_count = process_group_info()
+    writer_factory = ProjectionFileWriter if process_index == 0 else NullProjectionFileWriter
+    try:
+        _projection_write_loop(
+            writer_factory, projection_file_path, attributes, frames_iterator,
+            projection_batch, projector, batch_number, num_projection_frames,
+            any_histories, images_histories_enabled, noises_histories_enabled,
+            warm_start,
+        )
+    except BaseException:
+        if process_count > 1:
+            LOGGER.exception(
+                "Projection failed on process %d of %d; exiting so that peer processes "
+                "abort instead of hanging in collectives.", process_index, process_count,
+            )
+            # os._exit, not sys.exit or destroy_process_group: both wait on
+            # peers that sit in a collective. The dead process's closed
+            # sockets fail the peers' next collective.
+            os._exit(1)
+        raise
     LOGGER.info("Projection totally complete!")
 
 

@@ -63,8 +63,6 @@ from gance_tpu_torch.utils.logging import LOGGER
 
 StepCallback = Callable[[int, np.ndarray, List[np.ndarray], np.ndarray], None]
 
-_MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-
 
 class ProjectionResult(NamedTuple):
     """Final outputs of one frame's projection."""
@@ -223,14 +221,43 @@ def _wait(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclass
+class _ProjectionShard:
+    """One data slot's frames of a projection: its rows of the (padded)
+    batch, their optimized w and planes, Adam, targets and the perceptual
+    net, all on the slot's device."""
+
+    device: torch.device
+    rows: slice
+    w: torch.Tensor
+    noises: List[torch.Tensor]
+    opt: torch.optim.Adam
+    target_proc: torch.Tensor
+    perceptual: VGGParams
+
+    def __len__(self) -> int:
+        return self.rows.stop - self.rows.start
+
+
 class Projector:
     """
     Projects images into a single generator's latent space: the port's
     counterpart of gance_tpu's `TPUProjector`, with its constructor, `from_pkl`,
     `project`, `project_batch` and `evaluate_distance`. Params stay on
     `device` ("cuda" unless the caller asks for the CPU) and are never
-    differentiated. `mesh` is not ported and raises; `settings.remat`
-    recomputes each synthesis block in the backward pass.
+    differentiated. `settings.remat` recomputes each synthesis block in the
+    backward pass.
+
+    With `mesh` (a ('data', 'model') mesh, model 1) every batch-leading
+    array splits over the data axis: the params are copied to each local
+    device, each slot optimizes its frames (its own w, planes and Adam
+    moments; frames are independent, so the summed loss gives each frame
+    its own gradient), the batch is padded to a multiple of the data axis by
+    repeating the last frame, and the draws (cold-start planes, w jitter)
+    are the whole padded batch's on every process, each slot keeping its
+    rows, so a data-parallel projection equals a single-device one. Across
+    processes every process passes the same full batch and the host fetches
+    are all_gathers (collectives; callers keep file writes to process 0).
     """
 
     def __init__(
@@ -245,16 +272,24 @@ class Projector:
         mesh: Optional[Any] = None,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"mesh= is not ported yet: {_MULTI_DEVICE_ITEM}")
+        from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
+
+        self.mesh = mesh
+        self._data_axis = data_axis_size(mesh)
         # Copy the settings (never mutate a caller-owned object); an explicit
         # num_steps kwarg overrides the settings value, otherwise settings win.
         self.settings = replace(settings) if settings else ProjectorSettings()
         if num_steps is not None:
             self.settings.num_steps = num_steps
         self.config = config
-        self.device = resolve_device(device)
-        self.params = params_to_device(params, self.device)
+        if mesh is not None:
+            self._replicas = generator_param_sharding(mesh, params)
+            self.device = mesh.first_device
+            self.params = self._replicas[self.device]
+        else:
+            self.device = resolve_device(device)
+            self.params = params_to_device(params, self.device)
+            self._replicas = {}  # one device: self.params serves every tensor
         self.expected_time_per_step = expected_time_per_step
         # Step 0 includes the kernels' first launches (and their build, when
         # not built yet), so it gets its own, longer budget.
@@ -269,7 +304,8 @@ class Projector:
             if vgg_weights_path is not None
             else random_vgg_params(seed=0)
         )
-        self._perceptual_device_cache: Optional[Tuple[Dict[str, np.ndarray], VGGParams]] = None
+        self._perceptual_device_cache: Dict[torch.device, Tuple[Dict[str, np.ndarray],
+                                                              VGGParams]] = {}
         self._noise_names = sorted(
             self.params["synthesis"].get("noise", {}).keys(), key=lambda n: int(n[5:])
         )
@@ -287,14 +323,17 @@ class Projector:
         """(h, w) of each noise plane, in layer order."""
         return [tuple(self.params["synthesis"]["noise"][n].shape[2:]) for n in self._noise_names]
 
-    def _perceptual_on_device(self) -> VGGParams:
-        """The perceptual net's weights on the device, uploaded once and
-        cached; swapping self._perceptual_params (a new dict) invalidates."""
+    def _perceptual_on_device(self, device: Optional[torch.device] = None) -> VGGParams:
+        """The perceptual net's weights on `device` (the projector's by
+        default), uploaded once and cached; swapping self._perceptual_params
+        (a new dict) invalidates."""
+        device = self.device if device is None else device
         params = self._perceptual_params
-        cache = self._perceptual_device_cache
+        cache = self._perceptual_device_cache.get(device)
         if cache is None or cache[0] is not params:
-            self._perceptual_device_cache = (params, vgg_params_to_device(params, self.device))
-        return self._perceptual_device_cache[1]
+            cache = (params, vgg_params_to_device(params, device))
+            self._perceptual_device_cache[device] = cache
+        return cache[1]
 
     def _compute_dlatent_stats(self) -> None:
         """Sampled w average/std (NVlabs uses 10k z samples)."""
@@ -311,17 +350,21 @@ class Projector:
         """(B, 512) + noise planes (B, 1, h, w) -> (B, R, R, 3) fp32 image."""
         dlatents = w[:, None, :].expand(-1, self.config.num_style_rows, -1)
         return synthesis_apply(
-            self.params, dlatents, self.config, noise_mode="random", noise_planes=list(noises),
+            self._replicas.get(w.device, self.params), dlatents, self.config, noise_mode="random",
+            noise_planes=list(noises),
             compute_dtype=self._compute_dtype,
             phase_top_block_mode=resolve_phase_top_block(self.config),
             remat=self.settings.remat,
         )
 
-    def _target_proc(self, target_images: np.ndarray) -> torch.Tensor:
+    def _target_proc(self, target_images: np.ndarray,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) targets -> (B, 3, s, s) fp32 in [-1, 1] at the
-        perceptual size, resized first to the network's side with
-        jax.image.resize's antialiased linear filter when it differs."""
-        target = torch.as_tensor(np.asarray(target_images)).to(self.device).float() / 127.5 - 1.0
+        perceptual size on `device` (the projector's by default), resized
+        first to the network's side with jax.image.resize's antialiased
+        linear filter when it differs."""
+        device = self.device if device is None else device
+        target = torch.as_tensor(np.asarray(target_images)).to(device).float() / 127.5 - 1.0
         if target.shape[1] != self.config.resolution:
             target = resize_images(target, self.config.resolution, method="linear")
         target = target.permute(0, 3, 1, 2).contiguous()
@@ -359,19 +402,28 @@ class Projector:
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), dist.detach(), images.detach(), list(grads)
 
+    def _jitter(self, shape: Tuple[int, ...], step_number: int, generator: torch.Generator,
+                noise_factor: float) -> torch.Tensor:
+        """A step's annealed w jitter, drawn on the generator's device.
+        noise_factor is settings.initial_noise_factor by default; warm starts
+        pass 0.0 (the jitter exists to explore away from the cold
+        dlatent-average start)."""
+        t = step_number / max(self.settings.num_steps, 1)
+        strength = (self.dlatent_std * noise_factor
+                    * max(0.0, 1.0 - t / self.settings.noise_ramp_length) ** 2)
+        return torch.randn(shape, generator=generator, device=generator.device) * strength
+
     def _step(self, w: torch.Tensor, noises: List[torch.Tensor], opt: torch.optim.Adam,
               target_proc: torch.Tensor, step_number: int, generator: torch.Generator,
-              perceptual: VGGParams, noise_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One optimization step, updating w, the planes and Adam in place.
-        Returns the step's per-frame distances and its (pre-update) images."""
+              perceptual: VGGParams, noise_factor: float,
+              w_jitter: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimization step, updating w, the planes and Adam in place
+        (`w_jitter`: the step's jitter rows, drawn here when None). Returns
+        the step's per-frame distances and its (pre-update) images."""
         settings = self.settings
         t = step_number / max(settings.num_steps, 1)
-        # noise_factor is settings.initial_noise_factor by default; warm
-        # starts pass 0.0 (the jitter exists to explore away from the cold
-        # dlatent-average start).
-        strength = (self.dlatent_std * noise_factor
-                    * max(0.0, 1.0 - t / settings.noise_ramp_length) ** 2)
-        w_jitter = torch.randn(w.shape, generator=generator, device=w.device) * strength
+        if w_jitter is None:
+            w_jitter = self._jitter(tuple(w.shape), step_number, generator, noise_factor)
         _, dist, images, grads = self._loss_and_gradients(w, noises, target_proc, w_jitter,
                                                           perceptual)
         for leaf, grad in zip([w] + noises, grads):
@@ -439,10 +491,14 @@ class Projector:
         return torch.tensor(w_init, device=self.device)
 
     def _initial_noises(self, initial_noises: Optional[List[np.ndarray]], batch: int,
-                        generator: torch.Generator) -> List[torch.Tensor]:
+                        generator: torch.Generator,
+                        work: Optional[int] = None) -> List[torch.Tensor]:
+        """The start planes of a `batch`-frame projection padded to `work`
+        frames (the padding repeats the last frame's plane)."""
         shapes = self.noise_spatial_shapes
+        work = batch if work is None else work
         if initial_noises is None:
-            return [torch.randn((batch, 1) + shape, generator=generator, device=self.device)
+            return [torch.randn((work, 1) + shape, generator=generator, device=self.device)
                     for shape in shapes]
         if len(initial_noises) != len(shapes):
             raise ValueError(
@@ -458,7 +514,11 @@ class Projector:
                     f"or {(batch,) + expected_spatial}, got {tuple(arr.shape)}"
                 )
             plane = from_jax_layout(arr, self.device)
-            noises.append(plane.expand(batch, -1, -1, -1).clone() if arr.shape[0] == 1 else plane)
+            if arr.shape[0] == 1:
+                plane = plane.expand(work, -1, -1, -1).clone()
+            elif work > batch:
+                plane = torch.cat([plane, plane[-1:].expand(work - batch, -1, -1, -1)])
+            noises.append(plane)
         return noises
 
     def project_batch(
@@ -502,15 +562,20 @@ class Projector:
         target_images = np.asarray(target_images)
         batch = int(target_images.shape[0])
         apply_conv_precision()
-        target_proc = self._target_proc(target_images)
+        # Over a mesh: pad the batch to a data-axis multiple by repeating the
+        # last frame; padded rows optimize like real ones and are dropped.
+        pad = (-batch) % self._data_axis
+        if pad:
+            target_images = np.concatenate([target_images,
+                                            np.repeat(target_images[-1:], pad, axis=0)])
+        work = batch + pad
 
         generator = torch.Generator(device=self.device).manual_seed(settings.seed)
-        w = self._initial_latents(initial_latents, batch).requires_grad_(True)
-        noises = [n.requires_grad_(True) for n in
-                  self._initial_noises(initial_noises, batch, generator)]
-        # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the root
-        opt = torch.optim.Adam([w] + noises, lr=settings.initial_learning_rate)
-        perceptual = self._perceptual_on_device()
+        w_all = self._initial_latents(initial_latents, batch)
+        noises_all = self._initial_noises(initial_noises, batch, generator, work)
+        if pad:
+            w_all = torch.cat([w_all, w_all[-1:].expand(pad, -1)])
+        shards = self._shards(work, target_images, w_all, noises_all)
 
         use_scan = (
             settings.scan_segment > 1
@@ -518,16 +583,35 @@ class Projector:
             and (step_callback is None or not (want_step_images or per_step_noises))
         )
 
-        dist = torch.zeros((batch,), device=self.device)
+        dists = [torch.zeros((len(sh),), device=sh.device) for sh in shards]
         empty_image = np.zeros((batch, 0, 0, 3), np.uint8)
         effective_noise_factor = float(
             settings.initial_noise_factor if noise_factor is None else noise_factor)
+
+        def run_step(step_number: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+            """One step on every shard, with the whole batch's jitter draw."""
+            jitter = self._jitter((work, self.config.dlatent_size), step_number, generator,
+                                  effective_noise_factor)
+            out = [self._step(sh.w, sh.noises, sh.opt, sh.target_proc, step_number, generator,
+                              sh.perceptual, effective_noise_factor,
+                              w_jitter=jitter[sh.rows].to(sh.device)) for sh in shards]
+            return [d for d, _ in out], [i for _, i in out]
+
+        def gather(parts: Sequence[torch.Tensor], axis: int = 0) -> np.ndarray:
+            """The whole batch's rows of per-shard tensors on the host (an
+            all_gather across processes), pads dropped."""
+            return self._gather(parts, work, axis).take(range(batch), axis=axis)
+
+        def noises_host() -> List[np.ndarray]:
+            return [gather([to_jax_layout(sh.noises[i]) for sh in shards])
+                    for i in range(len(shards[0].noises))]
 
         # Convergence early stop (opt-in): host-side per-step distance trace,
         # checked at segment boundaries / per step. The detector only reads
         # the last 2*window rows, and nothing can stop before
         # max(min_steps, 2*window): keep a bounded deque of recent rows and
         # skip the fetch until the trace is close enough to the gate to matter.
+        # Every process sees the same trace, so they stop together.
         converge = settings.convergence_stop is not None
         trace_window = 2 * settings.convergence_window
         trace_gate = max(settings.resolved_convergence_min_steps(), trace_window)
@@ -572,18 +656,18 @@ class Projector:
             while step_number < settings.num_steps:
                 segment = min(segment_cap, settings.num_steps - step_number)
                 start_time = time.monotonic()
-                dists, w_history = [], []
+                dist_history, w_history = [], []
                 for offset in range(segment):
-                    dist, _ = self._step(w, noises, opt, target_proc, step_number + offset,
-                                         generator, perceptual, effective_noise_factor)
-                    dists.append(dist)
-                    w_history.append(w.detach().clone())
+                    dists, _ = run_step(step_number + offset)
+                    dist_history.append(dists)
+                    w_history.append([sh.w.detach().clone() for sh in shards])
                 if self.expected_time_per_step is not None or step_callback is not None:
-                    _wait(self.device)
+                    self._wait(shards)
                 if step_callback is not None:
                     # latents histories: the post-update w of every step
-                    history = torch.stack(w_history).cpu().numpy()
-                    noises_np = [to_jax_layout(n) for n in noises]
+                    history = gather([torch.stack([ws[k] for ws in w_history])
+                                      for k in range(len(shards))], axis=1)
+                    noises_np = noises_host()
                     for offset in range(segment):
                         step_callback(step_number + offset, _latents(history[offset]),
                                       noises_np, empty_image)
@@ -603,7 +687,8 @@ class Projector:
                 step_number += segment
                 steps_completed = step_number
                 if _wants_trace():
-                    _record_distances(torch.stack(dists).cpu().numpy())
+                    _record_distances(gather([torch.stack([ds[k] for ds in dist_history])
+                                              for k in range(len(shards))], axis=1))
                     if _converged():
                         LOGGER.info(
                             "Convergence stop at step %d/%d (windowed relative "
@@ -614,18 +699,17 @@ class Projector:
         else:
             for step_number in range(settings.num_steps):
                 start_time = time.monotonic()
-                dist, images_dev = self._step(w, noises, opt, target_proc, step_number,
-                                              generator, perceptual, effective_noise_factor)
+                dists, images_dev = run_step(step_number)
                 if self.expected_time_per_step is not None:
                     # the watchdog must observe real device progress
-                    _wait(self.device)
+                    self._wait(shards)
                 if step_callback is not None:
                     # Pairing note: latents are post-update, the image is the
                     # step's forward pass (pre-update) — the reference's pairing.
-                    images = (images_to_uint8(images_dev).cpu().numpy()
+                    images = (gather([images_to_uint8(i) for i in images_dev])
                               if want_step_images else empty_image)
-                    step_callback(step_number, _latents(w.detach().cpu().numpy()),
-                                  [to_jax_layout(n) for n in noises], images)
+                    step_callback(step_number, _latents(gather([sh.w for sh in shards])),
+                                  noises_host(), images)
                 elapsed = time.monotonic() - start_time
                 step_budget = (
                     self.first_step_timeout if step_number == 0 else self.expected_time_per_step
@@ -638,7 +722,7 @@ class Projector:
                     )
                 steps_completed = step_number + 1
                 if _wants_trace():
-                    _record_distances(dist.cpu().numpy().reshape(1, -1))
+                    _record_distances(gather(dists).reshape(1, -1))
                     if _converged():
                         LOGGER.info(
                             "Convergence stop at step %d/%d (windowed relative "
@@ -648,10 +732,11 @@ class Projector:
                         break
 
         with torch.no_grad():
-            final_images = images_to_uint8(self._synthesis_from_w(w, noises)).cpu().numpy()
-        latents = w.detach().cpu().numpy()
-        noises_np = [to_jax_layout(n) for n in noises]
-        distances = dist.cpu().numpy().reshape(-1)
+            final_images = gather([images_to_uint8(self._synthesis_from_w(sh.w, sh.noises))
+                                   for sh in shards])
+        latents = gather([sh.w for sh in shards])
+        noises_np = noises_host()
+        distances = gather(dists).reshape(-1)
         return [
             ProjectionResult(
                 final_latents=_latents(latents[b : b + 1]),
@@ -663,6 +748,49 @@ class Projector:
             )
             for b in range(batch)
         ]
+
+    def _shards(self, work: int, target_images: np.ndarray, w_all: torch.Tensor,
+                noises_all: List[torch.Tensor]) -> List["_ProjectionShard"]:
+        """This process's slots of a `work`-frame batch, each with its rows
+        of the start (copies: w and the planes are updated in place)."""
+        from gance_tpu_torch.parallel.mesh import shard_batch
+
+        parts = shard_batch(self.mesh, work) if self.mesh is not None else [
+            (self.device, slice(0, work))]
+        shards = []
+        for device, rows in parts:
+            if rows == slice(0, work) and device == self.device:
+                w, noises = w_all, noises_all  # one slot holds the whole batch
+            else:
+                w = w_all[rows].to(device).clone()
+                noises = [n[rows].to(device).clone() for n in noises_all]
+            w.requires_grad_(True)
+            noises = [n.requires_grad_(True) for n in noises]
+            shards.append(_ProjectionShard(
+                device=device, rows=rows, w=w, noises=noises,
+                # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8 outside the root
+                opt=torch.optim.Adam([w] + noises, lr=self.settings.initial_learning_rate),
+                target_proc=self._target_proc(target_images[rows], device),
+                perceptual=self._perceptual_on_device(device),
+            ))
+        return shards
+
+    def _gather(self, parts: Sequence[Any], rows: int, axis: int = 0) -> np.ndarray:
+        """Per-shard rows (tensors or arrays, in row order) -> the whole
+        batch's on the host: an all_gather across processes."""
+        local = np.concatenate([p.detach().cpu().numpy() if torch.is_tensor(p) else p
+                                for p in parts], axis=axis)
+        if self.mesh is None or not self.mesh.grouped:
+            return local
+        from gance_tpu_torch.parallel.mesh import gather_rows
+
+        full = gather_rows(self.mesh, np.moveaxis(local, axis, 0), rows)
+        return np.moveaxis(full, 0, axis)
+
+    @staticmethod
+    def _wait(shards: Sequence["_ProjectionShard"]) -> None:
+        for device in dict.fromkeys(sh.device for sh in shards):
+            _wait(device)
 
     def evaluate_distance(
         self,

@@ -2,8 +2,8 @@
 Online synthesis serving on one device (the counterpart of gance_tpu/serving/,
 without its multi-host control channel): dynamic request batching
 (batcher.py), a stdlib HTTP daemon (daemon.py) with the audio routes
-(audio.py), and its client (client.py). Serving over processes that span a
-mesh is ROADMAP.md Queue 1 item 12.
+(audio.py), and its client (client.py). Serving over a mesh or processes
+that span one is ROADMAP.md Queue 1 item 12, part 2.
 """
 
 from gance_tpu_torch.serving.audio import (

@@ -16,9 +16,17 @@ for CUDA on a host without it raises. Every call resolves the polyphase top
 block (GANCE_TPU_PHASE1024) anew, as JAX's runtime does. With an
 `output_side_length` other than the resolution, frames are rendered as float,
 resized on the device (`resize_images`, JAX's bicubic) and then quantised;
-otherwise the uint8 output is fused into synthesis. Multi-device placement
-(`mesh`, `device_per_network`, `network_parallel`) is not ported yet and
-raises NotImplementedError.
+otherwise the uint8 output is fused into synthesis.
+
+Multi-device placement is JAX's: `SynthesisNetwork(mesh=)` copies the params
+to each device of a ('data', 'model') mesh and splits every batch over the
+data axis (padded to a multiple of it by repeating the last row, the pads
+sliced off); `MultiNetwork` takes `mesh`, `device_per_network` (network i
+wholly on local device i mod count) or `network_parallel` (every network on
+its own device group, `parallel/network_parallel.py`), one at a time. A
+mesh's frames reach the host through `parallel/mesh.py::fetch_to_host`,
+all-gathered across processes. A 'model' axis larger than 1 raises
+(ROADMAP.md Queue 1 item 12, part 2).
 """
 
 import os
@@ -39,6 +47,7 @@ from gance_tpu_torch.models.stylegan2 import (
     resize_images,
     synthesis_apply,
 )
+from gance_tpu_torch.parallel.mesh import fetch_to_host as _fetch_to_host
 from gance_tpu_torch.types import is_vector
 from gance_tpu_torch.utils.device import resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
@@ -53,8 +62,6 @@ DEFAULT_COMPUTE_DTYPE = {
     "bfloat16": torch.bfloat16,
 }[os.environ.get("GANCE_TPU_COMPUTE_DTYPE", "float32").lower()]
 
-_MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12 (multi-device)"
-
 
 def params_to_device(params: Any, device: torch.device) -> Any:
     """A params tree of numpy arrays (or tensors) -> float32 tensors on `device`,
@@ -64,10 +71,6 @@ def params_to_device(params: Any, device: torch.device) -> Any:
     if torch.is_tensor(params):
         return params.to(device=device, dtype=torch.float32, copy=True)
     return torch.from_numpy(np.array(params, dtype=np.float32)).to(device)
-
-
-def _fetch_to_host(images: Any) -> np.ndarray:
-    return images.cpu().numpy() if torch.is_tensor(images) else np.asarray(images)
 
 
 def _pad_batch(data: np.ndarray, batch_size: int) -> Tuple[np.ndarray, int]:
@@ -90,16 +93,16 @@ def _bucket_size(real: int, batch_size: int, multiple: int = 1) -> int:
 
 
 # A dispatched window: its frame count, its per-index groups as (images on
-# their way to the host, stream positions), and an event that fires once every
-# group's copy to the host is done (None when nothing ran on a GPU).
-Window = Tuple[int, List[Tuple[Any, List[int]]], Optional[torch.cuda.Event]]
+# their way to the host, stream positions), and one event per GPU it ran on
+# that fires once that GPU's copies to the host are done.
+Window = Tuple[int, List[Tuple[Any, List[int]]], List[torch.cuda.Event]]
 
 
 def _window_in_order(window: Window, window_start: int) -> Iterator[np.ndarray]:
     """Wait for a dispatched window's copies and yield its frames in stream order."""
     count, groups, ready = window
-    if ready is not None:
-        ready.synchronize()
+    for event in ready:
+        event.synchronize()
     out: List[Optional[np.ndarray]] = [None] * count
     for images, positions in groups:
         host_images = _fetch_to_host(images)
@@ -120,12 +123,22 @@ class SynthesisNetwork:
     truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI
     compute_dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
     output_side_length: Optional[int] = None
+    # When set, params are copied to every device of the mesh and frame
+    # batches split over its 'data' axis (the device is the mesh's first).
     mesh: Optional[Any] = None
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self) -> None:
+        self._replicas: Optional[Dict[torch.device, Params]] = None
+        self._data_axis = 1
         if self.mesh is not None:
-            raise NotImplementedError(f"mesh placement is not ported yet: {_MULTI_DEVICE_ITEM}")
+            from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
+
+            self._replicas = generator_param_sharding(self.mesh, self.params)
+            self._data_axis = data_axis_size(self.mesh)
+            self.device = self.mesh.first_device
+            self.params = self._replicas[self.device]
+            return
         self.device = resolve_device(self.device)
         # Params go to the device once and stay there for every call.
         self.params = params_to_device(self.params, self.device)
@@ -184,26 +197,48 @@ class SynthesisNetwork:
             return images_to_uint8(resize_images(images, self.output_side_length))
         return images
 
+    def _vectors(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        return self._finish(generator_apply(
+            params, z, self.config, truncation_psi=self.truncation_psi, noise_mode="const",
+            compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
+        ))
+
+    def _matrices(self, params: Params, dlatents: torch.Tensor) -> torch.Tensor:
+        return self._finish(synthesis_apply(
+            params, dlatents, self.config, noise_mode="const",
+            compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
+        ))
+
+    def _on_mesh(self, batch: Union[np.ndarray, torch.Tensor], apply: Any) -> Any:
+        """The batch over the mesh's data axis, padded to a multiple of it by
+        repeating the last row (the pads are sliced off at the fetch)."""
+        from gance_tpu_torch.parallel.sharded_synthesis import run_sharded
+
+        batch = batch.cpu() if torch.is_tensor(batch) else torch.from_numpy(
+            np.ascontiguousarray(batch, np.float32))
+        n = batch.shape[0]
+        pad = (-n) % self._data_axis
+        if pad:
+            batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
+        side = self.output_side_length or self.config.resolution
+        return run_sharded(self.mesh, self._replicas, batch, apply, (side, side, 3), rows=n)
+
     @torch.inference_mode()
     def device_images_from_vectors(self, z_batch: np.ndarray) -> torch.Tensor:
         """(B, latent) z -> (B, S, S, 3) uint8 on the device (queued, not synced);
-        S is `output_side_length`, or the resolution."""
-        return self._finish(generator_apply(
-            self.params, self._input(z_batch), self.config,
-            truncation_psi=self.truncation_psi, noise_mode="const",
-            compute_dtype=self.compute_dtype,
-            uint8_output=not self._needs_resize,
-        ))
+        S is `output_side_length`, or the resolution. On a mesh: the launched
+        shards (`parallel/mesh.py::ShardedRows`)."""
+        if self.mesh is not None:
+            return self._on_mesh(z_batch, self._vectors)
+        return self._vectors(self.params, self._input(z_batch))
 
     @torch.inference_mode()
     def device_images_from_matrices(self, dlatent_batch: np.ndarray) -> torch.Tensor:
         """(B, num_style_rows, dlatent) w+ -> uint8 images on the device. Skips the
         mapping network and truncation: projection latents are final."""
-        return self._finish(synthesis_apply(
-            self.params, self._input(dlatent_batch), self.config, noise_mode="const",
-            compute_dtype=self.compute_dtype,
-            uint8_output=not self._needs_resize,
-        ))
+        if self.mesh is not None:
+            return self._on_mesh(dlatent_batch, self._matrices)
+        return self._matrices(self.params, self._input(dlatent_batch))
 
     def device_images_generic(self, batch: np.ndarray) -> torch.Tensor:
         """Dispatch on input rank: (B, V) -> vectors, (B, R, V) -> matrices."""
@@ -282,7 +317,49 @@ class FakeSynthesisNetwork:
         return self._render(np.asarray(data).reshape(1, *np.asarray(data).shape))[0]
 
 
-NetworkLike = Union[SynthesisNetwork, FakeSynthesisNetwork]
+class _NetworkParallelMember:
+    """
+    One network's view of a `NetworkParallelSynthesis`, so that the indexed
+    single-image surface works in network-parallel mode: its batches go
+    through every network's group (the other groups' work is wasted, fine
+    for an occasional call; the stream routes whole windows).
+    """
+
+    def __init__(self, serving: Any, index: int, path: Optional[Path]) -> None:
+        self._serving = serving
+        self.index = index
+        self.path = path
+
+    @property
+    def expected_vector_length(self) -> int:
+        return self._serving.config.latent_size
+
+    @property
+    def resolution(self) -> int:
+        return self._serving.config.resolution
+
+    def images_generic(self, batch: np.ndarray) -> np.ndarray:
+        batch = np.asarray(batch)
+        return self._serving.synthesize(batch, np.full((batch.shape[0],), self.index, dtype=int))
+
+    # network-parallel frames are assembled on the host, so "device" images are host arrays
+    device_images_generic = images_generic
+    images_from_vectors = images_generic
+    images_from_matrices = images_generic
+
+    def create_image_vector(self, data: np.ndarray) -> np.ndarray:
+        return self.images_generic(np.asarray(data).reshape(1, -1))[0]
+
+    def create_image_matrix(self, data: np.ndarray) -> np.ndarray:
+        return self.images_generic(np.asarray(data)[None])[0]
+
+    def create_image_generic(self, data: np.ndarray) -> np.ndarray:
+        return (
+            self.create_image_vector(data) if is_vector(data) else self.create_image_matrix(data)
+        )
+
+
+NetworkLike = Union[SynthesisNetwork, FakeSynthesisNetwork, _NetworkParallelMember]
 
 
 def _start_host_copy(images: Any, rows: int) -> Any:
@@ -297,8 +374,10 @@ def _start_host_copy(images: Any, rows: int) -> Any:
 
 class MultiNetwork:
     """
-    Networks addressed by index, all resident on one device once loaded;
-    entering the context manager loads them and leaving it drops them.
+    Networks addressed by index, all resident once loaded; entering the
+    context manager loads them and leaving it drops them. By default every
+    network lives on `device`; `mesh`, `device_per_network` and
+    `network_parallel` place them as JAX's do, one at a time.
     """
 
     def __init__(
@@ -312,20 +391,25 @@ class MultiNetwork:
         device_per_network: bool = False,
         network_parallel: bool = False,
         device: Union[str, torch.device] = "cuda",
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
         _preloaded: Optional[List[NetworkLike]] = None,
     ) -> None:
-        for name, value in (
-            ("mesh", mesh is not None),
-            ("device_per_network", device_per_network),
-            ("network_parallel", network_parallel),
-        ):
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet: {_MULTI_DEVICE_ITEM}")
+        if sum([mesh is not None, device_per_network, network_parallel]) > 1:
+            raise ValueError(
+                "mesh, device_per_network, and network_parallel are mutually exclusive"
+            )
         self.network_paths = [Path(p) for p in network_paths]
         self._truncation_psi = truncation_psi
         self._compute_dtype = compute_dtype
         self._output_side_length = output_side_length
         self._device = device
+        self._mesh = mesh
+        self._device_per_network = device_per_network
+        self._network_parallel = network_parallel
+        # the devices device_per_network and network_parallel place networks
+        # on (default: every local device of `device`); may repeat a device
+        self._devices = devices
+        self._np_serving: Optional[Any] = None
         self._networks: Optional[List[NetworkLike]] = _preloaded
         if load and self._networks is None:
             self.load()
@@ -339,19 +423,46 @@ class MultiNetwork:
         )
 
     def load(self) -> None:
+        if self._networks is None and self._network_parallel:
+            from gance_tpu_torch.parallel.network_parallel import (
+                NetworkParallelSynthesis,
+                create_network_mesh,
+            )
+
+            LOGGER.info("Network-parallel synthesis: %d networks resident on a "
+                        "('network', 'data') mesh", len(self.network_paths))
+            self._np_serving = NetworkParallelSynthesis.from_pkls(
+                self.network_paths, truncation_psi=self._truncation_psi,
+                compute_dtype=self._compute_dtype,
+                output_side_length=self._output_side_length,
+                mesh=create_network_mesh(len(self.network_paths), devices=self._devices,
+                                         device=self._device),
+            )
+            self._networks = [_NetworkParallelMember(self._np_serving, i, p)
+                              for i, p in enumerate(self.network_paths)]
+            return
         if self._networks is None:
             LOGGER.info("Loading %d networks", len(self.network_paths))
+            devices = None
+            if self._device_per_network:
+                from gance_tpu_torch.parallel.mesh import local_devices
+
+                devices = ([torch.device(d) for d in self._devices] if self._devices
+                           else local_devices(self._device))
+                LOGGER.info("One network per device over %d devices", len(devices))
             self._networks = [
                 SynthesisNetwork.from_pkl(
                     p, truncation_psi=self._truncation_psi, compute_dtype=self._compute_dtype,
-                    output_side_length=self._output_side_length, device=self._device,
+                    output_side_length=self._output_side_length, mesh=self._mesh,
+                    device=devices[i % len(devices)] if devices else self._device,
                 )
-                for p in self.network_paths
+                for i, p in enumerate(self.network_paths)
             ]
 
     def unload(self) -> None:
         """Drop all params (frees device memory)."""
         self._networks = None
+        self._np_serving = None
 
     def __enter__(self) -> "MultiNetwork":
         self.load()
@@ -433,13 +544,38 @@ class MultiNetwork:
                 f"network_indices out of range [0, {len(networks)}): "
                 f"[{network_indices[:n].min()}, {network_indices[:n].max()}]"
             )
+        if self._np_serving is not None:
+            # network-parallel: whole windows route through every network's
+            # group; window i+1 launches before window i is fetched
+            serving = self._np_serving
+            window_size = batch_size * max(int(lookahead), 1)
+            handle = None
+            for start in range(0, n, window_size):
+                end = min(start + window_size, n)
+                launched = serving.dispatch(frame_data[start:end], network_indices[start:end],
+                                            batch_size=batch_size)
+                if handle is not None:
+                    yield from serving.gather(handle)
+                handle = launched
+            if handle is not None:
+                yield from serving.gather(handle)
+            return
+
+        # Batches over a mesh stay divisible by its data axis, the cap too:
+        # batch_size rounds down to a data-axis multiple (up only when it is
+        # below the data axis, the smallest batch that fills it).
+        from gance_tpu_torch.parallel.mesh import data_axis_size
+
+        data_axis = data_axis_size(self._mesh)
+        if data_axis > 1:
+            batch_size = max(data_axis, batch_size - batch_size % data_axis)
         window_size = batch_size * max(int(lookahead), 1)
 
         def dispatch_window(start: int, end: int) -> Window:
             """Group [start:end) by index, queue each group and its copy to the host."""
             window_indices = network_indices[start:end]
             groups: List[Tuple[Any, List[int]]] = []
-            on_gpu = False
+            gpus: Dict[torch.device, None] = {}
             for index in dict.fromkeys(int(i) for i in window_indices):
                 positions = [start + int(o) for o in np.nonzero(window_indices == index)[0]]
                 # Full batches first; only the remainder pays pad waste.
@@ -447,15 +583,17 @@ class MultiNetwork:
                     chunk_positions = positions[chunk_start : chunk_start + batch_size]
                     padded, real = _pad_batch(
                         frame_data[chunk_positions],
-                        _bucket_size(len(chunk_positions), batch_size),
+                        _bucket_size(len(chunk_positions), batch_size, multiple=data_axis),
                     )
                     images = networks[index].device_images_generic(padded)
-                    on_gpu = on_gpu or (torch.is_tensor(images) and images.is_cuda)
+                    if torch.is_tensor(images) and images.is_cuda:
+                        gpus[images.device] = None
                     groups.append((_start_host_copy(images, real), chunk_positions))
-            ready = None
-            if on_gpu:
-                ready = torch.cuda.Event()
-                ready.record()
+            ready = []
+            for gpu in gpus:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(gpu))
+                ready.append(event)
             return end - start, groups, ready
 
         pending: Optional[Window] = None

@@ -76,6 +76,7 @@ from gance_tpu_torch.synthesis.inputs import (  # noqa: E402
 )
 from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
 from tests.test_torch_media import read_avi  # noqa: E402
+from tests.torch_parallel_worker import cpu_slots  # noqa: E402
 
 TINY = jax_g.GeneratorConfig(resolution=16, fmap_base=256, fmap_max=32, latent_size=512,
                              dlatent_size=512, mapping_layers=2, mapping_fmaps=512)
@@ -195,13 +196,32 @@ def test_cli_noise_blend_writes_video_with_audio(tmp_path, assets, no_encoders):
 @pytest.mark.parametrize("option", [["--dist-coordinator", "localhost:1234"],
                                     ["--data-parallel", "2"], ["--one-network-per-device"],
                                     ["--debug-path", "debug.avi"]])
-def test_cli_deferred_options_raise(tmp_path, assets, option):
+def test_cli_deferred_options_raise(tmp_path, assets, option, no_encoders):
+    """Of the options once deferred, a partial --dist-* triple is JAX's usage
+    error, and --data-parallel (one CPU slot: it degrades with JAX's
+    warning) and --one-network-per-device render; the debug video still
+    raises, naming its item."""
     paths, wav = assets
+    out = tmp_path / "x.avi"
     result = CliRunner().invoke(cli, [
-        "noise-blend", "--wav", str(wav), "--output-path", str(tmp_path / "x.avi"),
-        "--network-path", str(paths[0]), "--device", "cpu", *option])
-    assert isinstance(result.exception, NotImplementedError), result.output
-    assert "ROADMAP.md Queue 1 item" in str(result.exception)
+        "noise-blend", "--wav", str(wav), "--output-path", str(out),
+        "--network-path", str(paths[0]), "--device", "cpu", "--frames-to-visualize", "4",
+        "--output-side-length", "16", *option])
+    if option[0] == "--debug-path":
+        assert isinstance(result.exception, NotImplementedError), result.output
+        assert "ROADMAP.md Queue 1 item" in str(result.exception)
+    elif option[0] == "--dist-coordinator":
+        assert result.exit_code == 2 and "must be given together" in result.output
+    else:
+        assert result.exit_code == 0, result.output
+        assert read_avi(out)[0].shape == (4, 16, 16, 3)
+
+
+def assert_most_within_one_step(got: np.ndarray, want: np.ndarray) -> None:
+    """The port's frame bound across batch shapes: 1 uint8 step on 99.9%."""
+    assert got.shape == want.shape
+    steps = np.abs(got.astype(int) - want.astype(int))
+    assert int(steps.max()) <= 1 and float(np.mean(steps == 0)) >= 0.999
 
 
 @pytest.mark.parametrize("kwargs,item", [
@@ -209,10 +229,18 @@ def test_cli_deferred_options_raise(tmp_path, assets, option):
     ({"network_parallel": True}, "item 12"), ({"debug_path": Path("d.avi")}, "item 13"),
     ({"resumable": True, "debug_path": Path("d.avi")}, "debug visualization"),
 ])
-def test_deferred_options_raise(tmp_path, assets, kwargs, item):
+def test_deferred_options_raise(tmp_path, assets, kwargs, item, rendered, monkeypatch):
+    """The placements (item 12, part 1) render over two CPU slots the frames
+    of the default placement; the debug video still raises."""
     paths, wav = assets
-    with pytest.raises((NotImplementedError, ValueError), match=item):
-        render(paths, wav, tmp_path / "x.avi", **kwargs)
+    if item != "item 12":
+        with pytest.raises((NotImplementedError, ValueError), match=item):
+            render(paths, wav, tmp_path / "x.avi", **kwargs)
+        return
+    cpu_slots(2, monkeypatch)
+    hide_encoders(monkeypatch)
+    render(paths, wav, tmp_path / "x.avi", frames_to_visualize=12, **kwargs)
+    assert_most_within_one_step(read_avi(tmp_path / "x.avi")[0], rendered["frames"][:12])
 
 
 def test_noise_blend_defaults_to_cuda_and_raises_without_it(tmp_path, assets):
@@ -480,10 +508,19 @@ def test_flagship_music_mask_without_overlay_raises_as_jax_does(tmp_path, flagsh
     ({"network_parallel": True}, "item 12"), ({"debug_path": Path("d.avi")}, "item 13"),
     ({"resumable": True, "debug_path": Path("d.avi")}, "debug visualization"),
 ])
-def test_flagship_deferred_options_raise(tmp_path, flagship_assets, kwargs, item):
-    with pytest.raises((NotImplementedError, ValueError), match=item):
-        port_flagship(flagship_assets, flagship_assets["percussive"], tmp_path / "x.avi",
-                      **kwargs)
+def test_flagship_deferred_options_raise(tmp_path, flagship_assets, kwargs, item, monkeypatch):
+    """The flagship's placements (item 12, part 1) render over two CPU slots
+    the frames of the default placement; the debug video still raises."""
+    a = flagship_assets
+    if item != "item 12":
+        with pytest.raises((NotImplementedError, ValueError), match=item):
+            port_flagship(a, a["percussive"], tmp_path / "x.avi", **kwargs)
+        return
+    cpu_slots(2, monkeypatch)
+    want, _ = port_flagship(a, a["percussive"], tmp_path / "plain.avi", frames_to_visualize=8)
+    got, _ = port_flagship(a, a["percussive"], tmp_path / "x.avi", frames_to_visualize=8,
+                           **kwargs)
+    assert_most_within_one_step(got, want)
 
 
 def test_flagship_defaults_to_cuda_and_raises_without_it(tmp_path, flagship_assets):

@@ -55,6 +55,7 @@ from gance_tpu_torch.projection import file_writer as port_writer  # noqa: E402
 from gance_tpu_torch.projection import lpips as port_lpips  # noqa: E402
 from gance_tpu_torch.projection import projector as port_proj  # noqa: E402
 from tests.test_vgg_import import _write_nvlabs_lpips_pickle  # noqa: E402
+from tests.torch_parallel_worker import cpu_slots  # noqa: E402
 
 CPU = torch.device("cpu")
 TINY = dict(resolution=16, fmap_base=256, fmap_max=32, latent_size=16, dlatent_size=16,
@@ -458,10 +459,20 @@ def test_initial_starts_validated_eagerly():
         projector.project_batch(targets, initial_latents=np.zeros((3, TINY["dlatent_size"] + 1)))
 
 
+def _model_axis_mesh():
+    """A ('data', 'model') mesh with a 'model' axis of 2 on the CPU."""
+    from gance_tpu_torch.parallel.mesh import Mesh, MeshDevice, _object_grid
+
+    return Mesh(_object_grid([MeshDevice(0, torch.device("cpu"))] * 2, (1, 2)),
+                ("data", "model"))
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "item 12"),
+    (dict(mesh=_model_axis_mesh()), "item 12"),
 ])
 def test_unported_options_raise(kwargs, item):
+    """A data-parallel mesh projects now (tests/test_torch_parallel_projector.py);
+    a tensor-parallel 'model' axis still raises, naming its item."""
     params = params_from_reference(jax_params(40, TINY))
     with pytest.raises(NotImplementedError, match=item):
         port_proj.Projector(params, port_g.GeneratorConfig(**TINY), device="cpu", **kwargs)
@@ -665,11 +676,15 @@ def test_cli_videos_and_directory_with_vgg_weights(network_and_video, monkeypatc
 
 @pytest.mark.parametrize("extra,item", [
     (["--data-parallel", "2"], "item 12"),
-    (["--dist-coordinator", "localhost:1234", "--dist-num-processes", "2",
-      "--dist-process-id", "0"], "item 12"),
+    (["--dist-coordinator", "localhost:1234"], "item 12"),
     (None, "item 13"),
 ])
-def test_cli_unported_modes_raise_usage_errors(network_and_video, extra, item):
+def test_cli_unported_modes_raise_usage_errors(network_and_video, extra, item, monkeypatch):
+    """`visualize-final-latents` still raises a usage error naming its item.
+    The multi-device options (item 12, part 1) work now and keep JAX's
+    errors: --data-parallel 2 over one CPU slot is JAX's ValueError (not
+    divisible) and projects over two; a partial --dist-* triple is JAX's
+    usage error."""
     from click.testing import CliRunner
 
     from gance_tpu_torch.cli.project_video_to_file import cli
@@ -680,8 +695,19 @@ def test_cli_unported_modes_raise_usage_errors(network_and_video, extra, item):
                 str(d / "viz.mp4")]
     else:
         args = ["videos", "--path-to-network", str(pkl), "--device", "cpu", *extra,
+                "--steps-per-projection", "2", "--num-frames-to-project", "2",
                 "--video-output", str(video), str(d / "never.hdf5")]
     result = CliRunner().invoke(cli, args)
+    if extra is not None and extra[0] == "--data-parallel":
+        assert isinstance(result.exception, ValueError), result.output
+        assert "not divisible by dp=2" in str(result.exception)
+        assert not (d / "never.hdf5").exists()
+        cpu_slots(2, monkeypatch)
+        result = CliRunner().invoke(cli, args)
+        assert result.exit_code == 0, result.output
+        port_reader.verify_projection_file_assumptions(d / "never.hdf5")
+        (d / "never.hdf5").unlink()
+        return
     assert result.exit_code == 2, result.output
-    assert item in result.output
+    assert ("must be given together" if extra else item) in result.output
     assert not (d / "never.hdf5").exists()

@@ -4,8 +4,8 @@ gance_tpu's, on the CPU: `SynthesisNetwork` and `MultiNetwork` render the same
 frames from the same TF-format pickles (within 1 uint8 step: fp32 sums in
 another order may flip a value on a step boundary), `synthesize_stream`
 groups, pads and orders frames exactly as JAX does (alternating indices,
-partial buckets), the deferred multi-device modes raise, a CUDA request without CUDA
-raises, and the port imports neither jax nor gance_tpu.
+partial buckets), the multi-device modes render the same frames, a
+tensor-parallel 'model' axis and a CUDA request without CUDA raise, and the port imports neither jax nor gance_tpu.
 """
 
 import subprocess
@@ -23,6 +23,7 @@ from gance_tpu.models.pickle_loader import save_generator_pickle  # noqa: E402
 from gance_tpu.models.stylegan2 import GeneratorConfig, init_generator_params  # noqa: E402
 from gance_tpu.synthesis import runtime as jax_rt  # noqa: E402
 from gance_tpu_torch.synthesis import runtime as port_rt  # noqa: E402
+from tests.torch_parallel_worker import cpu_slots  # noqa: E402
 
 TINY = GeneratorConfig(resolution=16, fmap_base=256, fmap_max=32, latent_size=16,
                        dlatent_size=16, mapping_layers=2, mapping_fmaps=16)
@@ -94,13 +95,22 @@ def test_default_device_is_cuda_and_raises_without_it(two_networks):
         port_rt.resolve_device("cuda")
 
 
+def _model_axis_mesh():
+    """A ('data', 'model') mesh with a 'model' axis of 2 on the CPU."""
+    from gance_tpu_torch.parallel.mesh import Mesh, MeshDevice, _object_grid
+
+    return Mesh(_object_grid([MeshDevice(0, torch.device("cpu"))] * 2, (1, 2)),
+                ("data", "model"))
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "multi-device"),
+    (dict(mesh=_model_axis_mesh()), "multi-device"),
     (dict(output_side_length=8), "resize_images"),
 ])
 def test_deferred_network_options_raise(two_networks, kwargs, item):
-    """An option that is still deferred raises and names its ROADMAP item; one
-    that has since been ported (resize_images) serves frames instead."""
+    """An option that is still deferred (a tensor-parallel 'model' axis)
+    raises and names its ROADMAP item; one that has since been ported
+    (resize_images) serves frames instead."""
     if item == "resize_images":
         net = port_rt.SynthesisNetwork.from_pkl(two_networks[0], device="cpu", **kwargs)
         frames = net.images_from_vectors(np.zeros((2, 16), np.float32))
@@ -111,11 +121,29 @@ def test_deferred_network_options_raise(two_networks, kwargs, item):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(device_per_network=True), dict(network_parallel=True),
+    dict(mesh="data"), dict(device_per_network=True), dict(network_parallel=True),
 ])
-def test_deferred_multi_network_modes_raise(two_networks, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*multi-device"):
-        port_rt.MultiNetwork(two_networks, device="cpu", **kwargs)
+def test_deferred_multi_network_modes_raise(two_networks, kwargs, monkeypatch):
+    """The multi-device modes, once deferred, now render: each streams the
+    same frames as the default placement (within 1 uint8 step: a shard's
+    convolutions run at another batch size) over two CPU slots. Combining
+    two raises JAX's ValueError."""
+    from gance_tpu_torch.parallel.mesh import create_mesh
+
+    cpu_slots(2, monkeypatch)
+    if kwargs.get("mesh") == "data":
+        kwargs = dict(mesh=create_mesh(device="cpu"))
+    rng = np.random.RandomState(3)
+    z = rng.randn(11, 16).astype(np.float32)
+    indices = np.array([0, 1, 1, 0, 0, 0, 1, 0, 1, 1, 0])
+    with port_rt.MultiNetwork(two_networks, device="cpu") as plain:
+        want = plain.synthesize_all(z, indices, batch_size=4)
+    with port_rt.MultiNetwork(two_networks, device="cpu", **kwargs) as multi:
+        assert_within_one_step(multi.synthesize_all(z, indices, batch_size=4), want)
+        assert_within_one_step(multi.indexed_create_image_vector(1, z[2]), want[2])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        port_rt.MultiNetwork(two_networks, device="cpu", device_per_network=True, **(
+            dict(network_parallel=True) if "device_per_network" in kwargs else kwargs))
 
 
 def test_output_side_length_equal_to_resolution_is_accepted(two_networks):

@@ -484,8 +484,13 @@ def test_draw_step_is_a_function_of_seed_and_step():
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_training.make_train_step(PORT_TINY, PORT_TC, mesh=object())
+    """A mesh trains now (tests/test_torch_parallel_training.py); a
+    tensor-parallel 'model' axis larger than 1 still raises, naming its item."""
+    from gance_tpu_torch.parallel.mesh import Mesh, MeshDevice, _object_grid
+
+    mesh = Mesh(_object_grid([MeshDevice(0, CPU)] * 2, (1, 2)), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12, part 2"):
+        port_training.make_train_step(PORT_TINY, PORT_TC, mesh=mesh)
 
 
 def test_training_config_defaults_match_jax():
