@@ -280,11 +280,41 @@ in order (any failure exits non-zero; no phase's failure is caught):
    gather and the gradients' all_reduce through NCCL), at phase 7a's
    bounds. Each part prints its wall seconds and the frame gathers their
    MB/s.
+15. drives the tensor-parallel 'model' axis (parallel/tensor_parallel.py)
+   and serving over a mesh and over processes (serving/multihost.py) on
+   the one card, with phase 3's networks and phase 8's WAV, at config-f
+   1024px and JAX's sharding threshold (every 3x3 conv but the 1024px
+   Conv1, and the mapping, split over 'model'). Model 2 names the card
+   twice: no scaling figure. (a) `SynthesisNetwork` on meshes
+   `[cuda:0]*2` (data 1 x model 2) and `[cuda:0]*4` (data 2 x model 2):
+   vectors and matrices at batch 8, fp32 and bf16, the phase path off and
+   on; the launches of each slot (a column-parallel layer's slot scopes
+   counted in order) against the sharding table (`tp_forward_launches`: a
+   sharded layer's A and C on every slot, B, E and whole layers on the
+   lead); fp32 within 1 uint8 step on 99.9% of one device's frames, bf16
+   equal to its same-shape witness (the model group called directly at
+   the rows' batch) and its distance from one device's whole convolutions
+   printed; ms per batch. (b) One fp32 train step with R1 and PL at batch
+   4 over `[cuda:0]*2` model 2, deterministic, against 14b's one-device
+   step: losses within 1e-3 relative, gradients (the first Adam moments)
+   at phase 7a's bounds, launches as the table gives them, the checkpoint
+   holding the gathered whole leaves; seconds, the card's peak and each
+   slot's bytes. (c) The projector on the model-2 mesh, 5 steps,
+   deterministic, against one device: bit for bit, or distances within
+   1e-5. (d) `SynthesisDaemon` on the model-2 mesh: z and w+ requests
+   within 1 step on 99.9% of direct synthesis on one device, launches per
+   slot. (e) Two children on the card over gloo, each a data 1 x model 2
+   group (data 2 x model 2 in all): the coordinator serves HTTP behind the
+   multi-process proxies, the worker mirrors; z, w+ and a /synthesize_audio
+   request, a hot /admin/load and /admin/unload, a clean shutdown, both
+   children exit 0; frames within 1 step on 99.9% of one process over
+   `[cuda:0]*4` at the same shapes; each child's launches as its mirrored
+   dispatches' forwards.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
-phases 10, 13 and 14's; E's launches include the phase-path G steps'; A, B, C
-and E's include phases 8-14's, each child rank's included); the last line
+phases 10, 13, 14 and 15's; E's launches include the phase-path G steps'; A,
+B, C and E's include phases 8-15's, each child's included); the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -4200,14 +4230,531 @@ def nccl_phase(config, workdir: Path, card: str, reference: Tuple[dict, dict]
     return totals
 
 
-def multi_device_phase(config, workdir: Path, card: str) -> Dict[str, int]:
-    """Phase 14, with phase 3's networks and phase 8's WAV in `workdir`."""
+def multi_device_phase(config, workdir: Path, card: str) -> Tuple[Dict[str, int], Tuple[dict, dict]]:
+    """Phase 14, with phase 3's networks and phase 8's WAV in `workdir`; also
+    returns 14b's one-device train step (phase 15b's reference)."""
     start = time.perf_counter()
     totals, reference = two_rank_phase(config, workdir, card)  # 14a runs beside 14b's ranks
     for k, v in nccl_phase(config, workdir, card, reference).items():
         totals[k] = totals.get(k, 0) + v
     print(f"phase 14 took {time.perf_counter() - start:.1f} s; its launches (14a-14c, both "
           f"ranks') {totals}", flush=True)
+    return totals, reference
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the tensor-parallel 'model' axis and serving over processes
+# ---------------------------------------------------------------------------
+
+
+def tp_forward_launches(config, model: int, phase: bool = False,
+                        resize: bool = False) -> List[Dict[str, int]]:
+    """Kernel launches of one synthesis forward over a model group of `model`
+    slots, per slot (slot 0 is the lead), from the sharding table
+    (`parallel/mesh.py::shard_dim` at the config's shapes): a sharded noise
+    layer runs A on every slot's channel block, a sharded Conv0_up runs C on
+    every slot; whole layers, every B and E run on the lead."""
+    from gance_tpu_torch.parallel.mesh import shard_dim
+
+    def sharded(cout: int, cin: int) -> bool:
+        return shard_dim(("weight",), (cout, cin, 3, 3)) is not None
+
+    top = config.resolution_log2
+    layers = [(config.nf(1), config.nf(1), False)]  # (cout, cin, is Conv0_up)
+    for res in range(3, top + 1):
+        if res == top and phase:
+            break  # the phase top block: its Conv0_up in phase form, E for the rest
+        cin, cout = config.nf(res - 2), config.nf(res - 1)
+        layers += [(cout, cin, True), (cout, cout, False)]
+    slots = []
+    for slot in range(model):
+        a = sum(1 for cout, cin, _ in layers if sharded(cout, cin) or slot == 0)
+        c = sum(1 for cout, cin, up in layers if up and (sharded(cout, cin) or slot == 0))
+        slots.append({
+            "fused_bias_noise_lrelu": a,
+            "upsample2x_blur": (top - 2 - (phase and not resize)) * (slot == 0),
+            "blur4_separable_pad11": c,
+            "phase_conv1_torgb": int(phase) * (slot == 0),
+            "stencil_blur4_valid": 0,
+        })
+    return slots
+
+
+def summed(counts: List[Dict[str, int]], times: int = 1) -> Dict[str, int]:
+    return {k: times * sum(c[k] for c in counts) for k in counts[0]}
+
+
+class SlotMeter:
+    """Attributes kernel launches to the model slots of tensor-parallel
+    forwards: a sharded layer calls its function once per slot, in slot
+    order (`parallel/tensor_parallel.py::GroupParams.run`; every block is
+    non-empty at config-f), so a launch inside the k-th call of a layer
+    counts for slot k; every other launch (the replicated layers and what
+    runs between layers, on the lead) counts for slot 0."""
+
+    def __init__(self, model: int) -> None:
+        self.model = model
+
+    @contextlib.contextmanager
+    def measuring(self):
+        from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES
+        from gance_tpu_torch.parallel.tensor_parallel import GroupParams
+
+        real = GroupParams.run
+        inner = [dict.fromkeys(LAUNCHES, 0) for _ in range(self.model)]
+
+        def run(group, path, fn, x, *extras, **kwargs):
+            calls = [0]
+
+            def counted(*args):
+                slot = calls[0]
+                calls[0] += 1
+                before = dict(LAUNCHES)
+                try:
+                    return fn(*args)
+                finally:
+                    for k in LAUNCHES:
+                        inner[slot][k] += LAUNCHES[k] - before[k]
+
+            return real(group, path, counted, x, *extras, **kwargs)
+
+        start = dict(LAUNCHES)
+        with mock.patch.object(GroupParams, "run", run):
+            yield self
+        total = {k: LAUNCHES[k] - start[k] for k in LAUNCHES}
+        self.slots = [dict(c) for c in inner]
+        for k in total:
+            self.slots[0][k] += total[k] - sum(c[k] for c in inner)
+
+
+def check_slot_launches(label: str, meter: SlotMeter, want: List[Dict[str, int]],
+                        totals: Dict[str, int]) -> None:
+    print(f"launches {label} per slot: {meter.slots}", flush=True)
+    require(meter.slots == want, f"{label}: launches per slot {meter.slots} != {want}")
+    for slot in meter.slots:
+        for k, v in slot.items():
+            totals[k] = totals.get(k, 0) + v
+
+
+TP_BF16_MAX_STEPS = 6  # 15a: bf16 frames over a model axis against one device's whole convs
+TP_BF16_WITHIN_ONE = 0.985
+
+
+def tp_synthesis_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """15a: meshes with a 'model' axis of 2 naming the card twice and four
+    times (data 1 and 2): vectors and matrices at batch 8, fp32 and bf16,
+    both paths, the launches per slot against the sharding table."""
+    from gance_tpu_torch.models.stylegan2 import generator_apply, synthesis_apply
+    from gance_tpu_torch.parallel.mesh import create_mesh, shard_slices
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    start = time.perf_counter()
+    totals: Dict[str, int] = {}
+    path = workdir / "0_net.pkl"
+    staged = SynthesisNetwork.stage_pkl(path)
+    rng = np.random.RandomState(SEED + 150)
+    inputs = {"vectors": rng.standard_normal((BATCH, config.latent_size)).astype(np.float32),
+              "matrices": rng.standard_normal((BATCH, config.num_style_rows, config.dlatent_size)
+                                              ).astype(np.float32)}
+    whole: Dict[Tuple[str, bool], Dict[str, np.ndarray]] = {}
+    for dtype in ("float32", "bfloat16"):
+        single = SynthesisNetwork.from_staged(staged, path, device="cuda",
+                                              compute_dtype=getattr(torch, dtype))
+        for phase in (False, True):
+            set_phase("on" if phase else "off")
+            whole[dtype, phase] = {"vectors": single.images_from_vectors(inputs["vectors"]),
+                                   "matrices": single.images_from_matrices(inputs["matrices"])}
+        del single
+    card0 = torch.device("cuda", 0)
+    times = []
+    for devices, data in (([card0] * 2, 1), ([card0] * 4, 2)):
+        mesh = create_mesh(devices=devices, data_parallel=data)
+        require(mesh.shape == {"data": data, "model": 2}, f"15a mesh {mesh.shape}")
+        rows = [s.stop - s.start for s in shard_slices(BATCH, data)]
+        for dtype in ("float32", "bfloat16"):
+            net = SynthesisNetwork.from_staged(staged, path, mesh=mesh,
+                                               compute_dtype=getattr(torch, dtype))
+            group = net.params
+            for phase in (False, True):
+                set_phase("on" if phase else "off")
+                for kind, request in (("vectors", net.images_from_vectors),
+                                      ("matrices", net.images_from_matrices)):
+                    label = (f"15a data {data} x model 2 {dtype} {kind} phase "
+                             f"{'on' if phase else 'off'}")
+                    meter = SlotMeter(2)
+                    with meter.measuring():
+                        got = request(inputs[kind])
+                    check_slot_launches(label, meter, [
+                        {k: v * len(rows) for k, v in slot.items()}
+                        for slot in tp_forward_launches(config, 2, phase)], totals)
+                    check_frames(label, got, BATCH, config.resolution)
+                    if dtype == "float32":
+                        require_close_frames(f"{label} vs one device", got, whole[dtype, phase][kind])
+                        continue
+                    # the witness: the same channel blocks at the same batch shapes, called
+                    # directly on the model group (no mesh, no batcher)
+                    with torch.inference_mode():
+                        parts = []
+                        for piece in shard_slices(BATCH, data):
+                            x = torch.from_numpy(inputs[kind][piece]).cuda()
+                            parts.append((generator_apply(
+                                group, x, config, truncation_psi=net.truncation_psi,
+                                compute_dtype=torch.bfloat16, uint8_output=True)
+                                if kind == "vectors" else synthesis_apply(
+                                group, x, config, compute_dtype=torch.bfloat16,
+                                uint8_output=True)).cpu().numpy())
+                    witness = np.concatenate(parts)
+                    worst, share = share_within_one_step(got, witness)
+                    require(worst == 0, f"{label} vs its same-shape witness: max {worst} steps")
+                    # the independent check: one device's whole convolutions, which round
+                    # bf16 by other shapes (max 4-5 steps, 98.78-99.53% within 1 step in
+                    # every run so far)
+                    worst, share = share_within_one_step(got, whole[dtype, phase][kind])
+                    print(f"{label}: equal to its same-shape witness; against one device's whole "
+                          f"convolutions max {worst} steps, {share:.6f} within 1 step (bound: "
+                          f"max {TP_BF16_MAX_STEPS}, >= {TP_BF16_WITHIN_ONE} within 1)", flush=True)
+                    require(worst <= TP_BF16_MAX_STEPS and share >= TP_BF16_WITHIN_ONE,
+                            f"{label} vs one device: max {worst} steps, {share:.6f} within 1 step")
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                net.images_from_vectors(inputs["vectors"])
+                times.append(f"data {data} {dtype} phase {'on' if phase else 'off'} "
+                             f"{1e3 * (time.perf_counter() - begin):.1f}")
+            del net, group
+    set_phase("off")
+    torch.cuda.empty_cache()
+    print(f"15a ms per batch of 8 (host clock, one call after the checked ones; model 2 on one "
+          f"card, so no scaling figure): {'; '.join(times)}; 15a took "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+def tp_train_launches(config, model: int, apply_r1: bool, apply_pl: bool) -> Dict[str, int]:
+    """`train_launches` over one model group: every forward's A and C as the
+    sharding table gives them (`tp_forward_launches`), and one D for each C's
+    input gradient; D's own blurs run once on the lead, as on one device."""
+    base = train_launches(config, apply_r1, apply_pl)
+    one, tp = forward_launches(config), summed(tp_forward_launches(config, model))
+    forwards = 2 + apply_pl
+    c_extra = tp["blur4_separable_pad11"] - one["blur4_separable_pad11"]
+    return dict(base, fused_bias_noise_lrelu=tp["fused_bias_noise_lrelu"] * forwards,
+                blur4_separable_pad11=tp["blur4_separable_pad11"] * forwards,
+                stencil_blur4_valid=base["stencil_blur4_valid"] + c_extra * (1 + 3 * apply_pl))
+
+
+def tp_train_phase(config, workdir: Path, card: str, reference: Tuple[dict, dict]
+                   ) -> Dict[str, int]:
+    """15b: one fp32 train step (R1 and PL) at batch 4 over a model-2 mesh
+    naming the card twice, under deterministic cuDNN, against 14b's one-device
+    step (`reference`); the checkpoint's gathered leaves."""
+    import pickle
+
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.parallel.tensor_parallel import _get, _paths
+
+    start = time.perf_counter()
+    tc = T.TrainingConfig(**DIST_TRAIN)
+    reals, draws, _ = dist_inputs(config, tc)
+    mesh = create_mesh(devices=[torch.device("cuda", 0)] * 2, data_parallel=1)
+    state = T.shard_training_state(mesh, T.init_training_state(SEED + 141, config, tc, "cuda"), tc)
+    sharded = sum(dim is not None for _, dim in _paths(state.g_params.spec))
+    step = T.make_train_step(config, tc, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    begin = time.perf_counter()
+    with deterministic_cudnn():
+        state, metrics = step(state, torch.from_numpy(reals[0]).cuda(), draws[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - begin
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    totals: Dict[str, int] = {}
+    count_launches(totals, "15b TP train step", tp_train_launches(config, 2, True, True))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    ref_metrics, ref_moments = reference
+    require_losses_close("15b TP train step 0", metrics, ref_metrics)
+    moments = {net: T._adam_to_numpy(getattr(state, f"{net}_opt_state"),
+                                     getattr(state, f"{net}_params"))["mu"] for net in ("g", "d")}
+    require_moments_close("15b TP train step 0", moments, ref_moments,
+                          "model 2 vs one device")
+    # each slot's share: its blocks of the sharded leaves (and their two
+    # moments and the EMA's), the lead also every replicated leaf
+    slot_bytes = [0, 0]
+    for tree, copies in ((state.g_params, 4), (state.d_params, 3)):  # leaf, mu, nu (, EMA)
+        for path, dim in _paths(tree.spec):
+            for m in range(2):
+                if dim is not None or m == 0:
+                    slot_bytes[m] += _get(tree.slots[m], path).numel() * 4 * copies
+    ckpt = workdir / "tp_ckpt.pkl"
+    T.save_checkpoint(ckpt, state)
+    with open(ckpt, "rb") as f:
+        blob = pickle.load(f)
+    ckpt.unlink()
+    for name in ("g_params", "d_params", "ema_params"):
+        want = dict(T.tree_leaves(T.tree_to_numpy(getattr(state, name))))
+        got = dict(T.tree_leaves(blob[name]))
+        require(set(got) == set(want) and all(np.array_equal(got[p], want[p]) for p in want),
+                f"15b: the checkpoint's {name} are not the gathered leaves")
+    conv = dict(T.tree_leaves(blob["g_params"]))["synthesis/8x8/Conv1/weight"]
+    require(tuple(conv.shape) == (config.nf(2), config.nf(2), 3, 3),
+            f"15b: the checkpoint holds blocks, not whole leaves: {conv.shape}")
+    del state, step, blob
+    torch.cuda.empty_cache()
+    print(f"15b TP train step (fp32, 1024px, batch 4, R1 and PL, deterministic cuDNN, model 2 "
+          f"naming the card twice): {seconds:.3f} s, peak {peak:.2f} GiB on the card (both "
+          f"slots); per slot the params, Adam moments and EMA of G and D: "
+          f"{slot_bytes[0] / 2**30:.3f} and {slot_bytes[1] / 2**30:.3f} GiB "
+          f"({sharded} sharded G leaves); losses {metrics} vs one device {ref_metrics}; "
+          f"took {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+def tp_projector_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """15c: the projector on a model-2 mesh (params replicated, the lead
+    computes) against one device: 5 steps from a cold start, deterministic."""
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.parallel import training as T
+    from gance_tpu_torch.parallel.mesh import create_mesh
+
+    start = time.perf_counter()
+    tc = T.TrainingConfig(**DIST_TRAIN)
+    _, _, targets = dist_inputs(config, tc)
+    mesh = create_mesh(devices=[torch.device("cuda", 0)] * 2, data_parallel=1)
+    totals: Dict[str, int] = {}
+    runs = []
+    for label, m in (("model-2 mesh", mesh), ("one device", None)):
+        reset_launch_counts()
+        with deterministic_cudnn():
+            results = dist_projector(workdir / "0_net.pkl", m).project_batch(
+                targets, want_step_images=False, per_step_noises=False)
+        count_launches(totals, f"15c projector on {label}",
+                       projection_launches(config, DIST_PROJECTION_STEPS, False))
+        runs.append((np.array([r.final_distance for r in results]),
+                     np.stack([r.final_latents for r in results])))
+    (d_mesh, w_mesh), (d_one, w_one) = runs
+    rel = float(np.max(np.abs(d_mesh - d_one) / d_one))
+    same = bool(np.array_equal(w_mesh, w_one) and np.array_equal(d_mesh, d_one))
+    require(same or rel <= 1e-5, f"15c projector: distances {rel:.3g} relative from one device")
+    torch.cuda.empty_cache()
+    print(f"15c projector ({DIST_PROJECTION_STEPS} steps, fp32, batch {DIST_BATCH}, model-2 "
+          f"mesh): {'bit for bit' if same else f'{rel:.3g} relative'} against one device; took "
+          f"{time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+SERVE_MESH_REQUESTS = (5, 3)  # 15d/15e: z frames and w+ frames per request
+SERVE_AUDIO_FPS = 10.0  # 15e: the phase-8 WAV, 4 s, at 10 frames/s
+
+
+def serve_mesh_requests(client, config, rng_seed: int, workdir: Path,
+                        audio: bool = False) -> Dict[str, np.ndarray]:
+    """15d/15e's requests: z and w+ frames (and the WAV through
+    /synthesize_audio) from seeded inputs."""
+    rng = np.random.RandomState(rng_seed)
+    z = rng.standard_normal((SERVE_MESH_REQUESTS[0], config.latent_size)).astype(np.float32)
+    w = rng.standard_normal((SERVE_MESH_REQUESTS[1], config.num_style_rows,
+                             config.dlatent_size)).astype(np.float32)
+    out = {"z": client.synthesize(latents=z), "w": client.synthesize(dlatents=w),
+           "z_in": z, "w_in": w}
+    if audio:
+        wav = (workdir / "song.wav").read_bytes()
+        out["plan_frames"] = np.array(client.synthesize_audio(wav, fps=SERVE_AUDIO_FPS,
+                                                              plan=True)["frames"])
+        out["audio"] = client.synthesize_audio(wav, fps=SERVE_AUDIO_FPS)
+    return out
+
+
+def serve_child(spec: dict) -> None:
+    """15e: one of two processes on the card over gloo, each with a data 1 x
+    model 2 group naming the card twice (data 2 x model 2 in all), serving
+    phase 3's networks fp32: rank 0 binds HTTP behind the multi-process
+    proxies and sends the requests, a hot load and a shutdown; rank 1
+    mirrors every dispatch. `python3 -c "import chip_smoke;
+    chip_smoke.serve_child(...)"`; writes serve_RANK.pkl."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.parallel.distributed import initialize_distributed
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.serving import ServingClient, SynthesisDaemon
+    from gance_tpu_torch.serving.multihost import (
+        ControlCoordinator,
+        MultiHostNetwork,
+        network_fingerprint,
+        run_worker,
+        wrap_networks_for_multihost,
+    )
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    rank, workdir, config = spec["rank"], Path(spec["workdir"]), GeneratorConfig()
+    backend = initialize_distributed(f"localhost:{spec['port']}", 2, rank, device="cuda")
+    mesh = create_mesh(devices=[torch.device("cuda", 0)] * 2, data_parallel=2)
+    out: Dict[str, object] = {"backend": backend, "mesh": mesh.shape}
+    networks = [SynthesisNetwork.from_pkl(workdir / f"{i}_net.pkl", mesh=mesh) for i in range(2)]
+
+    def commit(staged, path, _index=0):
+        return SynthesisNetwork.from_staged(staged, Path(path), mesh=mesh)
+
+    reset_launch_counts()
+    start = time.perf_counter()
+    if rank:
+        out["served"] = run_worker(networks, "127.0.0.1", spec["control_port"], rank,
+                                   recv_timeout_s=300.0,
+                                   load_prepare=lambda p, _i: SynthesisNetwork.stage_pkl(Path(p)),
+                                   load_commit=commit)
+    else:
+        coordinator = ControlCoordinator(num_workers=1, bind_host="127.0.0.1",
+                                         port=spec["control_port"], heartbeat_interval_s=1.0)
+        coordinator.accept(network_fingerprint(networks), timeout_s=300.0)
+
+        def loader(path: str, index: int):
+            staged = SynthesisNetwork.stage_pkl(Path(path))
+            coordinator.broadcast_load(path, index)
+            return MultiHostNetwork(commit(staged, path), coordinator, index)
+
+        with SynthesisDaemon(wrap_networks_for_multihost(networks, coordinator), port=0,
+                             max_batch=BATCH, network_loader=loader,
+                             network_unloader=coordinator.broadcast_unload) as daemon:
+            client = ServingClient(f"http://127.0.0.1:{daemon.port}", timeout_s=300.0)
+            require(client.health()["ok"], "15e: the coordinator's daemon is not healthy")
+            out.update(serve_mesh_requests(client, config, SEED + 151, workdir, audio=True))
+            loaded = client.load_network(str(workdir / "2_net.pkl"))
+            require(loaded["index"] == 2 and loaded["name"] == "2_net", f"15e load: {loaded}")
+            out["hot"] = client.synthesize(latents=out["z_in"], network="2_net")
+            require(client.unload_network("2_net")["drained"] is True, "15e: unload")
+            out["stats"] = client.stats()
+        coordinator.shutdown()
+        require(not coordinator.failed.is_set(), "15e: the control channel failed")
+    out.update(seconds=time.perf_counter() - start, launches=dict(LAUNCHES))
+    with open(workdir / f"serve_{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_serving_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """15d: the daemon on a model-2 mesh naming the card twice, in process;
+    15e: two processes serving over a data 2 x model 2 mesh (children of
+    this script), against one process over the same mesh shape, run here
+    while they run."""
+    import pickle
+
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.parallel.mesh import create_mesh
+    from gance_tpu_torch.serving import ServingClient, SynthesisDaemon
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    start = time.perf_counter()
+    totals: Dict[str, int] = {}
+    card0 = torch.device("cuda", 0)
+    shutil.copyfile(workdir / "1_net.pkl", workdir / "2_net.pkl")  # 15e's hot load
+    port, control_port = free_port(), free_port()
+    code = "import json, sys, chip_smoke; chip_smoke.serve_child(json.loads(sys.argv[1]))"
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    logs = [workdir / f"serve_{rank}.log" for rank in range(2)]
+    children = []
+    for rank in range(2):
+        spec = {"rank": rank, "port": port, "control_port": control_port,
+                "workdir": str(workdir)}
+        with open(logs[rank], "wb") as log:
+            children.append(subprocess.Popen([sys.executable, "-c", code, json.dumps(spec)],
+                                             cwd=ROOT, env=env, stdout=log,
+                                             stderr=subprocess.STDOUT))
+    try:
+        # 15d, while the children start: one process, data 1 x model 2
+        paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+        twice = create_mesh(devices=[card0] * 2, data_parallel=1)
+        nets = [SynthesisNetwork.from_pkl(p, mesh=twice) for p in paths]
+        singles = [SynthesisNetwork.from_pkl(p, device="cuda") for p in paths]
+        with SynthesisDaemon(nets, port=0, max_batch=BATCH) as daemon:
+            client = ServingClient(f"http://127.0.0.1:{daemon.port}", timeout_s=300.0)
+            meter = SlotMeter(2)
+            with meter.measuring():
+                got = serve_mesh_requests(client, config, SEED + 152, workdir)
+            check_slot_launches("15d daemon on a model-2 mesh (2 forwards)", meter,
+                                [summed([s], 2) for s in tp_forward_launches(config, 2)], totals)
+        for key, direct in (("z", singles[0].images_from_vectors(got["z_in"])),
+                            ("w", singles[0].images_from_matrices(got["w_in"]))):
+            check_frames(f"15d {key}", got[key], len(direct), config.resolution)
+            require_close_frames(f"15d served {key} on a model-2 mesh vs direct synthesis on "
+                                 "one device", got[key], direct)
+        del nets, singles
+        # 15e's reference: one process over the children's mesh shape
+        four = create_mesh(devices=[card0] * 4, data_parallel=2)
+        nets = [SynthesisNetwork.from_pkl(p, mesh=four) for p in paths]
+        reset_launch_counts()
+        with SynthesisDaemon(nets, port=0, max_batch=BATCH) as daemon:
+            client = ServingClient(f"http://127.0.0.1:{daemon.port}", timeout_s=300.0)
+            want = serve_mesh_requests(client, config, SEED + 151, workdir, audio=True)
+        want["hot"] = nets[1].images_from_vectors(want["z_in"])
+        del nets
+        torch.cuda.empty_cache()
+        for rank, child in enumerate(children):
+            code_ = child.wait(timeout=600)
+            require(code_ == 0, f"15e rank {rank} exited {code_}:\n"
+                    f"{logs[rank].read_text(errors='replace')[-4000:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    outs = []
+    for rank in range(2):
+        with open(workdir / f"serve_{rank}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+        (workdir / f"serve_{rank}.pkl").unlink()
+    (workdir / "2_net.pkl").unlink()
+    for rank, out in enumerate(outs):
+        require(out["backend"] == "gloo" and out["mesh"] == {"data": 2, "model": 2},
+                f"15e rank {rank}: {out['backend']}, mesh {out['mesh']}")
+    coordinator, worker = outs
+    require(int(coordinator["plan_frames"]) == len(coordinator["audio"]) == len(want["audio"]),
+            f"15e audio: {len(coordinator['audio'])} frames, plan {coordinator['plan_frames']}")
+    for key in ("z", "w", "audio", "hot"):
+        require_close_frames(f"15e two processes {key} vs one process at the same shapes",
+                             coordinator[key], want[key])
+    # every dispatch runs one forward of each process's data row (batches of
+    # 8: 4 rows each); the worker's launches are its mirrored dispatches'
+    per_forward = summed(tp_forward_launches(config, 2))
+    want_worker = {k: v * worker["served"] for k, v in per_forward.items()}
+    print(f"launches 15e worker ({worker['served']} mirrored dispatches): {worker['launches']}",
+          flush=True)
+    require(worker["launches"] == want_worker, f"15e worker launches {worker['launches']} != "
+            f"{want_worker}")
+    require(coordinator["launches"] == want_worker, f"15e coordinator launches "
+            f"{coordinator['launches']} != {want_worker}")
+    for out in outs:
+        for k, v in out["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"15e two processes over gloo, data 2 x model 2 (fp32, 1024px): {worker['served']} "
+          f"dispatches mirrored, {len(coordinator['audio'])} audio frames, a hot load and an "
+          f"unload, both children exited 0; the coordinator's serving "
+          f"{coordinator['seconds']:.1f} s, /stats batches {coordinator['stats'].get('batches')}; "
+          f"phase 15d-e took {time.perf_counter() - start:.1f} s; on {card}", flush=True)
+    return totals
+
+
+def tensor_parallel_phase(config, workdir: Path, card: str,
+                          reference: Tuple[dict, dict]) -> Dict[str, int]:
+    """Phase 15, with phase 3's networks, phase 8's WAV and 14b's one-device
+    train step (`reference`) in hand."""
+    start = time.perf_counter()
+    totals: Dict[str, int] = {}
+    for part in (lambda: tp_synthesis_phase(config, workdir, card),
+                 lambda: tp_train_phase(config, workdir, card, reference),
+                 lambda: tp_projector_phase(config, workdir, card),
+                 lambda: tp_serving_phase(config, workdir, card)):
+        for k, v in part().items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"phase 15 took {time.perf_counter() - start:.1f} s; its launches (15a-15e, both "
+          f"children's included) {totals}", flush=True)
     return totals
 
 
@@ -4261,10 +4808,11 @@ def main() -> None:
         resume_totals = resume_phase(config, Path(nets_dir), smi)
         serving_totals = serving_phase(config, Path(nets_dir), smi)
         metrics_totals = metrics_training_phase(config, Path(nets_dir), smi)
-        multi_totals = multi_device_phase(config, Path(nets_dir), smi)
+        multi_totals, reference = multi_device_phase(config, Path(nets_dir), smi)
+        tp_totals = tensor_parallel_phase(config, Path(nets_dir), smi, reference)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
-                       resume_totals, serving_totals, metrics_totals, multi_totals):
+                       resume_totals, serving_totals, metrics_totals, multi_totals, tp_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

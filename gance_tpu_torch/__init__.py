@@ -15,12 +15,12 @@ It runs StyleGAN2 (config-f family) on an NVIDIA GPU with the same TF-format
     `media/native`);
   * the flagship projection-file blend, the projector, resumable renders,
     online serving on one device and the network metrics;
-  * several devices and processes (`parallel/`: meshes, data-parallel and
-    network-parallel synthesis, data-parallel training and projection,
-    `--data-parallel`, `--one-network-per-device`, `--network-parallel` and
-    `--dist-*` on the render, train and projection CLIs). Still to port
-    (ROADMAP.md Queue 1 item 12, part 2): a tensor-parallel 'model' axis and
-    serving over a mesh or several hosts.
+  * several devices and processes (`parallel/`: meshes with a data axis and
+    a tensor-parallel 'model' axis, network-parallel synthesis, training and
+    projection over meshes, `--data-parallel`, `--one-network-per-device`,
+    `--network-parallel` and `--dist-*` on the render, train and projection
+    CLIs; serving over a mesh and over several processes,
+    `serving/multihost.py`).
 
 Activations are NCHW and conv weights OIHW. The five kernels that `gance_tpu`
 wrote in Pallas (the noise/bias/lrelu epilogue, the skip-chain 2x upsample,

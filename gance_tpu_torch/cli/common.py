@@ -79,8 +79,8 @@ def common_command_options(func: Callable) -> Callable:
         click.option(
             "--data-parallel", type=click.IntRange(min=1), default=None,
             help="Shard synthesis over a ('data','model') device mesh with this "
-            "data-axis size; frame batches split over 'data' (a 'model' axis "
-            "above 1 is not ported and raises).",
+            "data-axis size; frame batches split over 'data', and the rest of the "
+            "devices form a tensor-parallel 'model' axis inside each process.",
         ),
         click.option(
             "--one-network-per-device", is_flag=True, default=False,

@@ -10,12 +10,21 @@ the port and serves until SIGTERM or SIGINT; SIGTERM drains (in-flight
 requests finish, new ones get 503) and the process exits 0. See
 `serving/daemon.py` for the routes.
 
+Several devices and processes, with JAX's resolution and usage errors:
+--use-mesh (the default when more than one device is visible) serves over a
+('data', 'model') mesh of every device, --data-parallel N sizes its data
+axis (the rest is a tensor-parallel 'model' axis inside each process), and
+hot-loaded networks go on the same mesh. --dist-coordinator host:port
+--dist-num-processes P --dist-process-id i (all three or none) serve over
+P processes (`serving/multihost.py`): process 0 binds HTTP and broadcasts
+each device batch over a TCP control channel (--control-port, default the
+coordinator port + 1000, bound on --control-bind, default the coordinator's
+host, never 0.0.0.0), and the other processes mirror every dispatch and
+never bind HTTP. Every host sets the same GANCE_TPU_SERVE_TOKEN.
+
 The body is `run_server`, a plain function that imports no click (the card
 machine's tools run it in a child process); click is imported only by
-`build_cli`. --use-mesh, --data-parallel, --dist-*, --control-port and
---control-bind serve over several devices or processes, which is not ported
-yet: they raise naming ROADMAP.md Queue 1 item 12, part 2 (the renders,
-training and projection over meshes and processes are part 1, ported).
+`build_cli`.
 """
 
 import signal
@@ -27,31 +36,49 @@ import numpy as np
 
 from gance_tpu_torch.utils.logging import LOGGER, add_log_file
 
-MULTI_DEVICE_ITEM = "ROADMAP.md Queue 1 item 12, part 2 (multi-device serving)"
 COMPUTE_DTYPES = ("bfloat16", "float32")
 
 
-def check_single_device(use_mesh: Optional[bool] = None, data_parallel: Optional[int] = None,
-                        dist_coordinator: Optional[str] = None,
-                        dist_num_processes: Optional[int] = None,
-                        dist_process_id: Optional[int] = None,
-                        control_port: Optional[int] = None,
-                        control_bind: Optional[str] = None) -> None:
-    """The multi-device and multi-host options raise: not ported yet."""
-    given = {
-        "--use-mesh": use_mesh is True, "--data-parallel": data_parallel is not None,
-        "--dist-coordinator": dist_coordinator is not None,
-        "--dist-num-processes": dist_num_processes is not None,
-        "--dist-process-id": dist_process_id is not None,
-        "--control-port": control_port is not None,
-        "--control-bind": control_bind is not None,
-    }
-    named = [name for name, value in given.items() if value]
-    if named:
-        raise NotImplementedError(
-            f"{', '.join(named)}: serving over several devices or processes is not "
-            f"ported yet: {MULTI_DEVICE_ITEM}"
-        )
+class ServeUsageError(ValueError):
+    """A combination of options that cannot serve (click's usage error)."""
+
+
+def check_dist_triple(coordinator: Optional[str], num_processes: Optional[int],
+                      process_id: Optional[int]) -> bool:
+    """Whether the --dist-* triple is given (all or none; a part raises)."""
+    triple = (coordinator, num_processes, process_id)
+    if all(option is None for option in triple):
+        return False
+    if any(option is None for option in triple):
+        raise ServeUsageError("--dist-coordinator, --dist-num-processes and "
+                              "--dist-process-id must be given together")
+    return True
+
+
+def resolve_serving_mesh(use_mesh: Optional[bool], data_parallel: Optional[int],
+                         device: Any) -> Optional[Any]:
+    """JAX's serving mesh resolution: always a mesh across processes
+    (--no-mesh is refused there), --data-parallel implies one, and by default
+    a mesh exactly when more than one device is visible."""
+    from gance_tpu_torch.parallel.mesh import create_mesh, global_devices, process_group_info
+
+    if process_group_info()[1] > 1:
+        if use_mesh is False:
+            raise ServeUsageError(
+                "--no-mesh is impossible multi-host: the whole point of --dist-* is "
+                "sharding batches over every host's devices")
+        use_mesh = True
+    if data_parallel is not None and use_mesh is None:
+        use_mesh = True
+    if use_mesh is None:
+        use_mesh = len(global_devices(device=device)) > 1
+    if not use_mesh:
+        if data_parallel is not None:
+            raise ServeUsageError("--data-parallel requires the mesh (drop --no-mesh)")
+        return None
+    mesh = create_mesh(data_parallel=data_parallel, device=device)
+    LOGGER.info("Serving over a %s mesh (%d devices)", mesh.shape, mesh.size)
+    return mesh
 
 
 class NetworkLoader:
@@ -144,15 +171,23 @@ def run_server(
     warmup_audio: Optional[str] = None,
     device: str = "cuda",
     log_path: Optional[str] = None,
-    **multi_device: Any,
+    use_mesh: Optional[bool] = None,
+    data_parallel: Optional[int] = None,
+    dist_coordinator: Optional[str] = None,
+    dist_num_processes: Optional[int] = None,
+    dist_process_id: Optional[int] = None,
+    control_port: Optional[int] = None,
+    control_bind: Optional[str] = None,
 ) -> None:
-    """Serve `network_paths` until SIGTERM (drain, then return) or SIGINT."""
+    """Serve `network_paths` until SIGTERM (drain, then return) or SIGINT;
+    a --dist-* worker serves until the coordinator's shutdown."""
     import torch
 
+    from gance_tpu_torch.parallel.mesh import process_group_info
     from gance_tpu_torch.serving import SynthesisDaemon, default_max_batch
     from gance_tpu_torch.utils.device import resolve_device
 
-    check_single_device(**multi_device)
+    distributed = check_dist_triple(dist_coordinator, dist_num_processes, dist_process_id)
     if log_path:
         add_log_file(Path(log_path))
     if not network_paths:
@@ -161,6 +196,11 @@ def run_server(
         raise ValueError(f"--warmup must be all, max or none, got {warmup!r}")
     durations = parse_durations(warmup_audio)
     resolved = resolve_device(device)
+    if distributed:  # before any mesh is built or network placed
+        from gance_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(dist_coordinator, dist_num_processes, dist_process_id,
+                               device=device)
     if resolved.type == "cuda":
         from gance_tpu_torch.ops.cuda import build
 
@@ -173,6 +213,9 @@ def run_server(
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"--compute-dtype must be one of {COMPUTE_DTYPES}")
         kwargs["compute_dtype"] = getattr(torch, compute_dtype)
+    mesh = resolve_serving_mesh(use_mesh, data_parallel, device)
+    if mesh is not None:
+        kwargs["mesh"] = mesh  # hot-loaded networks go on the same mesh
 
     loader = NetworkLoader(**kwargs)
     networks = [loader(str(p), i) for i, p in enumerate(network_paths)]
@@ -180,11 +223,66 @@ def run_server(
     warm_networks(networks, resolved_batch, warmup)
     warm_audio(networks, durations)
 
-    with SynthesisDaemon(networks, host=host, port=port, max_batch=resolved_batch,
-                         max_delay_ms=max_delay_ms, network_loader=loader) as daemon:
+    coordinator = None
+    serving_networks: List[Any] = networks
+    network_loader: Any = loader
+    network_unloader = None
+    process_index, process_count = process_group_info()
+    if process_count > 1:
+        from gance_tpu_torch.serving.multihost import (
+            ControlCoordinator,
+            MultiHostNetwork,
+            network_fingerprint,
+            run_worker,
+            wrap_networks_for_multihost,
+        )
+
+        coordinator_host, _, dist_port = dist_coordinator.partition(":")
+        if control_port is None:
+            if not dist_port.isdigit():
+                raise ServeUsageError(
+                    "--control-port is required when --dist-coordinator carries no port")
+            control_port = int(dist_port) + 1000
+        if process_index != 0:
+            # workers never bind HTTP: they mirror the coordinator's device
+            # dispatches so that every collective has all its participants
+            run_worker(networks, coordinator_host or "127.0.0.1", control_port, process_index,
+                       load_prepare=loader.prepare, load_commit=loader.commit)
+            return
+        coordinator = ControlCoordinator(
+            num_workers=process_count - 1,
+            # the coordinator's own interface, not every interface: the
+            # channel speaks authenticated pickled frames to the workers only
+            bind_host=control_bind if control_bind is not None
+            else (coordinator_host or "127.0.0.1"),
+            port=control_port,
+        )
+        coordinator.accept(network_fingerprint(networks))
+        serving_networks = wrap_networks_for_multihost(networks, coordinator)
+
+        def network_loader(path: str, index: int) -> Any:
+            # the coordinator parses first, so that a bad path fails before
+            # any worker is involved; then every worker prepares and commits
+            staged = loader.prepare(path, index)
+            coordinator.broadcast_load(path, index)
+            try:
+                network = loader.commit(staged, path, index)
+            except BaseException as error:
+                # the workers committed slot `index`: the slot tables diverge
+                coordinator.fail(f"coordinator-side commit of {path} into slot {index} "
+                                 f"failed after workers committed: {error}")
+                raise
+            return MultiHostNetwork(network, coordinator, index)
+
+        network_unloader = coordinator.broadcast_unload
+
+    with SynthesisDaemon(serving_networks, host=host, port=port, max_batch=resolved_batch,
+                         max_delay_ms=max_delay_ms, network_loader=network_loader,
+                         network_unloader=network_unloader) as daemon:
         print(f"serving {', '.join(str(p) for p in network_paths)} on "
               f"http://{host}:{daemon.port} (max_batch={resolved_batch}, "
-              f"linger={max_delay_ms}ms, device={resolved})", flush=True)
+              f"linger={max_delay_ms}ms, device={resolved}"
+              + (f", mesh={mesh.shape}" if mesh is not None else "") + ")", flush=True)
         stop_requested = threading.Event()
         drain = threading.Event()
 
@@ -195,8 +293,11 @@ def run_server(
 
         previous = signal.signal(signal.SIGTERM, on_sigterm)
         try:
+            # serve until SIGTERM or SIGINT, or, over processes, until the
+            # control channel breaks (no collective can complete then)
             while not stop_requested.wait(0.1):
-                pass
+                if coordinator is not None and coordinator.failed.is_set():
+                    break
         except KeyboardInterrupt:
             LOGGER.info("shutting down synthesis daemon")
         finally:
@@ -205,6 +306,14 @@ def run_server(
             # in-flight requests finish, new ones get 503, then the context
             # manager stops the server and the batcher
             daemon.drain()
+    if coordinator is not None:
+        if coordinator.failed.is_set():
+            coordinator.close()
+            from gance_tpu_torch.serving.multihost import MultiHostServingError
+
+            raise MultiHostServingError("multi-host serving control channel failed; "
+                                        "daemon stopped")
+        coordinator.shutdown()
 
 
 def build_cli():
@@ -253,18 +362,40 @@ def build_cli():
         "--compute-dtype", type=click.Choice(list(COMPUTE_DTYPES)), default=None,
         help="Synthesis compute dtype (default: GANCE_TPU_COMPUTE_DTYPE, float32).",
     )
-    @click.option("--use-mesh/--no-mesh", "use_mesh", default=None,
-                  help="Not ported yet (--use-mesh raises): serve over a device mesh.")
-    @click.option("--data-parallel", type=click.IntRange(min=1), default=None,
-                  help="Not ported yet (raises): the serving mesh's data axis.")
-    @click.option("--dist-coordinator", type=str, default=None,
-                  help="Not ported yet (raises): multi-host serving.")
+    @click.option(
+        "--use-mesh/--no-mesh", "use_mesh", default=None,
+        help="Shard serving over ALL local devices (params tensor-parallel over "
+        "'model', request batches over 'data'). Default: mesh when more than one "
+        "device is visible, single-device otherwise.",
+    )
+    @click.option(
+        "--data-parallel", type=click.IntRange(min=1), default=None,
+        help="Data-axis size of the serving mesh (device count / this = tensor-"
+        "parallel size). Implies --use-mesh. Default: pure DP over all devices.",
+    )
+    @click.option(
+        "--dist-coordinator", type=str, default=None,
+        help="host:port of process 0's torch.distributed rendezvous. Setting this "
+        "(with the two options below) serves over several processes: every host "
+        "runs this command with its own --dist-process-id, process 0 serves HTTP "
+        "and broadcasts each device batch over a TCP control channel, the other "
+        "processes mirror every dispatch so request batches shard over all "
+        "processes' devices (serving/multihost.py).",
+    )
     @click.option("--dist-num-processes", type=int, default=None)
     @click.option("--dist-process-id", type=int, default=None)
-    @click.option("--control-port", type=click.IntRange(min=0), default=None,
-                  help="Not ported yet (raises): the multi-host control channel.")
-    @click.option("--control-bind", type=str, default=None,
-                  help="Not ported yet (raises): the multi-host control channel.")
+    @click.option(
+        "--control-port", type=click.IntRange(min=0), default=None,
+        help="TCP port of the multi-process control channel (the coordinator "
+        "binds, workers connect to the --dist-coordinator host). Default: the "
+        "--dist-coordinator port + 1000.",
+    )
+    @click.option(
+        "--control-bind", type=str, default=None,
+        help="Interface the control channel listens on. Default: the "
+        "--dist-coordinator host (NOT 0.0.0.0: the channel should face the "
+        "workers only; set GANCE_TPU_SERVE_TOKEN on every host too).",
+    )
     @click.option("--log", "log_path", type=click.Path(dir_okay=False), default=None)
     @click.option(
         "--warmup", type=click.Choice(["all", "max", "none"]), default="all",
@@ -290,9 +421,18 @@ def build_cli():
             raise click.UsageError(str(error)) from error
         try:
             parse_durations(options["warmup_audio"])
+            check_dist_triple(options["dist_coordinator"], options["dist_num_processes"],
+                              options["dist_process_id"])
         except ValueError as error:
             raise click.UsageError(str(error)) from error
-        run_server(paths, **options)
+        from gance_tpu_torch.serving.multihost import MultiHostServingError
+
+        try:
+            run_server(paths, **options)
+        except ServeUsageError as error:
+            raise click.UsageError(str(error)) from error
+        except MultiHostServingError as error:
+            raise click.ClickException(str(error)) from error
 
     return cli
 

@@ -14,9 +14,9 @@ Fréchet feature distance at checkpoint boundaries into a JSONL sidecar.
 
 With more than one device (this process's, times the processes of
 --dist-*) the steps run data-parallel over a ('data', 'model') mesh, as
-JAX's CLI does: `--data-parallel N` sizes the data axis (a remainder would
-be a tensor-parallel 'model' axis, which raises: ROADMAP.md Queue 1 item 12,
-part 2). `--dist-coordinator host:port --dist-num-processes P
+JAX's CLI does: `--data-parallel N` sizes the data axis, and the remainder
+(devices / N) is a tensor-parallel 'model' axis inside each process.
+`--dist-coordinator host:port --dist-num-processes P
 --dist-process-id i` joins P processes; --batch-size is then per process,
 each process reads its shard of the images, and only process 0 writes the
 checkpoint and the network. --metrics-every is single-process only.
@@ -203,8 +203,14 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
         if perceptual is None:
             perceptual = (load_vgg_params(Path(metrics_vgg_weights)) if metrics_vgg_weights
                           else random_vgg_params(seed=0))
+        ema = state.ema_params
+        if not isinstance(ema, dict):  # a model group: evaluate it whole on its lead
+            from gance_tpu_torch.parallel.mesh import gather_params
+            from gance_tpu_torch.synthesis.runtime import params_to_device
+
+            ema = params_to_device(gather_params(ema), ema.lead)
         record = evaluate_training_metrics(
-            state.ema_params, model_config, perceptual, Path(dataset_directory), step=step,
+            ema, model_config, perceptual, Path(dataset_directory), step=step,
             num_samples=metrics_samples, seed=seed,
         )
         append_metrics_record(metrics_file, record)

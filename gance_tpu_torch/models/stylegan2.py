@@ -15,7 +15,9 @@ architecture ToRGB chain) and the same params tree keys
     discriminator's 4x4/Dense0 keeps the pickle's row order, since the port
     flattens NCHW features as TF does (JAX permutes it to NHWC order).
 
-Functions take a params tree of tensors on one device. The noise-carrying
+Functions take a params tree of tensors on one device, or a `Layers` that
+runs each layer its own way (`parallel/tensor_parallel.py::GroupParams`, a
+tensor-parallel model group). The noise-carrying
 layers' epilogue runs through kernel A (`fused_bias_noise_lrelu`), the skip
 chain's upsample through kernel B and the up-conv's blur through kernel C.
 With the polyphase top block (`phase_top_block_mode`, GANCE_TPU_PHASE1024) the
@@ -28,18 +30,24 @@ import math
 import os
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gance_tpu_torch.ops import phase_block
 from gance_tpu_torch.ops.bias_act import bias_act
 from gance_tpu_torch.ops.cuda.fused_ops import RGB_COLUMNS, fused_bias_noise_lrelu
-from gance_tpu_torch.ops.modulated_conv import conv2d_layer, dense_layer, modulated_conv2d
+from gance_tpu_torch.ops.modulated_conv import (
+    conv2d_layer,
+    dense_layer,
+    modulated_conv2d,
+    runtime_weight_coef,
+)
 from gance_tpu_torch.ops.precision import apply_conv_precision, exact_fp32
-from gance_tpu_torch.ops.upfirdn2d import upsample_2d_nchw
+from gance_tpu_torch.ops.upfirdn2d import conv_downsample_blur, upsample_2d_nchw
 
 Params = Dict[str, Any]
 
@@ -221,6 +229,41 @@ def config_from_params(params: Params) -> GeneratorConfig:
 # Forward passes
 # ---------------------------------------------------------------------------
 
+Path = Tuple[str, ...]
+
+
+class Layers:
+    """
+    How the forwards below run each layer of a params tree: `run(path, fn,
+    x, *extras)` is `fn(layer, x, *extras)` with the layer's params, on their
+    device, and `layer(path)` is the layer's params whole. The seam of
+    tensor parallelism: `parallel/tensor_parallel.py::GroupParams` runs a
+    sharded layer column-parallel over a model group's slots instead.
+    `phase_channels` says that fn's output channels are phase planes (ph * C
+    + c), for a runner that gathers channel blocks.
+    """
+
+    def __init__(self, params: Params) -> None:
+        self.params = params
+
+    def __getitem__(self, key: str) -> Any:
+        return self.params[key]
+
+    def layer(self, path: Path) -> Params:
+        tree = self.params
+        for key in path:
+            tree = tree[key]
+        return tree
+
+    def run(self, path: Path, fn: Callable[..., torch.Tensor], x: torch.Tensor,
+            *extras: Optional[torch.Tensor], phase_channels: bool = False) -> torch.Tensor:
+        return fn(self.layer(path), x, *extras)
+
+
+def as_layers(params: Any) -> Layers:
+    """A params tree's direct `Layers`, or `params` when it is one already."""
+    return params if isinstance(params, Layers) else Layers(params)
+
 
 def mapping_apply(
     params: Params, z: torch.Tensor, config: GeneratorConfig, lrmul: Optional[float] = None
@@ -230,15 +273,19 @@ def mapping_apply(
     equalized-LR dense + lrelu layers (bias times lrmul 0.01).
     :param z: (B, latent_size). :return: w (B, dlatent_size).
     """
+    layers = as_layers(params)
     apply_conv_precision()
     lrmul = config.mapping_lrmul if lrmul is None else lrmul
     x = z.float()
     x = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + 1e-8)
-    mapping = params["mapping"]
+
+    def dense(layer: Params, xs: torch.Tensor) -> torch.Tensor:
+        return bias_act(dense_layer(xs, layer["weight"], lrmul=lrmul), layer["bias"] * lrmul,
+                        act="lrelu")
+
+    mapping = layers["mapping"]
     for name in sorted((k for k in mapping if k.startswith("Dense")), key=lambda s: int(s[5:])):
-        layer = mapping[name]
-        x = dense_layer(x, layer["weight"], lrmul=lrmul)
-        x = bias_act(x, layer["bias"] * lrmul, act="lrelu")
+        x = layers.run(("mapping", name), dense, x)
     return x
 
 
@@ -361,7 +408,11 @@ def synthesis_apply(
         non-reentrant `torch.utils.checkpoint` per block. A block's noise is
         drawn before its checkpoint, so the recompute sees the same planes.
         With remat the uint8 output keeps the float path, as in JAX.
+
+    `params` may also be a `Layers` (a tensor-parallel model group's
+    `GroupParams`), which runs each layer its own way.
     """
+    layers = as_layers(params)
     if noise_mode not in ("const", "random", "none"):
         raise ValueError(f"bad noise_mode {noise_mode!r}")
     if noise_planes is not None and noise_mode != "random":
@@ -369,7 +420,7 @@ def synthesis_apply(
     if noise_mode == "random" and generator is None and noise_planes is None:
         raise ValueError("noise_mode='random' requires a torch.Generator or noise_planes")
     apply_conv_precision()
-    synthesis = params["synthesis"]
+    synthesis = layers["synthesis"]
     noise_buffers = synthesis.get("noise", {})
     batch = dlatents.shape[0]
 
@@ -384,37 +435,59 @@ def synthesis_apply(
             )
         return None
 
+    def conv(key: str, name: str, x: torch.Tensor, dl: torch.Tensor,
+             noise: Optional[torch.Tensor], up: bool) -> torch.Tensor:
+        return layers.run(
+            ("synthesis", key, name), lambda p, xs, d, n: _synthesis_layer(
+                xs, p, d, n, up, config, compute_dtype), x, dl, noise)
+
+    def torgb(key: str, x: torch.Tensor, dl: torch.Tensor,
+              y: Optional[torch.Tensor]) -> torch.Tensor:
+        t = layers.run(("synthesis", key, "ToRGB"),
+                       lambda p, xs, d: _torgb(xs, p, d, None, config, compute_dtype), x, dl)
+        return t if y is None else y + t
+
     const = synthesis["4x4"]["Const"]["const"].to(compute_dtype)
     x = const.expand(batch, -1, -1, -1).contiguous()
-    x = _synthesis_layer(
-        x, synthesis["4x4"]["Conv"], dlatents[:, 0], layer_noise(0, 4), False, config,
-        compute_dtype,
-    )
-    y = _torgb(x, synthesis["4x4"]["ToRGB"], dlatents[:, 1], None, config, compute_dtype)
+    x = conv("4x4", "Conv", x, dlatents[:, 0], layer_noise(0, 4), False)
+    y = torgb("4x4", x, dlatents[:, 1], None)
 
     top = config.resolution_log2
     use_phase = resolve_phase_top_block(config, phase_top_block_mode)
 
     checkpointed = remat and torch.is_grad_enabled()
 
-    def block_fn(x: torch.Tensor, y: torch.Tensor, block: Params, dl_rows: Tuple[torch.Tensor, ...],
+    def block_fn(x: torch.Tensor, y: torch.Tensor, key: str, dl_rows: Tuple[torch.Tensor, ...],
                  noise_up: Optional[torch.Tensor],
                  noise_c1: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = _synthesis_layer(x, block["Conv0_up"], dl_rows[0], noise_up, True, config,
-                             compute_dtype)
-        x = _synthesis_layer(x, block["Conv1"], dl_rows[1], noise_c1, False, config,
-                             compute_dtype)
+        x = conv(key, "Conv0_up", x, dl_rows[0], noise_up, True)
+        x = conv(key, "Conv1", x, dl_rows[1], noise_c1, False)
         y = upsample_2d_nchw(y, kernel=config.resample_kernel)
-        return x, _torgb(x, block["ToRGB"], dl_rows[2], y, config, compute_dtype)
+        return x, torgb(key, x, dl_rows[2], y)
 
-    def phase_fn(x: torch.Tensor, block: Params, dl_rows: Tuple[torch.Tensor, ...],
+    def phase_args(key: str) -> Tuple[Params, Callable[..., torch.Tensor]]:
+        # Conv1 and ToRGB are kernel E's operands, whole; Conv0_up runs as a
+        # layer (phase planes out)
+        block = {name: layers.layer(("synthesis", key, name)) for name in ("Conv1", "ToRGB")}
+
+        def upconv(x: torch.Tensor, dl_up: torch.Tensor,
+                   noise_up: Optional[torch.Tensor]) -> torch.Tensor:
+            return layers.run(
+                ("synthesis", key, "Conv0_up"), lambda p, xs, d, n: phase_block.phase_upconv(
+                    xs, p, d, n, config.resample_kernel, compute_dtype),
+                x, dl_up, noise_up, phase_channels=True)
+
+        return block, upconv
+
+    def phase_fn(x: torch.Tensor, key: str, dl_rows: Tuple[torch.Tensor, ...],
                  noise_up: Optional[torch.Tensor], noise_c1: Optional[torch.Tensor],
                  y: torch.Tensor) -> torch.Tensor:
+        block, upconv = phase_args(key)
         return phase_block.phase_top_block(x, block, dl_rows, noise_up, noise_c1, y,
-                                           config.resample_kernel, compute_dtype)
+                                           config.resample_kernel, compute_dtype, upconv=upconv)
 
     for res in range(3, top + 1):
-        block = synthesis[f"{2**res}x{2**res}"]
+        key = f"{2**res}x{2**res}"
         size = 2**res
         dl_rows = (dlatents[:, res * 2 - 5], dlatents[:, res * 2 - 4], dlatents[:, res * 2 - 3])
         # both layers' noise, in draw order, outside any checkpoint
@@ -422,22 +495,23 @@ def synthesis_apply(
         noise_c1 = layer_noise(res * 2 - 4, size)
         if res == top and use_phase:
             if uint8_output and not remat:
+                block, upconv = phase_args(key)
                 return phase_block.phase_top_block_uint8(
                     x, block, dl_rows, noise_up, noise_c1, y, config.resample_kernel,
-                    compute_dtype,
+                    compute_dtype, upconv=upconv,
                 )
             y = upsample_2d_nchw(y, kernel=config.resample_kernel)
             if checkpointed:
-                y = checkpoint(phase_fn, x, block, dl_rows, noise_up, noise_c1, y,
+                y = checkpoint(phase_fn, x, key, dl_rows, noise_up, noise_c1, y,
                                use_reentrant=False)
             else:
-                y = phase_fn(x, block, dl_rows, noise_up, noise_c1, y)
+                y = phase_fn(x, key, dl_rows, noise_up, noise_c1, y)
             break
         if checkpointed:
-            x, y = checkpoint(block_fn, x, y, block, dl_rows, noise_up, noise_c1,
+            x, y = checkpoint(block_fn, x, y, key, dl_rows, noise_up, noise_c1,
                               use_reentrant=False)
         else:
-            x, y = block_fn(x, y, block, dl_rows, noise_up, noise_c1)
+            x, y = block_fn(x, y, key, dl_rows, noise_up, noise_c1)
 
     image = y.permute(0, 2, 3, 1).float()
     return images_to_uint8(image) if uint8_output else image
@@ -596,6 +670,25 @@ def discriminator_apply(
         params, discriminator_features(params, images, config, compute_dtype, remat), config)
 
 
+def _conv_lrelu(layers: Layers, path: Path, x: torch.Tensor) -> torch.Tensor:
+    return layers.run(path, lambda p, xs: bias_act(conv2d_layer(xs, p["weight"]), p["bias"],
+                                                   act="lrelu"), x)
+
+
+def _conv_down(layers: Layers, path: Path, x: torch.Tensor,
+               kernel: Tuple[int, ...]) -> torch.Tensor:
+    """`conv2d_layer(x, weight, down=True)`: the blur (kernel D) once on x,
+    then the layer's strided conv."""
+    blurred = conv_downsample_blur(x, layers.layer(path)["weight"].shape[2], kernel)
+
+    def strided(layer: Params, xs: torch.Tensor) -> torch.Tensor:
+        _, cin, kh, kw = layer["weight"].shape
+        w = layer["weight"].to(xs.dtype) * runtime_weight_coef(kh * kw * cin)
+        return F.conv2d(xs, w, stride=2)
+
+    return layers.run(path, strided, blurred)
+
+
 def discriminator_features(
     params: Params,
     images: torch.Tensor,
@@ -604,31 +697,29 @@ def discriminator_features(
     remat: bool = False,
 ) -> torch.Tensor:
     """D's resnet trunk: images (B, R, R, 3) -> NCHW features at 4x4, the
-    input of the minibatch stddev (`discriminator_head`)."""
+    input of the minibatch stddev (`discriminator_head`). `params` may be a
+    `Layers`, as in `synthesis_apply`."""
+    layers = as_layers(params)
     apply_conv_precision()
     top = config.resolution_log2
     # contiguous NCHW: from a permuted NHWC input cuDNN would emit channels-last
     # activations, which the kernels do not take
     x = images.permute(0, 3, 1, 2).to(compute_dtype).contiguous()
-    frgb = params[f"{2**top}x{2**top}"]["FromRGB"]
-    x = bias_act(conv2d_layer(x, frgb["weight"]), frgb["bias"], act="lrelu")
+    x = _conv_lrelu(layers, (f"{2**top}x{2**top}", "FromRGB"), x)
     inv_sqrt2 = 1.0 / math.sqrt(2.0)
 
-    def d_block(x: torch.Tensor, block: Params) -> torch.Tensor:
+    def d_block(x: torch.Tensor, key: str) -> torch.Tensor:
         t = x
-        x = bias_act(conv2d_layer(x, block["Conv0"]["weight"]), block["Conv0"]["bias"],
-                     act="lrelu")
-        x = conv2d_layer(x, block["Conv1_down"]["weight"], down=True,
-                         resample_kernel=config.resample_kernel)
-        x = bias_act(x, block["Conv1_down"]["bias"], act="lrelu")
-        t = conv2d_layer(t, block["Skip"]["weight"], down=True,
-                         resample_kernel=config.resample_kernel)
+        x = _conv_lrelu(layers, (key, "Conv0"), x)
+        x = _conv_down(layers, (key, "Conv1_down"), x, config.resample_kernel)
+        x = bias_act(x, layers[key]["Conv1_down"]["bias"], act="lrelu")
+        t = _conv_down(layers, (key, "Skip"), t, config.resample_kernel)
         return (x + t) * inv_sqrt2
 
     checkpointed = remat and torch.is_grad_enabled()
     for res in range(top, 2, -1):
-        block = params[f"{2**res}x{2**res}"]
-        x = checkpoint(d_block, x, block, use_reentrant=False) if checkpointed else d_block(x, block)
+        key = f"{2**res}x{2**res}"
+        x = checkpoint(d_block, x, key, use_reentrant=False) if checkpointed else d_block(x, key)
     return x
 
 
@@ -642,10 +733,11 @@ def discriminator_head(
     """D's 4x4 block and dense layers: trunk features -> fp32 logits (B, 1).
     `full` and `offset` place x in a larger batch for the minibatch stddev
     (`minibatch_stddev`)."""
-    block = params["4x4"]
+    layers = as_layers(params)
     x = minibatch_stddev(x, config.mbstd_group_size, config.mbstd_num_features, full, offset)
-    x = bias_act(conv2d_layer(x, block["Conv"]["weight"]), block["Conv"]["bias"], act="lrelu")
+    x = _conv_lrelu(layers, ("4x4", "Conv"), x)
     x = x.reshape(x.shape[0], -1)  # NCHW order, the pickle's Dense0 row order
-    x = bias_act(dense_layer(x, block["Dense0"]["weight"]), block["Dense0"]["bias"], act="lrelu")
-    x = bias_act(dense_layer(x, params["Output"]["weight"]), params["Output"]["bias"])
+    x = layers.run(("4x4", "Dense0"), lambda p, xs: bias_act(dense_layer(xs, p["weight"]),
+                                                             p["bias"], act="lrelu"), x)
+    x = layers.run(("Output",), lambda p, xs: bias_act(dense_layer(xs, p["weight"]), p["bias"]), x)
     return x.float()

@@ -4,7 +4,8 @@ count.
 
 A wrapper takes its twin only when the tensor it is given lies on the CPU. For
 a CUDA tensor it launches the hand-written kernel (`csrc/`, built by
-`build.py`) on the current stream or raises; nothing falls back. `LAUNCHES`
+`build.py`) on the current stream of the tensor's device or raises; nothing
+falls back. `LAUNCHES`
 counts kernel launches, one per call that reached a kernel, forward or
 backward.
 
@@ -87,9 +88,6 @@ def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> int:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
     device = x.get_device()
-    if device != torch._C._cuda_getDevice():
-        raise ValueError(f"{name}: tensor on {x.device}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
     for t in (x, *others):
         if t.get_device() != device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
@@ -100,8 +98,15 @@ def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> int:
 
 def _launch(name: str, library: str, device: int, *args) -> None:
     """Launch on PyTorch's current stream of `device` (its raw handle, no
-    Stream object)."""
-    rc = build.load(library)(*args, torch._C._cuda_getCurrentRawStream(device))
+    Stream object) with `device` current, as PyTorch runs an op on its
+    tensors' device: a data or model slot on another GPU of this process
+    needs no device scope of its own."""
+    run = build.load(library)
+    if device == torch._C._cuda_getDevice():
+        rc = run(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = run(*args, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1

@@ -25,7 +25,7 @@ JAX leaves to XLA). Conv1, its epilogue and ToRGB run as kernel E
 
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -180,28 +180,18 @@ def _add_phase_noise(x_ph: torch.Tensor, noise_ph: Optional[torch.Tensor],
     return x5.reshape(b, c4, hh, hw)
 
 
-def _phase_pre_rgb(
+def phase_upconv(
     x: torch.Tensor,
-    block: Dict,
-    dlatent_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    up: Dict,
+    dl_up: torch.Tensor,
     noise_up_fine: Optional[torch.Tensor],
-    noise_c1_fine: Optional[torch.Tensor],
     resample_kernel: Tuple[int, ...],
     compute_dtype: torch.dtype,
-) -> Dict[str, torch.Tensor]:
-    """
-    The phase top block up to kernel E: Conv0_up + blur as one folded conv with
-    its per-phase demod/noise/bias/lrelu, then E's operands for Conv1 and
-    ToRGB. Returns the keyword arguments of `phase_conv1_torgb`: x (B, 4C,
-    H/2, W/2) scaled by Conv1's style, w4 the folded Conv1 (4C, 4C, 2, 2),
-    demod (B, 4C), noise_bias (1 or B, 4C, H/2+1, W/2+1) in fp32, and wrgb
-    (B, 4C, 16) with sqrt(2) * s_rgb folded into the phase-diagonal ToRGB.
-    """
-    up, c1, torgb = block["Conv0_up"], block["Conv1"], block["ToRGB"]
-    dl_up, dl_c1, dl_rgb = dlatent_rows
+) -> torch.Tensor:
+    """Conv0_up + FIR blur as one folded phase conv with its per-phase
+    demod/noise/bias/lrelu: (B, cin, H/2, W/2) -> (B, 4*cout, H/2, W/2),
+    channel = ph*cout + c."""
     cout, cin, kh, kw = up["weight"].shape
-
-    # --- Conv0_up + FIR blur as one folded phase conv ---
     w_up = up["weight"].float() * runtime_weight_coef(kh * kw * cin)
     s_up = style_vector(dl_up, up["mod_weight"], up["mod_bias"])  # (B, cin)
     d_up = demod_vector(s_up, w_up)  # (B, cout)
@@ -211,7 +201,41 @@ def _phase_pre_rgb(
     xp = xp * _tile4(d_up).to(xp.dtype)[:, :, None, None]
     noise_up_ph = None if noise_up_fine is None else phase_split_fine(noise_up_fine)
     xp = _add_phase_noise(xp, noise_up_ph, up["noise_strength"])
-    xp = bias_act(xp, _tile4(up["bias"]), act="lrelu")
+    return bias_act(xp, _tile4(up["bias"]), act="lrelu")
+
+
+# (x, dl_up, noise_up_fine) -> `phase_upconv`'s output, in place of it
+UpConv = Callable[[torch.Tensor, torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+
+
+def _phase_pre_rgb(
+    x: torch.Tensor,
+    block: Dict,
+    dlatent_rows: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    noise_up_fine: Optional[torch.Tensor],
+    noise_c1_fine: Optional[torch.Tensor],
+    resample_kernel: Tuple[int, ...],
+    compute_dtype: torch.dtype,
+    upconv: Optional[UpConv] = None,
+) -> Dict[str, torch.Tensor]:
+    """
+    The phase top block up to kernel E: Conv0_up + blur as one folded conv with
+    its per-phase demod/noise/bias/lrelu (`phase_upconv` of block["Conv0_up"],
+    or `upconv(x, dl_up, noise_up_fine)` where given, as the synthesis
+    forward runs each layer through its runner), then E's operands for Conv1
+    and ToRGB. Returns the keyword arguments of `phase_conv1_torgb`: x (B, 4C,
+    H/2, W/2) scaled by Conv1's style, w4 the folded Conv1 (4C, 4C, 2, 2),
+    demod (B, 4C), noise_bias (1 or B, 4C, H/2+1, W/2+1) in fp32, and wrgb
+    (B, 4C, 16) with sqrt(2) * s_rgb folded into the phase-diagonal ToRGB.
+    """
+    c1, torgb = block["Conv1"], block["ToRGB"]
+    dl_up, dl_c1, dl_rgb = dlatent_rows
+    if upconv is None:
+        xp = phase_upconv(x, block["Conv0_up"], dl_up, noise_up_fine, resample_kernel,
+                          compute_dtype)
+    else:
+        xp = upconv(x, dl_up, noise_up_fine)
+    cout = xp.shape[1] // 4
 
     # Phase folding assumes the StyleGAN2 top-block shape chain: Conv1 is 3x3
     # with cin == cout == Conv0_up's cout, and ToRGB consumes that count.
@@ -260,11 +284,12 @@ def _phase_rgb_planes(
     noise_c1_fine: Optional[torch.Tensor],
     resample_kernel: Tuple[int, ...],
     compute_dtype: torch.dtype,
+    upconv: Optional[UpConv] = None,
 ) -> torch.Tensor:
     """`_phase_pre_rgb` plus kernel E: the RGB phase planes (B, 4*n_rgb, H/2+1,
     W/2+1), channel = ph*n_rgb + k, ph = sigma_h*2 + sigma_w."""
     operands = _phase_pre_rgb(x, block, dlatent_rows, noise_up_fine, noise_c1_fine,
-                              resample_kernel, compute_dtype)
+                              resample_kernel, compute_dtype, upconv)
     n_rgb = block["ToRGB"]["weight"].shape[0]
     return phase_conv1_torgb(**operands)[:, :4 * n_rgb]
 
@@ -278,6 +303,7 @@ def phase_top_block(
     y_up: Optional[torch.Tensor],
     resample_kernel: Tuple[int, ...],
     compute_dtype: torch.dtype,
+    upconv: Optional[UpConv] = None,
 ) -> torch.Tensor:
     """
     The full top synthesis block (Conv0_up -> Conv1 -> ToRGB + skip add) in
@@ -290,11 +316,12 @@ def phase_top_block(
     :param noise_up_fine, noise_c1_fine: fine-grid noise (1 or B, 1, H, W) of
         the two conv layers, or None.
     :param y_up: the upsampled RGB accumulator (B, n_rgb, H, W), or None.
+    :param upconv: replaces `phase_upconv` (see `_phase_pre_rgb`).
     :return: the new RGB accumulator (B, n_rgb, H, W).
     """
     h, w = x.shape[2] * 2, x.shape[3] * 2
     t_ph = _phase_rgb_planes(x, block, dlatent_rows, noise_up_fine, noise_c1_fine,
-                             resample_kernel, compute_dtype)
+                             resample_kernel, compute_dtype, upconv)
     t = interleave_phases_nchw(t_ph, h, w)
     t = t + block["ToRGB"]["bias"].to(t.dtype)[None, :, None, None]
     return t if y_up is None else y_up + t
@@ -310,6 +337,7 @@ def phase_top_block_uint8(
     resample_kernel: Tuple[int, ...],
     compute_dtype: torch.dtype,
     drange: Tuple[float, float] = (-1.0, 1.0),
+    upconv: Optional[UpConv] = None,
 ) -> torch.Tensor:
     """
     The phase top block with the uint8 output fused in: the skip upsample stays
@@ -333,7 +361,7 @@ def phase_top_block_uint8(
     n_rgb = block["ToRGB"]["weight"].shape[0]
     bias = block["ToRGB"]["bias"]
     t_ph = _phase_rgb_planes(x, block, dlatent_rows, noise_up_fine, noise_c1_fine,
-                             resample_kernel, compute_dtype)
+                             resample_kernel, compute_dtype, upconv)
     y_phases = None
     if y is not None:
         root = tuple(float(v) for v in resample_root(resample_kernel))

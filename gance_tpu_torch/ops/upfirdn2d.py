@@ -271,5 +271,17 @@ def conv_downsample_2d(
     `Conv1_down` (3x3, blur pad (2, 2)) and `Skip` (1x1, blur pad (1, 1))
     layers. x is (B, Cin, H, W), w is OIHW.
     """
-    plan = _plan("down", kernel, (factor, gain, w.shape[2]), _blur_plan)
-    return F.conv2d(_blur(x, plan), w, stride=factor)
+    return F.conv2d(conv_downsample_blur(x, w.shape[2], kernel, factor, gain), w, stride=factor)
+
+
+def conv_downsample_blur(
+    x: torch.Tensor,
+    conv_size: int,
+    kernel: KernelLike = DEFAULT_RESAMPLE_KERNEL,
+    factor: int = 2,
+    gain: float = 1.0,
+) -> torch.Tensor:
+    """The blur of `conv_downsample_2d` before its (conv_size x conv_size)
+    strided conv, alone: a tensor-parallel layer blurs its whole input once
+    and each model slot convolves it with its block of output channels."""
+    return _blur(x, _plan("down", kernel, (factor, gain, conv_size), _blur_plan))

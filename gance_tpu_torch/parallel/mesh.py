@@ -9,16 +9,25 @@ every slot belongs to this process; in a group of several the grid spans the
 processes, process-major, as `jax.devices()` orders a multi-process
 runtime's devices, and every process holds the same grid.
 
-The sharding policy is JAX's with the 'model' axis at 1:
+The sharding policy is JAX's:
   * batch-leading arrays split their leading axis over 'data' in contiguous
     blocks of ceil(B / data) rows (XLA's layout of an uneven batch), and a
-    slot with no rows launches nothing;
-  * params are copied once to each device that holds a slot;
+    data row with no rows launches nothing;
+  * a param leaf named `weight` with at least `_MIN_SHARDED_PARAM` elements
+    is split over 'model' along its output channels (axis 0 of an OIHW conv
+    weight, the last axis of a dense (in, out) weight) in contiguous blocks
+    of ceil(C / model) channels; every other leaf is replicated
+    (`shard_dim`). With a 'model' axis of 1 the params are copied once to
+    each device that holds a slot; above 1 each data row's model slots hold
+    a `parallel/tensor_parallel.py::GroupParams`, which runs each sharded
+    layer column-parallel;
   * frames go to the host as uint8; across processes the host fetch is an
     all_gather, a collective every process reaches in the same order
     (`fetch_to_host`).
 
-A tensor-parallel 'model' axis larger than 1 is not ported yet and raises.
+The 'model' axis stays inside one process: each data row's model slots must
+belong to one process (`create_mesh` raises otherwise). JAX keeps 'model'
+inside a slice for the same reason: its collectives run every layer.
 
 An explicit device list may name a device more than once (two slots on one
 card, or several on the CPU): the counterpart of the virtual CPU devices the
@@ -34,10 +43,9 @@ from gance_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
 
-MODEL_AXIS_ITEM = (
-    "a tensor-parallel 'model' axis larger than 1 is not ported yet: "
-    "ROADMAP.md Queue 1 item 12, part 2 (multi-device)"
-)
+# Weights smaller than this stay replicated: a gather per layer costs more
+# than the memory saved (JAX's threshold; read at call time).
+_MIN_SHARDED_PARAM = 1 << 16  # 64k elements
 
 
 class MeshDevice(NamedTuple):
@@ -193,7 +201,9 @@ def create_mesh(
     process's device list (default `local_devices(device)`: every visible
     CUDA device once); it may repeat a device. `n_devices` keeps the first
     that many slots of the global list. A `data_parallel` below the slot
-    count leaves a 'model' axis larger than 1, which raises.
+    count leaves a tensor-parallel 'model' axis of count / data_parallel
+    slots, which must lie in one process for every data row (ValueError
+    otherwise).
     """
     slots = global_devices(devices, device)
     if n_devices is not None:
@@ -205,9 +215,19 @@ def create_mesh(
         if count % data_parallel:
             raise ValueError(f"{count} devices not divisible by dp={data_parallel}")
         model_parallel = count // data_parallel
-    if model_parallel > 1:
-        raise NotImplementedError(MODEL_AXIS_ITEM)
-    return Mesh(_object_grid(slots, (data_parallel, model_parallel)), ("data", "model"))
+    grid = _object_grid(slots, (data_parallel, model_parallel))
+    for row in grid:
+        if len({slot.process for slot in row}) > 1:
+            raise ValueError(
+                f"a 'model' axis of {model_parallel} would span processes "
+                f"{sorted({slot.process for slot in row})}: it stays inside one process "
+                f"(its gathers run every layer), so each process's slot count must be a "
+                f"multiple of it")
+    return Mesh(grid, ("data", "model"))
+
+
+def model_axis_size(mesh: Optional[Mesh]) -> int:
+    return int(mesh.shape.get("model", 1)) if mesh is not None else 1
 
 
 def data_axis_size(mesh: Optional[Mesh]) -> int:
@@ -229,16 +249,46 @@ class Shard(NamedTuple):
 
 
 def _data_slots(mesh: Mesh, n: int) -> List[Tuple[MeshDevice, slice]]:
-    """Each data slot of the mesh with its rows of an n-row batch."""
+    """Each data row's lead slot (its first model slot) with its rows of an
+    n-row batch."""
     slots = mesh.devices.reshape(data_axis_size(mesh), -1)[:, 0]
     return list(zip(slots, shard_slices(n, len(slots))))
 
 
-def shard_batch(mesh: Mesh, n: int) -> List[Shard]:
+def row_devices(mesh: Mesh, row: int) -> Tuple[torch.device, ...]:
+    """The devices of data row `row`'s model slots, lead first."""
+    return tuple(slot.device for slot in mesh.devices.reshape(data_axis_size(mesh), -1)[row])
+
+
+def local_row_groups(mesh: Mesh) -> List[Tuple[torch.device, ...]]:
+    """The distinct model groups (device tuples, lead first) of this
+    process's data rows, in row order."""
+    rows = mesh.devices.reshape(data_axis_size(mesh), -1)
+    return list(dict.fromkeys(row_devices(mesh, r) for r in range(rows.shape[0])
+                              if mesh.is_local(rows[r, 0])))
+
+
+class RowShard(NamedTuple):
+    """The rows of a batch that one data row of this process computes, and
+    the devices of its model slots (lead first)."""
+
+    devices: Tuple[torch.device, ...]
+    rows: slice
+
+
+def shard_rows(mesh: Mesh, n: int) -> List[RowShard]:
     """This process's non-empty shards of an n-row batch over the mesh's data
-    axis, in row order (the counterpart of JAX's `shard_batch` sharding)."""
-    return [Shard(slot.device, rows) for slot, rows in _data_slots(mesh, n)
-            if mesh.is_local(slot) and rows.stop > rows.start]
+    axis, in row order (the counterpart of JAX's `shard_batch` sharding),
+    each with its data row's model group."""
+    rows = mesh.devices.reshape(data_axis_size(mesh), -1)
+    return [RowShard(row_devices(mesh, r), piece)
+            for r, piece in enumerate(shard_slices(n, rows.shape[0]))
+            if mesh.is_local(rows[r, 0]) and piece.stop > piece.start]
+
+
+def shard_batch(mesh: Mesh, n: int) -> List[Shard]:
+    """`shard_rows` with each shard on its data row's lead device."""
+    return [Shard(shard.devices[0], shard.rows) for shard in shard_rows(mesh, n)]
 
 
 def process_rows(mesh: Mesh, n: int, process: Optional[int] = None) -> slice:
@@ -257,21 +307,62 @@ def replicated(mesh: Mesh, params: Params) -> Dict[torch.device, Params]:
     return {device: params_to_device(params, device) for device in mesh.local_devices}
 
 
-def _refuse_model_axis(mesh: Mesh) -> None:
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(MODEL_AXIS_ITEM)
+def shard_dim(path: Tuple[str, ...], shape: Sequence[int]) -> Optional[int]:
+    """
+    The axis a param leaf splits over 'model', or None where it is
+    replicated (JAX's `_leaf_spec`): a leaf named `weight` with at least
+    `_MIN_SHARDED_PARAM` elements splits its output channels, axis 0 of an
+    OIHW conv weight and the last axis of a dense (in, out) weight (JAX's
+    last axis in both, its conv weights being HWIO). `mod_weight`, biases,
+    consts, noise buffers and scalars stay whole.
+    """
+    size = int(np.prod(shape)) if len(shape) else 1
+    if size < _MIN_SHARDED_PARAM or not path or path[-1] != "weight":
+        return None
+    return 0 if len(shape) == 4 else len(shape) - 1
 
 
-def generator_param_sharding(mesh: Mesh, params: Params) -> Dict[torch.device, Params]:
-    """Generator params on the mesh: replicated (a 'model' axis > 1 raises)."""
-    _refuse_model_axis(mesh)
-    return replicated(mesh, params)
+def param_spec(params: Params, path: Tuple[str, ...] = ()) -> Params:
+    """The tree of `shard_dim` of every leaf of `params`."""
+    if isinstance(params, dict):
+        return {key: param_spec(value, path + (key,)) for key, value in params.items()}
+    return shard_dim(path, tuple(np.shape(params)))
 
 
-def discriminator_param_sharding(mesh: Mesh, params: Params) -> Dict[torch.device, Params]:
-    """Discriminator params on the mesh: replicated (a 'model' axis > 1 raises)."""
-    _refuse_model_axis(mesh)
-    return replicated(mesh, params)
+def _param_sharding(mesh: Mesh, params: Params) -> Dict[Tuple[torch.device, ...], Any]:
+    if model_axis_size(mesh) == 1:
+        return {(device,): tree for device, tree in replicated(mesh, params).items()}
+    from gance_tpu_torch.parallel.tensor_parallel import GroupParams
+
+    return {devices: GroupParams.place(params, devices) for devices in local_row_groups(mesh)}
+
+
+def generator_param_sharding(mesh: Mesh, params: Params) -> Dict[Tuple[torch.device, ...], Any]:
+    """
+    Generator params on the mesh, per distinct model group of this process's
+    data rows (keyed by its devices, lead first): with a 'model' axis of 1 a
+    copy on each device, above 1 a `GroupParams` whose slots hold the
+    sharded leaves' blocks (`shard_dim`) and the replicated leaves whole.
+    """
+    return _param_sharding(mesh, params)
+
+
+def discriminator_param_sharding(mesh: Mesh, params: Params) -> Dict[Tuple[torch.device, ...], Any]:
+    """Discriminator params on the mesh, as `generator_param_sharding`."""
+    return _param_sharding(mesh, params)
+
+
+def gather_params(params: Any) -> Params:
+    """A params tree of whole leaves as numpy arrays on the host: the sharded
+    leaves of a `GroupParams` concatenated back (for checkpoints and tests),
+    a tree of tensors copied."""
+    if isinstance(params, dict):
+        return {key: gather_params(value) for key, value in params.items()}
+    if torch.is_tensor(params):
+        return params.detach().cpu().numpy().copy()
+    if hasattr(params, "gather"):
+        return params.gather()
+    return np.asarray(params)
 
 
 # ---------------------------------------------------------------------------
@@ -305,19 +396,34 @@ def all_gather_host(value: np.ndarray) -> List[np.ndarray]:
     return [g.cpu().numpy() for g in gathered]
 
 
+def _collective_(tensor: torch.Tensor, run: Any) -> torch.Tensor:
+    """Run the in-place collective `run` on `tensor` where the backend
+    communicates: under NCCL on this process's current device (a tensor on
+    another of its GPUs, such as a model slot's block, is staged there, so
+    each process keeps one communicator); under gloo in host memory."""
+    if tensor.device.type == "cpu":
+        run(tensor)
+        return tensor
+    if _uses_nccl():
+        current = torch.device("cuda", torch.cuda.current_device())
+        if tensor.device == current:
+            run(tensor)
+            return tensor
+        staged = tensor.to(current)
+    else:
+        staged = tensor.cpu()
+    run(staged)
+    return tensor.copy_(staged)
+
+
 def all_reduce_sum_(tensor: torch.Tensor) -> torch.Tensor:
     """Sum `tensor` over the process group, in place (a collective; a no-op
-    in a process alone). The gloo branch stages a CUDA tensor on the host."""
+    in a process alone)."""
     import torch.distributed as dist
 
     if not in_process_group():
         return tensor
-    if _uses_nccl() or tensor.device.type == "cpu":
-        dist.all_reduce(tensor)
-        return tensor
-    host = tensor.cpu()
-    dist.all_reduce(host)
-    return tensor.copy_(host)
+    return _collective_(tensor, dist.all_reduce)
 
 
 def broadcast_(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -326,12 +432,7 @@ def broadcast_(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
 
     if not in_process_group():
         return tensor
-    if _uses_nccl() or tensor.device.type == "cpu":
-        dist.broadcast(tensor, src)
-        return tensor
-    host = tensor.cpu()
-    dist.broadcast(host, src)
-    return tensor.copy_(host)
+    return _collective_(tensor, lambda t: dist.broadcast(t, src))
 
 
 def gather_rows(mesh: Mesh, local: np.ndarray, n: int) -> np.ndarray:

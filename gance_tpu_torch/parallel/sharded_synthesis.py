@@ -2,15 +2,17 @@
 Batched synthesis over a mesh's data axis: the counterpart of
 gance_tpu/parallel/sharded_synthesis.py.
 
-The params are copied once to each device of the mesh; a call splits the
-batch's leading axis over the data slots (contiguous blocks of ceil(B / data)
-rows), launches each of this process's non-empty blocks on its slot's
-device from the calling thread, and returns the frames as uint8 on the
-host, gathered from every process (`fetch_to_host`). Every process calls
-with the same full batch, as JAX's process-spanning meshes require.
+The params are placed once per data row (`generator_param_sharding`: a copy
+on each device with a 'model' axis of 1, a tensor-parallel `GroupParams`
+over the row's model slots above 1); a call splits the batch's leading axis
+over the data rows (contiguous blocks of ceil(B / data) rows), launches each
+of this process's non-empty blocks on its row from the calling thread, and
+returns the frames as uint8 on the host, gathered from every process
+(`fetch_to_host`). Every process calls with the same full batch, as JAX's
+process-spanning meshes require.
 """
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,28 +28,29 @@ from gance_tpu_torch.parallel.mesh import (
     ShardedRows,
     fetch_to_host,
     generator_param_sharding,
-    shard_batch,
+    shard_rows,
 )
 
 Params = Dict[str, Any]
 ShardFn = Callable[[Params, torch.Tensor], torch.Tensor]
 
 
-def run_sharded(mesh: Mesh, replicas: Dict[torch.device, Params], batch: Any,
+def run_sharded(mesh: Mesh, replicas: Dict[Tuple[torch.device, ...], Any], batch: Any,
                 apply: ShardFn, item_shape: tuple, rows: Optional[int] = None) -> ShardedRows:
     """
     Launch `apply(params, rows)` on each of this process's non-empty shards
-    of `batch` (numpy or a tensor), each on its slot's device with that
-    device's params; return the launched shards as `ShardedRows` (fetch it
-    for the whole batch on the host). `rows` keeps only the first rows.
+    of `batch` (numpy or a tensor), each on its data row's lead device with
+    that row's params (`generator_param_sharding`); return the launched
+    shards as `ShardedRows` (fetch it for the whole batch on the host).
+    `rows` keeps only the first rows.
     """
     if not torch.is_tensor(batch):
         batch = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
     parts = []
     with torch.inference_mode():
-        for device, rows_slice in shard_batch(mesh, batch.shape[0]):
-            shard = batch[rows_slice].to(device, torch.float32)
-            parts.append(apply(replicas[device], shard))
+        for devices, rows_slice in shard_rows(mesh, batch.shape[0]):
+            shard = batch[rows_slice].to(devices[0], torch.float32)
+            parts.append(apply(replicas[devices], shard))
     return ShardedRows(mesh, batch.shape[0], parts, item_shape, rows)
 
 

@@ -38,8 +38,15 @@ Differences from JAX, each forced by PyTorch:
     the torch.distributed group. The minibatch stddev's groups are strided
     over the global batch, so D's 4x4 features are gathered with a
     differentiable all-reduce (`_GatherRows`); path length takes the first
-    rows of the global batch, wherever they lie. A 'model' axis larger than
-    1 raises (ROADMAP.md Queue 1 item 12, part 2).
+    rows of the global batch, wherever they lie.
+  * Over a mesh with a 'model' axis above 1 each data row's model slots hold
+    G, D, their Adam moments and the EMA as `parallel/tensor_parallel.py::
+    GroupParams` (the sharded leaves' blocks on their slots, the replicated
+    leaves once on the row's lead slot), and the forwards run column-parallel.
+    Autograd gives each block's gradient on its slot and each replicated
+    leaf's on the lead, summed over the slots; the data-parallel reduction
+    then runs per distinct leaf, as above. The optimizer and EMA updates are
+    elementwise, so they run on the blocks where they lie.
 """
 
 import pickle
@@ -62,6 +69,7 @@ from gance_tpu_torch.models.stylegan2 import (
     synthesis_apply,
 )
 from gance_tpu_torch.parallel.mesh import all_reduce_sum_
+from gance_tpu_torch.parallel.tensor_parallel import GroupParams
 from gance_tpu_torch.synthesis.runtime import params_to_device, resolve_device
 
 Params = Dict[str, Any]
@@ -99,8 +107,9 @@ class TrainingConfig:
 
 @dataclass
 class TrainingState:
-    """Everything needed to resume training, on one device. Param leaves are
-    fp32 tensors that require grad; the optimizers hold their Adam moments."""
+    """Everything needed to resume training, on one device or one model
+    group (`GroupParams` trees). Param leaves are fp32 tensors that require
+    grad; the optimizers hold their Adam moments."""
 
     g_params: Params
     d_params: Params
@@ -178,8 +187,32 @@ def tree_from_leaves(paths_and_values: List[Tuple[str, Any]]) -> Params:
     return tree
 
 
-def tree_to_numpy(tree: Params) -> Params:
-    return tree_from_leaves([(p, v.detach().cpu().numpy().copy()) for p, v in tree_leaves(tree)])
+def _flat(tree: Any) -> List[torch.Tensor]:
+    """A params tree's distinct leaves in a fixed order: the optimizers'
+    parameter lists (a model group's blocks each count as a leaf)."""
+    if isinstance(tree, GroupParams):
+        return tree.flat()
+    return [leaf for _, leaf in tree_leaves(tree)]
+
+
+def _flat_arrays(tree: Any, arrays: Params) -> List[np.ndarray]:
+    """A tree of whole arrays shaped like `tree`'s leaves, laid out as `_flat(tree)`."""
+    if isinstance(tree, GroupParams):
+        return tree.flat_arrays(arrays)
+    by_path = dict(tree_leaves(arrays))
+    return [np.asarray(by_path[path], np.float32) for path, _ in tree_leaves(tree)]
+
+
+def _whole(tree: Any, arrays: Sequence[np.ndarray]) -> Params:
+    """Arrays laid out as `_flat(tree)` -> a tree of whole arrays."""
+    if isinstance(tree, GroupParams):
+        return tree.whole(arrays)
+    return tree_from_leaves([(path, a) for (path, _), a in zip(tree_leaves(tree), arrays)])
+
+
+def tree_to_numpy(tree: Any) -> Params:
+    """Whole leaves on the host (a model group's blocks concatenated)."""
+    return _whole(tree, [v.detach().cpu().numpy().copy() for v in _flat(tree)])
 
 
 def _trainable(params: Params, device: torch.device) -> Params:
@@ -189,41 +222,43 @@ def _trainable(params: Params, device: torch.device) -> Params:
     return tree
 
 
-def _adam(params: Params, train_config: TrainingConfig,
+def _adam(params: Any, train_config: TrainingConfig,
           adam: Optional[Dict[str, Any]] = None) -> torch.optim.Adam:
-    """torch.optim.Adam over the leaves in sorted key order. With b1 = 0 its
+    """torch.optim.Adam over the leaves in sorted key order (a model group's
+    blocks each a leaf, so its moments lie beside them). With b1 = 0 its
     arithmetic is optax.adam's: eps outside the square root, eps_root 0,
     bias corrections from one step count. `adam` ({"count", "mu", "nu"},
-    numpy trees in the port's layout) restores the moments."""
-    leaves = [leaf for _, leaf in tree_leaves(params)]
+    numpy trees of whole leaves in the port's layout) restores the moments."""
+    leaves = _flat(params)
     opt = torch.optim.Adam(
         leaves, lr=train_config.learning_rate,
         betas=(train_config.adam_beta1, train_config.adam_beta2), eps=train_config.adam_eps,
     )
     if adam is not None:
-        mu, nu = dict(tree_leaves(adam["mu"])), dict(tree_leaves(adam["nu"]))
-        for path, leaf in tree_leaves(params):
+        mu, nu = _flat_arrays(params, adam["mu"]), _flat_arrays(params, adam["nu"])
+        for leaf, m, v in zip(leaves, mu, nu):
             opt.state[leaf] = {
                 "step": torch.tensor(float(adam["count"]), dtype=torch.float32),
-                "exp_avg": torch.tensor(np.asarray(mu[path], np.float32), device=leaf.device),
-                "exp_avg_sq": torch.tensor(np.asarray(nu[path], np.float32), device=leaf.device),
+                "exp_avg": torch.tensor(np.array(m, np.float32), device=leaf.device),
+                "exp_avg_sq": torch.tensor(np.array(v, np.float32), device=leaf.device),
             }
     return opt
 
 
-def _adam_to_numpy(opt: torch.optim.Adam, params: Params) -> Dict[str, Any]:
+def _adam_to_numpy(opt: torch.optim.Adam, params: Any) -> Dict[str, Any]:
+    """The moments as trees of whole leaves (a model group's gathered)."""
     mu, nu, count = [], [], 0
-    for path, leaf in tree_leaves(params):
+    for leaf in _flat(params):
         state = opt.state.get(leaf, {})
         if state:
             count = int(state["step"])
-            mu.append((path, state["exp_avg"].detach().cpu().numpy().copy()))
-            nu.append((path, state["exp_avg_sq"].detach().cpu().numpy().copy()))
+            mu.append(state["exp_avg"].detach().cpu().numpy().copy())
+            nu.append(state["exp_avg_sq"].detach().cpu().numpy().copy())
         else:
             zeros = np.zeros(tuple(leaf.shape), np.float32)
-            mu.append((path, zeros))
-            nu.append((path, zeros.copy()))
-    return {"count": count, "mu": tree_from_leaves(mu), "nu": tree_from_leaves(nu)}
+            mu.append(zeros)
+            nu.append(zeros.copy())
+    return {"count": count, "mu": _whole(params, mu), "nu": _whole(params, nu)}
 
 
 def training_state_from_arrays(
@@ -236,18 +271,29 @@ def training_state_from_arrays(
     d_adam: Optional[Dict[str, Any]] = None,
     train_config: TrainingConfig = TrainingConfig(),
     device: Union[str, torch.device] = "cuda",
+    model_devices: Optional[Sequence[torch.device]] = None,
 ) -> TrainingState:
-    """A state on `device` from numpy trees in the port's layout (fresh Adam
-    moments where `g_adam` / `d_adam` are None)."""
-    device = resolve_device(device)
-    g = _trainable(g_params, device)
-    d = _trainable(d_params, device)
+    """A state on `device` from numpy trees of whole leaves in the port's
+    layout (fresh Adam moments where `g_adam` / `d_adam` are None). With
+    `model_devices` (a data row's model slots, lead first, more than one)
+    G, D, their moments and the EMA are sharded over them as `GroupParams`
+    and `device` is the lead."""
+    if model_devices is not None and len(model_devices) > 1:
+        g = GroupParams.place(g_params, model_devices, shared=True, trainable=True)
+        d = GroupParams.place(d_params, model_devices, shared=True, trainable=True)
+        ema = GroupParams.place(ema_params, model_devices, shared=True)
+        device = g.lead
+    else:
+        device = resolve_device(device)
+        g = _trainable(g_params, device)
+        d = _trainable(d_params, device)
+        ema = params_to_device(ema_params, device)
     return TrainingState(
         g_params=g,
         d_params=d,
         g_opt_state=_adam(g, train_config, g_adam),
         d_opt_state=_adam(d, train_config, d_adam),
-        ema_params=params_to_device(ema_params, device),
+        ema_params=ema,
         step=int(step),
         pl_mean=torch.tensor(float(pl_mean), dtype=torch.float32, device=device),
     )
@@ -426,8 +472,8 @@ def _rows(value: torch.Tensor, shard: _Shard, rows: Optional[slice] = None) -> t
     return value[shard.rows if rows is None else rows].to(shard.device)
 
 
-def _single_split(g_params: Params, d_params: Params, batch: int) -> _Split:
-    device = next(iter(tree_leaves(g_params)))[1].device
+def _single_split(g_params: Any, d_params: Params, batch: int) -> _Split:
+    device = _flat(g_params)[0].device
     return _Split(batch, [_Shard(device, slice(0, batch), g_params, d_params)],
                   slice(0, batch), False)
 
@@ -449,7 +495,7 @@ def _split_grads(loss: torch.Tensor, split: _Split, which: str) -> List[torch.Te
     the master device) and over the process group: the gradient of the
     global loss."""
     copies = list({id(getattr(s, which)): getattr(s, which) for s in split.shards}.values())
-    leaves = [[leaf for _, leaf in tree_leaves(tree)] for tree in copies]
+    leaves = [_flat(tree) for tree in copies]
     flat = [leaf for tree in leaves for leaf in tree]
     raw = torch.autograd.grad(loss, flat, allow_unused=True)
     count = len(leaves[0])
@@ -462,11 +508,44 @@ def _split_grads(loss: torch.Tensor, split: _Split, which: str) -> List[torch.Te
                 total = total + g.to(leaf.device)
         grads.append(total)
     if split.multi_process:
-        flat_grads = torch.cat([g.reshape(-1) for g in grads])
-        all_reduce_sum_(flat_grads)
-        grads = [chunk.view_as(g) for chunk, g in
-                 zip(torch.split(flat_grads, [g.numel() for g in grads]), grads)]
+        _all_reduce_buckets_(grads, split.master)
     return grads
+
+
+# The largest bucket of gradients one collective sums (a larger leaf goes
+# alone); read at call time.
+_REDUCE_BUCKET_BYTES = 1 << 24
+
+
+def _all_reduce_buckets_(grads: List[torch.Tensor], master: torch.device) -> None:
+    """
+    Sum `grads` over the process group, in place, in buckets of consecutive
+    leaves of at most `_REDUCE_BUCKET_BYTES`: each bucket is staged on
+    `master` (a model group's blocks come from their slots), reduced and
+    copied back before the next, so the master never holds more than one
+    bucket of the other slots' gradients. The buckets depend only on the
+    leaves' sizes, so every process cuts them alike.
+    """
+    def flush(bucket: List[torch.Tensor]) -> None:
+        if len(bucket) == 1:
+            all_reduce_sum_(bucket[0])
+            return
+        flat = torch.cat([g.reshape(-1).to(master) for g in bucket])
+        all_reduce_sum_(flat)
+        for chunk, g in zip(torch.split(flat, [g.numel() for g in bucket]), bucket):
+            g.copy_(chunk.view_as(g))
+
+    bucket: List[torch.Tensor] = []
+    size = 0
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        if bucket and size + nbytes > _REDUCE_BUCKET_BYTES:
+            flush(bucket)
+            bucket, size = [], 0
+        bucket.append(g)
+        size += nbytes
+    if bucket:
+        flush(bucket)
 
 
 def _metric(value: torch.Tensor, split: _Split) -> torch.Tensor:
@@ -550,48 +629,49 @@ def g_step_gradients(
                    "pl_length": _metric(pl_length, split)}
 
 
-def _adam_step(opt: torch.optim.Adam, params: Params, grads: List[torch.Tensor]) -> None:
-    for (_, leaf), grad in zip(tree_leaves(params), grads):
+def _adam_step(opt: torch.optim.Adam, params: Any, grads: List[torch.Tensor]) -> None:
+    for leaf, grad in zip(_flat(params), grads):
         leaf.grad = grad.detach()
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
+def _copy_on(tree: Any, devices: Tuple[torch.device, ...]) -> Any:
+    """A trainable copy of a state's params tree on a data row's devices."""
+    if isinstance(tree, GroupParams):
+        return GroupParams.place(tree.gather(), devices, shared=True, trainable=True)
+    return _trainable(tree, devices[0])
+
+
 class _Replicas:
-    """Copies of the state's G and D params on the mesh's other local
-    devices, refreshed from the state before each step."""
+    """Copies of the state's G and D params on the mesh's other local data
+    rows (one device each, or a model group), refreshed from the state
+    before each step."""
 
     def __init__(self) -> None:
-        self._trees: Dict[torch.device, Tuple[Params, Params]] = {}
+        self._trees: Dict[Tuple[torch.device, ...], Tuple[Any, Any]] = {}
 
     def split(self, state: TrainingState, mesh: Any, batch: int) -> _Split:
-        from gance_tpu_torch.parallel.mesh import process_rows, shard_batch
+        from gance_tpu_torch.parallel.mesh import process_rows, shard_rows
 
         master = state.pl_mean.device
         shards = []
-        for device, rows in shard_batch(mesh, batch):
-            if device == master:
-                shards.append(_Shard(device, rows, state.g_params, state.d_params))
+        for devices, rows in shard_rows(mesh, batch):
+            if devices[0] == master:
+                shards.append(_Shard(master, rows, state.g_params, state.d_params))
                 continue
-            if device not in self._trees:
-                self._trees[device] = (_trainable(state.g_params, device),
-                                       _trainable(state.d_params, device))
-            g, d = self._trees[device]
+            if devices not in self._trees:
+                self._trees[devices] = (_copy_on(state.g_params, devices),
+                                        _copy_on(state.d_params, devices))
+            g, d = self._trees[devices]
             with torch.no_grad():
                 for tree, source in ((g, state.g_params), (d, state.d_params)):
-                    for (_, copy), (_, leaf) in zip(tree_leaves(tree), tree_leaves(source)):
+                    for copy, leaf in zip(_flat(tree), _flat(source)):
                         copy.copy_(leaf)
-            shards.append(_Shard(device, rows, g, d))
+            shards.append(_Shard(devices[0], rows, g, d))
         if not shards:
             raise ValueError(f"a batch of {batch} leaves this process's data slots empty")
         return _Split(batch, shards, process_rows(mesh, batch), mesh.grouped)
-
-
-def _check_mesh(mesh: Optional[Any]) -> None:
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        from gance_tpu_torch.parallel.mesh import MODEL_AXIS_ITEM
-
-        raise NotImplementedError(MODEL_AXIS_ITEM)
 
 
 def make_train_step(
@@ -604,16 +684,16 @@ def make_train_step(
     the state's device, the step's draws) -> (the same state, updated in
     place, and metrics d_loss, g_loss, r1, pl, pl_length as 0-d tensors).
 
-    With `mesh` (a ('data', 'model') mesh, model 1; the state placed by
+    With `mesh` (a ('data', 'model') mesh; the state placed by
     `shard_training_state`), the global batch splits over the data axis:
-    each local slot runs its rows with its copy of the params, the
-    minibatch stddev and path length see the global batch, and gradients
-    and metrics are summed over the slots and the process group, so a step
-    equals the single-device step on the global batch. The reals are the
+    each local data row runs its rows with its copy of the params (over its
+    model slots, tensor-parallel, when 'model' is above 1), the minibatch
+    stddev and path length see the global batch, and gradients and metrics
+    are summed over the rows and the process group, so a step equals the
+    single-device step on the global batch. The reals are the
     global batch, or a process's rows of it (`distributed.global_batch`);
     the draws are the global batch's, the same on every process.
     """
-    _check_mesh(mesh)
     compute_dtype_of(train_config)
     replicas = _Replicas() if mesh is not None else None
 
@@ -652,8 +732,7 @@ def make_train_step(
             dlatent_avg = w_avg + (state.g_params["dlatent_avg"] - w_avg) * train_config.dlatent_avg_beta
             state.g_params["dlatent_avg"].copy_(dlatent_avg)
             beta = train_config.ema_beta
-            for (_, ema), (_, new) in zip(tree_leaves(state.ema_params),
-                                          tree_leaves(state.g_params)):
+            for ema, new in zip(_flat(state.ema_params), _flat(state.g_params)):
                 ema.copy_(ema * beta + new * (1.0 - beta))
             # running statistics are copied, not averaged
             state.ema_params["dlatent_avg"].copy_(dlatent_avg)
@@ -714,17 +793,18 @@ def shard_training_state(
 ) -> TrainingState:
     """
     Place a training state for `make_train_step(mesh=)` (JAX's
-    `shard_training_state`, with the 'model' axis at 1): on the mesh's first
-    local device, and, across processes, process 0's values everywhere
-    (params, EMA, Adam moments, step and pl_mean), so that processes that
-    loaded different checkpoints, or none, start from one state. Collective
-    across processes. The other local devices get their copies of G and D
-    at each step.
+    `shard_training_state`): on the first local data row (its device, or
+    with a 'model' axis above 1 its model slots, G, D, their Adam moments
+    and the EMA sharded alike), and, across processes, process 0's values
+    everywhere (params, EMA, Adam moments, step and pl_mean), so that
+    processes that loaded different checkpoints, or none, start from one
+    state. Collective across processes. The other local data rows get their
+    copies of G and D at each step.
     """
-    from gance_tpu_torch.parallel.mesh import broadcast_
+    from gance_tpu_torch.parallel.mesh import broadcast_, local_row_groups
 
-    _check_mesh(mesh)
-    device = mesh.first_device
+    devices = local_row_groups(mesh)[0]
+    device = devices[0]
     blob = {
         "g_params": tree_to_numpy(state.g_params), "d_params": tree_to_numpy(state.d_params),
         "ema_params": tree_to_numpy(state.ema_params),
@@ -733,12 +813,12 @@ def shard_training_state(
     }
     placed = training_state_from_arrays(
         blob["g_params"], blob["d_params"], blob["ema_params"], state.step, float(state.pl_mean),
-        blob["g_adam"], blob["d_adam"], train_config, device)
+        blob["g_adam"], blob["d_adam"], train_config, device, model_devices=devices)
     if not mesh.grouped:
         return placed
     with torch.no_grad():
         for tree in (placed.g_params, placed.d_params, placed.ema_params):
-            for _, leaf in tree_leaves(tree):
+            for leaf in _flat(tree):
                 broadcast_(leaf.data)
         for opt in (placed.g_opt_state, placed.d_opt_state):
             for moments in opt.state.values():
@@ -759,7 +839,8 @@ def save_checkpoint(path: Path, state: TrainingState) -> None:
     """Write the state as numpy trees to `path` + '.tmp', then rename it over
     `path`, so a crash mid-write leaves the previous checkpoint whole. In a
     group of several processes only process 0 writes (every process holds
-    the whole state, so nothing is gathered first)."""
+    the whole state; a model group's blocks are gathered into whole
+    leaves, so the checkpoint loads on one device or any mesh)."""
     from gance_tpu_torch.parallel.distributed import is_coordinator
 
     if not is_coordinator():
@@ -892,6 +973,6 @@ def run_training(
             if metrics_hook is not None:
                 metrics_hook(step + 1, state)
     if output_network is not None and is_coordinator():
-        save_generator_pickle(state.ema_params, Path(output_network))
+        save_generator_pickle(tree_to_numpy(state.ema_params), Path(output_network))
         LOGGER.info("Wrote EMA generator to %s", output_network)
     return state

@@ -248,9 +248,11 @@ class Projector:
     differentiated. `settings.remat` recomputes each synthesis block in the
     backward pass.
 
-    With `mesh` (a ('data', 'model') mesh, model 1) every batch-leading
-    array splits over the data axis: the params are copied to each local
-    device, each slot optimizes its frames (its own w, planes and Adam
+    With `mesh` (a ('data', 'model') mesh) every batch-leading array splits
+    over the data axis: the params are copied to each local data row's lead
+    device, replicated as JAX's projector keeps them under any mesh (so the
+    synthesis forward stays data-parallel over frames and a 'model' axis
+    above 1 only leaves its other slots idle), each slot optimizes its frames (its own w, planes and Adam
     moments; frames are independent, so the summed loss gives each frame
     its own gradient), the batch is padded to a multiple of the data axis by
     repeating the last frame, and the draws (cold-start planes, w jitter)
@@ -272,7 +274,7 @@ class Projector:
         mesh: Optional[Any] = None,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
+        from gance_tpu_torch.parallel.mesh import data_axis_size, local_row_groups
 
         self.mesh = mesh
         self._data_axis = data_axis_size(mesh)
@@ -283,7 +285,8 @@ class Projector:
             self.settings.num_steps = num_steps
         self.config = config
         if mesh is not None:
-            self._replicas = generator_param_sharding(mesh, params)
+            self._replicas = {group[0]: params_to_device(params, group[0])
+                              for group in local_row_groups(mesh)}
             self.device = mesh.first_device
             self.params = self._replicas[self.device]
         else:

@@ -1,9 +1,8 @@
 """
-Online synthesis serving on one device (the counterpart of gance_tpu/serving/,
-without its multi-host control channel): dynamic request batching
-(batcher.py), a stdlib HTTP daemon (daemon.py) with the audio routes
-(audio.py), and its client (client.py). Serving over a mesh or processes
-that span one is ROADMAP.md Queue 1 item 12, part 2.
+Online synthesis serving (the counterpart of gance_tpu/serving/): dynamic
+request batching (batcher.py), a stdlib HTTP daemon (daemon.py) with the
+audio routes (audio.py), its client (client.py), and the control channel
+that serves over a mesh spanning several processes (multihost.py).
 """
 
 from gance_tpu_torch.serving.audio import (
@@ -14,9 +13,23 @@ from gance_tpu_torch.serving.audio import (
 from gance_tpu_torch.serving.batcher import DynamicBatcher, bucket_rows, default_max_batch
 from gance_tpu_torch.serving.client import ServingClient, ServingClientError
 from gance_tpu_torch.serving.daemon import SynthesisDaemon
+from gance_tpu_torch.serving.multihost import (
+    ControlCoordinator,
+    ControlWorker,
+    MultiHostNetwork,
+    MultiHostServingError,
+    run_worker,
+    wrap_networks_for_multihost,
+)
 
 __all__ = [
     "AudioRequestError",
+    "ControlCoordinator",
+    "ControlWorker",
+    "MultiHostNetwork",
+    "MultiHostServingError",
+    "run_worker",
+    "wrap_networks_for_multihost",
     "plan_audio_request",
     "synthesize_plan",
     "DynamicBatcher",

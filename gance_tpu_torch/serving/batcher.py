@@ -13,6 +13,13 @@ before it reads the frames, while the dispatch thread is already queueing the
 next batch. On a CUDA network the rows also go to the device from pinned
 memory without blocking the dispatch thread, and the pinned buffer is kept
 until the batch's event has fired.
+
+A network on a mesh returns its frames as `parallel/mesh.py::ShardedRows`.
+In one process the fetch thread copies them from their devices. Across
+processes their fetch is an all_gather, a collective that every process
+must reach in the same order, so it runs in the dispatch thread, under the
+device lock, right after the batch is queued (the host gather waits for the
+batch; JAX launches a replicate program there instead).
 """
 
 import collections
@@ -26,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from gance_tpu_torch.parallel.mesh import ShardedRows
 from gance_tpu_torch.synthesis.runtime import _bucket_size, _start_host_copy
 from gance_tpu_torch.utils.logging import LOGGER
 
@@ -83,7 +91,11 @@ def _stage_rows(network: Any, rows: np.ndarray) -> Tuple[Any, Optional[torch.Ten
 
 def _start_fetch(images: Any, real: int) -> Tuple[Any, Optional[torch.cuda.Event]]:
     """Queue the copy of the first `real` frames to pinned host memory and an
-    event after it (CUDA tensors); anything else passes through."""
+    event after it (CUDA tensors); frames sharded over a process-spanning
+    mesh are gathered to the host here (the collective stays in the calling,
+    dispatch thread); anything else passes through."""
+    if isinstance(images, ShardedRows) and images.mesh.grouped:
+        return images.fetch(), None
     if not (torch.is_tensor(images) and images.is_cuda):
         return images, None
     host = _start_host_copy(images, real)
@@ -96,6 +108,8 @@ def _host_frames(images: Any, ready: Optional[torch.cuda.Event], real: int) -> n
     """The fetched frames as numpy, once the copy's event has fired."""
     if ready is not None:
         ready.synchronize()
+    if isinstance(images, ShardedRows):  # one process: no collective
+        images = images.fetch()
     if torch.is_tensor(images):
         images = images.cpu().numpy()
     return np.asarray(images)[:real]

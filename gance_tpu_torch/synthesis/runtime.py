@@ -18,15 +18,16 @@ block (GANCE_TPU_PHASE1024) anew, as JAX's runtime does. With an
 resized on the device (`resize_images`, JAX's bicubic) and then quantised;
 otherwise the uint8 output is fused into synthesis.
 
-Multi-device placement is JAX's: `SynthesisNetwork(mesh=)` copies the params
-to each device of a ('data', 'model') mesh and splits every batch over the
-data axis (padded to a multiple of it by repeating the last row, the pads
-sliced off); `MultiNetwork` takes `mesh`, `device_per_network` (network i
-wholly on local device i mod count) or `network_parallel` (every network on
-its own device group, `parallel/network_parallel.py`), one at a time. A
-mesh's frames reach the host through `parallel/mesh.py::fetch_to_host`,
-all-gathered across processes. A 'model' axis larger than 1 raises
-(ROADMAP.md Queue 1 item 12, part 2).
+Multi-device placement is JAX's: `SynthesisNetwork(mesh=)` places the params
+on a ('data', 'model') mesh (copied to each device with a 'model' axis of 1,
+tensor-parallel over each data row's model slots above 1:
+`parallel/mesh.py::generator_param_sharding`) and splits every batch over
+the data axis (padded to a multiple of it by repeating the last row, the
+pads sliced off); `MultiNetwork` takes `mesh`, `device_per_network`
+(network i wholly on local device i mod count) or `network_parallel` (every
+network on its own device group, `parallel/network_parallel.py`), one at a
+time. A mesh's frames reach the host through
+`parallel/mesh.py::fetch_to_host`, all-gathered across processes.
 """
 
 import os
@@ -123,13 +124,14 @@ class SynthesisNetwork:
     truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI
     compute_dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
     output_side_length: Optional[int] = None
-    # When set, params are copied to every device of the mesh and frame
-    # batches split over its 'data' axis (the device is the mesh's first).
+    # When set, params are placed on the mesh (tensor-parallel over a 'model'
+    # axis above 1) and frame batches split over its 'data' axis (the device
+    # is the mesh's first).
     mesh: Optional[Any] = None
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self) -> None:
-        self._replicas: Optional[Dict[torch.device, Params]] = None
+        self._replicas: Optional[Dict[Tuple[torch.device, ...], Any]] = None
         self._data_axis = 1
         if self.mesh is not None:
             from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
@@ -137,7 +139,8 @@ class SynthesisNetwork:
             self._replicas = generator_param_sharding(self.mesh, self.params)
             self._data_axis = data_axis_size(self.mesh)
             self.device = self.mesh.first_device
-            self.params = self._replicas[self.device]
+            # the first data row's params (a GroupParams on a 'model' axis)
+            self.params = next(iter(self._replicas.values()))
             return
         self.device = resolve_device(self.device)
         # Params go to the device once and stay there for every call.

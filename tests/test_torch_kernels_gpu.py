@@ -28,6 +28,31 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+def test_kernels_launch_on_their_tensors_device(cuda_device):
+    """A kernel runs on its tensors' GPU whatever the current device is, as a
+    PyTorch op does: a data shard or model slot on cuda:1 while cuda:0 is
+    current (before, the wrappers refused it, so every multi-GPU placement
+    in one process failed at its first kernel on another card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    other = torch.device("cuda", 1)
+    gen = torch.Generator(device=other).manual_seed(3)
+    x = torch.randn((2, 8, 16, 16), generator=gen, device=other)
+    noise = torch.randn((1, 1, 16, 16), generator=gen, device=other)
+    bias = torch.randn((8,), generator=gen, device=other)
+    strength = torch.tensor(0.3, device=other)
+    with torch.cuda.device(0):
+        got = K.fused_bias_noise_lrelu(x, noise, bias, strength)
+        blurred = K.upsample2x_blur(x, TAPS)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    assert got.device == other and blurred.device == other
+    torch.testing.assert_close(got, K.fused_bias_noise_lrelu_plain(x, noise, bias, strength),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(blurred, K.upsample2x_blur_plain(x, TAPS), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize(
     "kernel", ["fused_bias_noise_lrelu", "upsample2x_blur", "blur4", "upsample2x_blur_fir1234"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

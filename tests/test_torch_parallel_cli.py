@@ -1,7 +1,8 @@
 """
-The port's render CLIs over several devices and processes (item 12, part
-1): `music_into_networks noise-blend` and `projection-file-blend` with
---data-parallel on a CPU mesh in one process, and with --dist-* as two gloo
+The port's render CLIs over several devices and processes:
+`music_into_networks noise-blend` and `projection-file-blend` with
+--data-parallel on a CPU mesh in one process (a 'model' axis of 2 too, with
+the large weights sharded by a lowered threshold), and with --dist-* as two gloo
 processes that each synthesize half of every batch, against the
 single-process render of the same command. Frames within 1 uint8 step on
 99.9% of the values (the port's bound across batch shapes); only process 0
@@ -72,6 +73,26 @@ def test_data_parallel_render_matches_single_device(tmp_path, monkeypatch, comma
     invoke(command(tmp_path / "dp.avi") + ["--data-parallel", "2"], monkeypatch, devices=2)
     want, _, _ = read_avi(tmp_path / "plain.avi")
     got, _, _ = read_avi(tmp_path / "dp.avi")
+    assert got.shape[0] == int(FRAMES)
+    assert_most_within_one_step(got, want)
+
+
+def test_tensor_parallel_render_matches_single_device(tmp_path, monkeypatch, command):
+    """--data-parallel 2 over four CPU slots leaves a 'model' axis of 2 (the
+    3x3 convs split by a lowered threshold): the render equals the
+    single-device one within the bound above."""
+    from gance_tpu_torch.parallel import mesh as port_mesh
+
+    invoke(command(tmp_path / "plain.avi"), monkeypatch)
+    monkeypatch.setattr(port_mesh, "_MIN_SHARDED_PARAM", 1024)
+    made = []
+    create = port_mesh.create_mesh
+    monkeypatch.setattr(port_mesh, "create_mesh",
+                        lambda *a, **k: made.append(create(*a, **k)) or made[-1])
+    invoke(command(tmp_path / "tp.avi") + ["--data-parallel", "2"], monkeypatch, devices=4)
+    assert [m.shape for m in made] == [{"data": 2, "model": 2}]
+    want, _, _ = read_avi(tmp_path / "plain.avi")
+    got, _, _ = read_avi(tmp_path / "tp.avi")
     assert got.shape[0] == int(FRAMES)
     assert_most_within_one_step(got, want)
 

@@ -3,8 +3,8 @@ The port's meshes and data-parallel synthesis (gance_tpu_torch.parallel:
 mesh.py, sharded_synthesis.py, distributed.py, `SynthesisNetwork(mesh=)`)
 against gance_tpu's on the conftest's 8 virtual CPU devices.
 
-  * mesh shapes and `_hybrid_device_grid` against JAX's; a 'model' axis
-    larger than 1 raises naming ROADMAP item 12, part 2;
+  * mesh shapes and `_hybrid_device_grid` against JAX's, a 'model' axis
+    larger than 1 included (tests/test_torch_tensor_parallel.py runs it);
   * `make_sharded_synthesis` / `make_sharded_matrix_synthesis` over a
     4-slot CPU mesh against JAX's over `create_mesh(n_devices=4)`, at batch
     sizes the data axis does not divide: within 1 uint8 step (the port's
@@ -69,19 +69,17 @@ def cpu_slots(monkeypatch):
                                     dict(n_devices=8, data_parallel=4),
                                     dict(n_devices=8, data_parallel=3)])
 def test_mesh_shapes_match_jax(cpu_slots, kwargs):
-    """The same shapes as JAX's create_mesh; where JAX makes a 'model' axis
-    the port raises naming its item; an indivisible dp is a ValueError in both."""
+    """The same shapes as JAX's create_mesh, a tensor-parallel 'model' axis
+    included (each data row's slots in row-major order, as JAX reshapes its
+    devices); an indivisible dp is a ValueError in both."""
     try:
         want = jax_mesh.create_mesh(**kwargs)
     except ValueError:
         with pytest.raises(ValueError, match="not divisible"):
             port_mesh.create_mesh(device="cpu", **kwargs)
         return
-    if want.shape["model"] > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 12, part 2"):
-            port_mesh.create_mesh(device="cpu", **kwargs)
-        return
     got = port_mesh.create_mesh(device="cpu", **kwargs)
+    assert port_mesh.model_axis_size(got) == want.shape["model"]
     assert got.axis_names == want.axis_names
     assert got.shape == dict(want.shape) and got.size == want.devices.size
     assert got.process_count == 1 and got.local_devices == [torch.device("cpu")]
@@ -116,18 +114,36 @@ def test_hybrid_device_grid_matches_jax():
             port_mesh._hybrid_device_grid(*args)
 
 
-def test_param_sharding_replicates_and_refuses_a_model_axis():
+def test_param_sharding_replicates_and_refuses_a_model_axis(monkeypatch):
+    """A 'model' axis of 1 copies the params once per device (keyed by the
+    data row's devices); a 'model' axis of 2, no longer refused, places a
+    tensor-parallel GroupParams per data row whose large weights are split
+    over the slots and gather back whole."""
+    from gance_tpu_torch.parallel.tensor_parallel import GroupParams
+
     params = params_from_reference(jax_params(0))
     mesh = port_mesh.create_mesh(devices=["cpu", "cpu"])
     placed = port_mesh.generator_param_sharding(mesh, params)
-    assert list(placed) == [torch.device("cpu")]
-    np.testing.assert_array_equal(placed[torch.device("cpu")]["synthesis"]["4x4"]["Conv"]
+    assert list(placed) == [(torch.device("cpu"),)]
+    np.testing.assert_array_equal(placed[(torch.device("cpu"),)]["synthesis"]["4x4"]["Conv"]
                                   ["weight"].numpy(), params["synthesis"]["4x4"]["Conv"]["weight"])
+    monkeypatch.setattr(port_mesh, "_MIN_SHARDED_PARAM", 1024)
     model = port_mesh.Mesh(port_mesh._object_grid([port_mesh.MeshDevice(0, torch.device("cpu"))]
                                                   * 2, (1, 2)), ("data", "model"))
-    for fn in (port_mesh.generator_param_sharding, port_mesh.discriminator_param_sharding):
-        with pytest.raises(NotImplementedError, match="item 12, part 2"):
-            fn(model, params)
+    d_params = port_g.init_discriminator_params(0, PORT_CONFIG)
+    for fn, tree in ((port_mesh.generator_param_sharding, params),
+                     (port_mesh.discriminator_param_sharding, d_params)):
+        (group,) = fn(model, tree).values()
+        assert isinstance(group, GroupParams) and len(group.slots) == 2
+        assert any(dim is not None for _, dim in _leaves(group.spec))
+        for path, leaf in _leaves(port_mesh.gather_params(group)):
+            np.testing.assert_array_equal(leaf, dict(_leaves(tree))[path], err_msg=path)
+
+
+def _leaves(tree, prefix=""):
+    from gance_tpu_torch.parallel.training import tree_leaves
+
+    return tree_leaves(tree, prefix)
 
 
 @pytest.mark.parametrize("n,parts,want", [

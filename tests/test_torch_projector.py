@@ -467,15 +467,25 @@ def _model_axis_mesh():
                 ("data", "model"))
 
 
-@pytest.mark.parametrize("kwargs,item", [
+@pytest.mark.parametrize("kwargs,ported_by", [
     (dict(mesh=_model_axis_mesh()), "item 12"),
 ])
-def test_unported_options_raise(kwargs, item):
-    """A data-parallel mesh projects now (tests/test_torch_parallel_projector.py);
-    a tensor-parallel 'model' axis still raises, naming its item."""
+def test_unported_options_raise(kwargs, ported_by):
+    """A tensor-parallel 'model' axis, which raised until ROADMAP `ported_by`
+    ported it, projects: the params stay replicated, as JAX's projector
+    keeps them under any mesh, and the data row's lead slot computes, so 3
+    steps from a pinned start equal one device's bit for bit."""
     params = params_from_reference(jax_params(40, TINY))
-    with pytest.raises(NotImplementedError, match=item):
-        port_proj.Projector(params, port_g.GeneratorConfig(**TINY), device="cpu", **kwargs)
+    targets, w0, noises = pinned_inputs(jax_params(40, TINY), TINY, 2, seed=41)
+    runs = []
+    for extra in (kwargs, {}):
+        projector = port_proj.Projector(
+            params, port_g.GeneratorConfig(**TINY), device="cpu",
+            settings=port_proj.ProjectorSettings(num_steps=3, dlatent_avg_samples=8), **extra)
+        result = projector.project_batch(targets, want_step_images=False, initial_latents=w0,
+                                         initial_noises=noises)
+        runs.append(np.stack([r.final_latents for r in result]))
+    np.testing.assert_array_equal(runs[0], runs[1])
 
 
 def test_default_device_is_cuda(monkeypatch):

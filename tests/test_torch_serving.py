@@ -243,23 +243,42 @@ def test_cuda_staging_is_only_for_cuda_networks():
     assert ready is None and port_batcher._host_frames(images, ready, 3).shape == (3, 2, 2, 3)
 
 
-def test_serve_cli_help_usage_and_multi_device_refusals():
+def test_serve_cli_help_usage_and_multi_device_refusals(monkeypatch):
+    """The multi-device options, refused until they were ported, resolve as
+    JAX's serve CLI resolves them: --use-mesh and --data-parallel build the
+    serving mesh (a 'model' axis of the rest), --data-parallel with
+    --no-mesh and a partial --dist-* triple are usage errors, and
+    --control-port alone is ignored (it only matters with --dist-*)."""
     from click.testing import CliRunner
 
-    from gance_tpu_torch.cli.serve import build_cli, run_server
+    from gance_tpu_torch.cli.serve import (
+        ServeUsageError,
+        build_cli,
+        resolve_serving_mesh,
+        run_server,
+    )
+    from tests.torch_parallel_worker import cpu_slots
 
     cli = build_cli()
     result = CliRunner().invoke(cli, ["--help"])
     assert result.exit_code == 0
     for option in ("--max-batch", "--max-delay-ms", "--warmup", "--warmup-audio", "--device",
-                   "--compute-dtype", "--dist-coordinator"):
+                   "--compute-dtype", "--dist-coordinator", "--use-mesh", "--data-parallel",
+                   "--control-port", "--control-bind"):
         assert option in result.output
     result = CliRunner().invoke(cli, [])
     assert result.exit_code == 2 and "No networks given" in result.output
-    for options in ({"use_mesh": True}, {"data_parallel": 2}, {"dist_coordinator": "h:1"},
-                    {"control_port": 9}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            run_server([Path("x.pkl")], device="cpu", **options)
+    assert resolve_serving_mesh(None, None, "cpu") is None  # one device: no mesh
+    assert resolve_serving_mesh(True, None, "cpu").shape == {"data": 1, "model": 1}
+    cpu_slots(4, monkeypatch)
+    assert resolve_serving_mesh(None, None, "cpu").shape == {"data": 4, "model": 1}
+    assert resolve_serving_mesh(None, 2, "cpu").shape == {"data": 2, "model": 2}
+    with pytest.raises(ServeUsageError, match="requires the mesh"):
+        resolve_serving_mesh(False, 2, "cpu")
+    with pytest.raises(ServeUsageError, match="must be given together"):
+        run_server([Path("x.pkl")], device="cpu", dist_coordinator="h:1")
+    with pytest.raises(FileNotFoundError):  # past the options, to the missing pickle
+        run_server([Path("x.pkl")], device="cpu", control_port=9, use_mesh=False)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal on a host without CUDA")

@@ -483,14 +483,39 @@ def test_draw_step_is_a_function_of_seed_and_step():
     assert a.pl_probe.shape == (BATCH // 2, 16, 16, 3) and len(a.pl_noise[0]) == BATCH // 2
 
 
-def test_not_ported_options_raise():
-    """A mesh trains now (tests/test_torch_parallel_training.py); a
-    tensor-parallel 'model' axis larger than 1 still raises, naming its item."""
-    from gance_tpu_torch.parallel.mesh import Mesh, MeshDevice, _object_grid
+def test_not_ported_options_raise(monkeypatch):
+    """A tensor-parallel 'model' axis of 2, which raised before it was
+    ported, trains: one step with R1 and PL over a model-2 mesh (the large
+    weights, their Adam moments and the EMA split over the slots) gives the
+    single-device step's losses within 1e-4 relative and its leaves within
+    1e-4 of their size; the replicated leaves are one tensor on the lead."""
+    from gance_tpu_torch.parallel import mesh as port_mesh
+    from gance_tpu_torch.parallel.tensor_parallel import GroupParams
 
-    mesh = Mesh(_object_grid([MeshDevice(0, CPU)] * 2, (1, 2)), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12, part 2"):
-        port_training.make_train_step(PORT_TINY, PORT_TC, mesh=mesh)
+    monkeypatch.setattr(port_mesh, "_MIN_SHARDED_PARAM", 1024)
+    mesh = port_mesh.Mesh(port_mesh._object_grid([port_mesh.MeshDevice(0, CPU)] * 2, (1, 2)),
+                          ("data", "model"))
+    tc = port_training.TrainingConfig(r1_interval=1, pl_interval=1)
+    reals = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, (BATCH, 16, 16, 3)).astype(np.float32))
+    draws = port_training.draw_step(3, 0, BATCH, PORT_TINY, tc, CPU)
+    results = []
+    for step_mesh in (None, mesh):
+        state = port_training.init_training_state(4, PORT_TINY, tc, CPU)
+        if step_mesh is not None:
+            state = port_training.shard_training_state(step_mesh, state, tc)
+            assert isinstance(state.g_params, GroupParams)
+            assert state.g_params.slots[0]["dlatent_avg"] is state.g_params.slots[1]["dlatent_avg"]
+        state, metrics = port_training.make_train_step(PORT_TINY, tc, mesh=step_mesh)(
+            state, reals, draws)
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        port_training.tree_to_numpy(state.g_params)))
+    (m_one, g_one), (m_tp, g_tp) = results
+    for name in ("d_loss", "g_loss", "r1", "pl"):
+        assert abs(m_tp[name] - m_one[name]) <= 1e-4 * abs(m_one[name]), name
+    for path, want in port_training.tree_leaves(g_one):
+        got = dict(port_training.tree_leaves(g_tp))[path]
+        assert float(np.abs(got - want).max()) <= 1e-4 * max(float(np.abs(want).max()), 1.0), path
 
 
 def test_training_config_defaults_match_jax():

@@ -97,9 +97,15 @@ def task_train(rank, world, inputs):
     from gance_tpu_torch.parallel.distributed import global_batch
     from gance_tpu_torch.parallel.mesh import create_mesh, process_rows
 
+    if inputs.get("min_sharded"):
+        from gance_tpu_torch.parallel import mesh as port_mesh
+
+        port_mesh._MIN_SHARDED_PARAM = inputs["min_sharded"]
+    if inputs.get("reduce_bucket_bytes"):
+        T._REDUCE_BUCKET_BYTES = inputs["reduce_bucket_bytes"]
     config = GeneratorConfig(**inputs["config"])
     tc = T.TrainingConfig(**inputs["train_config"])
-    mesh = create_mesh(device="cpu")
+    mesh = create_mesh(device="cpu", data_parallel=inputs.get("data_parallel"))
     state = T.training_state_from_arrays(*inputs["state"], train_config=tc, device="cpu")
     if rank:  # process 0's state is everyone's start
         state = T.init_training_state(99, config, tc, "cpu")
@@ -111,7 +117,15 @@ def task_train(rank, world, inputs):
         state, m = step(state, global_batch(mesh, mine), draws)
         metrics.append({k: float(v) for k, v in m.items()})
     T.save_checkpoint(Path(inputs["dir"]) / f"ckpt_{rank}.pkl", state)  # process 0 writes
-    return {"metrics": metrics, "g": T.tree_to_numpy(state.g_params),
+    shared = None
+    if hasattr(state.g_params, "slots"):  # a model group: each replicated leaf is one tensor
+        from gance_tpu_torch.parallel.tensor_parallel import _get, _paths
+
+        shared = [all(_get(slot, path) is _get(tree.slots[0], path) for slot in tree.slots)
+                  for tree in (state.g_params, state.d_params, state.ema_params)
+                  for path, dim in _paths(tree.spec) if dim is None]
+    return {"metrics": metrics, "g": T.tree_to_numpy(state.g_params), "shared": shared,
+            "mesh": mesh.shape,
             "d": T.tree_to_numpy(state.d_params), "ema": T.tree_to_numpy(state.ema_params),
             "pl_mean": float(state.pl_mean), "step": state.step,
             "g_adam": T._adam_to_numpy(state.g_opt_state, state.g_params)}
@@ -153,6 +167,70 @@ def task_project_fail(rank, world, inputs):
         steps_per_projection=2, num_frames_to_project=4, projection_batch=2,
         mesh=create_mesh(device="cpu"), device="cpu", expected_time_per_step=600.0)
     return {"finished": True}
+
+
+def task_daemon(rank, world, inputs):
+    """The online daemon over a mesh spanning the processes: rank 0 binds
+    HTTP, wraps its networks in the multi-process proxies and sends real
+    requests (z, w+, a hot load and a request to the loaded network); the
+    other ranks mirror every dispatch through the control channel."""
+    from gance_tpu_torch.parallel import mesh as port_mesh
+    from gance_tpu_torch.serving.multihost import (
+        ControlCoordinator,
+        MultiHostNetwork,
+        network_fingerprint,
+        run_worker,
+        wrap_networks_for_multihost,
+    )
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    if inputs.get("min_sharded"):
+        port_mesh._MIN_SHARDED_PARAM = inputs["min_sharded"]
+    workdir = Path(inputs["dir"])
+    mesh = port_mesh.create_mesh(data_parallel=inputs.get("data_parallel"), device="cpu")
+    network = SynthesisNetwork.from_pkl(workdir / "net.pkl", mesh=mesh, device="cpu")
+
+    def commit(staged, path, _index=0):
+        return SynthesisNetwork.from_staged(staged, Path(path), mesh=mesh, device="cpu")
+
+    sharded = 0
+    if hasattr(network.params, "spec"):
+        from gance_tpu_torch.parallel.training import tree_leaves
+
+        sharded = sum(dim is not None for _, dim in tree_leaves(network.params.spec))
+    out = {"mesh": mesh.shape, "sharded": sharded}
+    if rank:
+        out["served"] = run_worker([network], "127.0.0.1", inputs["control_port"], rank,
+                                   recv_timeout_s=300.0,
+                                   load_prepare=lambda path, _i: SynthesisNetwork.stage_pkl(
+                                       Path(path)),
+                                   load_commit=commit)
+        return out
+    from gance_tpu_torch.serving import ServingClient, SynthesisDaemon
+
+    coordinator = ControlCoordinator(num_workers=world - 1, bind_host="127.0.0.1",
+                                     port=inputs["control_port"], heartbeat_interval_s=1.0)
+    coordinator.accept(network_fingerprint([network]), timeout_s=300.0)
+
+    def network_loader(path: str, index: int):
+        staged = SynthesisNetwork.stage_pkl(Path(path))
+        coordinator.broadcast_load(path, index)
+        return MultiHostNetwork(commit(staged, path), coordinator, index)
+
+    with SynthesisDaemon(wrap_networks_for_multihost([network], coordinator), port=0,
+                         max_batch=8, network_loader=network_loader,
+                         network_unloader=coordinator.broadcast_unload) as daemon:
+        client = ServingClient(f"http://127.0.0.1:{daemon.port}", timeout_s=300.0)
+        assert client.health()["ok"]
+        out["out_z"] = client.synthesize(latents=inputs["z"])
+        out["out_w"] = client.synthesize(dlatents=inputs["w"])
+        loaded = client.load_network(str(workdir / "net2.pkl"))
+        assert loaded["index"] == 1 and loaded["name"] == "net2", loaded
+        out["out_z2"] = client.synthesize(latents=inputs["z"], network="net2")
+        assert client.unload_network("net2")["drained"] is True
+    coordinator.shutdown()
+    assert not coordinator.failed.is_set(), "control channel failed"
+    return out
 
 
 def free_port() -> int:
