@@ -310,11 +310,34 @@ in order (any failure exits non-zero; no phase's failure is caught):
    children exit 0; frames within 1 step on 99.9% of one process over
    `[cuda:0]*4` at the same shapes; each child's launches as its mirrored
    dispatches' forwards.
+16. drives the debug visualisations with phase 3's networks and phase 8's
+   WAV. (a) Re-synthesis, on any host: a projection file in memory of 4
+   frames x 25 latent-history steps (rows-identical w+ from seeded z
+   through network 0's mapping, a seeded drift per step), fp32, standard
+   path: the reader-level generators of `visualize_projection_history`
+   (stride 1, 100 images, written under raw-spill and read back equal to
+   what the generator yielded), of `visualize_partial_projection_history`
+   at step 12, and `network_outputs_at_final_latents`; 8 latents per
+   forward, launches per forward as phase 3's; frame 0's first 8 steps,
+   the partial history and the finals within 1 uint8 step on 99.9% of
+   batch-1 synthesis; images/s at batch 8 and at batch 1. (b) Where
+   matplotlib imports (else a printed line says it is skipped; the card
+   machine has none): noise-blend with the debug video (fp32, 1024px, 24
+   frames, the 3D waterfall, side 400, window 100) and the flagship's
+   `_blend_from_reader` with it (bf16, 512px, the phase path, 9d's overlay
+   gates and a music mask, 24 frames, 6 tiles), each debug video holding
+   the hero video's frame count, its hero tile within 1 step of the hero
+   frame resized on the host, panels that change from frame to frame, and
+   synthesis panels equal to the visualizer drawn again from the recorded
+   FrameInputs; the final-latents triptych of (a)'s file; the quick look
+   (16 vectors, 2 batches, height 512) against `images_from_vectors`
+   resized. Frames/s beside phase 8b's and 9d's renders without the debug
+   video, and matplotlib's seconds per panel.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
 phases 10, 13, 14 and 15's; E's launches include the phase-path G steps'; A,
-B, C and E's include phases 8-15's, each child's included); the last line
+B, C and E's include phases 8-16's, each child's included); the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
@@ -393,6 +416,15 @@ DIST_BATCH = 4  # 14b: the global batch of the two ranks' train and projector st
 DIST_TRAIN = dict(r1_interval=2, pl_interval=2)  # 14b: step 0 with R1 and PL, step 1 plain
 DIST_TRAIN_STEPS = 2
 DIST_PROJECTION_STEPS = 5
+HISTORY_FRAMES = 4  # 16a: frames x latent-history steps (a projector's default is 1000 steps)
+HISTORY_STEPS = 25
+HISTORY_PARTIAL_STEP = 12
+DEBUG_FRAMES = 24  # 16b: frames of each debug render
+DEBUG_WINDOW = 100  # 16b: the CLIs' default debug window and side
+DEBUG_SIDE = 400
+MASK_WINDOW = 4  # 16b: the flagship's music-mask rolling-sum window
+QUICK_LOOK_VECTORS = 16  # 16b: two batches of 8
+QUICK_LOOK_HEIGHT = 512
 JAX_METRICS_KEYS = ["step", "ppl_w_full", "frechet_feature_distance", "num_samples",
                     "feature_dim", "eval_seconds"]
 RATES: Dict[str, dict] = {}  # 8b-8d and 9d's results, printed beside phase 11's
@@ -1620,26 +1652,32 @@ def pipeline_phase(config, workdir: Path, card: str) -> Dict[str, int]:
 
 
 class MemoryProjectionReader:
-    """The members of a ProjectionFileReader that the flagship reads
-    (`projection_attributes`, and fresh lazy iterators of `final_latents`,
-    `target_images` and `final_images` on every access), over arrays in
-    memory: the flagship's input on a host without h5py."""
+    """The members of a ProjectionFileReader that the flagship and the
+    projection visualizations read (`projection_attributes`, and fresh lazy
+    iterators of `final_latents`, `target_images`, `final_images` and, given
+    `histories` (frames, steps, R, V), `latents_histories` on every access),
+    over arrays in memory: their input on a host without h5py."""
 
-    def __init__(self, attributes, targets: np.ndarray, latents: np.ndarray) -> None:
+    def __init__(self, attributes, targets: np.ndarray, latents: np.ndarray,
+                 histories: Optional[np.ndarray] = None) -> None:
         self.projection_attributes = attributes
-        self._targets, self._latents = targets, latents
+        self.targets, self.latents, self.histories = targets, latents, histories  # arrays
+
+    @property
+    def latents_histories(self):
+        return (iter(history) for history in self.histories)
 
     @property
     def final_latents(self):
-        return (matrix[0] for matrix in self._latents)  # (1, R, V) -> (R, V)
+        return (matrix[0] for matrix in self.latents)  # (1, R, V) -> (R, V)
 
     @property
     def target_images(self):
-        return iter(self._targets)
+        return iter(self.targets)
 
     @property
     def final_images(self):
-        return iter(self._targets)
+        return iter(self.targets)
 
 
 def host_findings() -> Tuple[bool, bool]:
@@ -1673,13 +1711,10 @@ def smooth_frames(count: int, res: int, gen: torch.Generator) -> np.ndarray:
     return frames.cpu().numpy()
 
 
-def projection_source(config, workdir: Path, have_h5py: bool):
-    """9a: the flagship's projection file, as the projector writes one:
-    FLAGSHIP_PROJECTION_FRAMES seeded smooth targets at the network's size and
-    rows-identical w+ from seeded z through network 0's mapping. With h5py it
-    is written by the port's ProjectionFileWriter, timed, read back bit for bit
-    and verified; returns its path. Without h5py, an in-memory reader of the
-    same frames."""
+def flagship_memory_reader(config) -> MemoryProjectionReader:
+    """The flagship's projection file in memory: FLAGSHIP_PROJECTION_FRAMES
+    seeded smooth targets at the network's size and rows-identical w+ from
+    seeded z through network 0's mapping."""
     from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply
     from gance_tpu_torch.projection import LATEST_VERSION, ProjectionAttributes
     from gance_tpu_torch.synthesis.runtime import params_to_device
@@ -1702,15 +1737,26 @@ def projection_source(config, workdir: Path, have_h5py: bool):
         images_histories_enabled=False, original_fps=FLAGSHIP_PROJECTION_FPS,
         projection_fps=FLAGSHIP_PROJECTION_FPS, original_frame_count=count,
         projection_frame_count=count)
+    return MemoryProjectionReader(attributes, targets, latents)
+
+
+def projection_source(config, workdir: Path, have_h5py: bool):
+    """9a: the flagship's projection file, as the projector writes one
+    (`flagship_memory_reader`'s frames). With h5py it is written by the
+    port's ProjectionFileWriter, timed, read back bit for bit and verified;
+    returns its path. Without h5py, the in-memory reader."""
+    memory = flagship_memory_reader(config)
     if not have_h5py:
         print(f"flagship 9a: h5py is not importable here, so the projection file is not written; "
-              f"the render reads an in-memory reader of the same {count} frames "
+              f"the render reads an in-memory reader of the same {len(memory.targets)} frames "
               f"(the HDF5 route is held by the CPU tests)", flush=True)
-        return MemoryProjectionReader(attributes, targets, latents)
+        return memory
 
     from gance_tpu_torch.projection import (ProjectionFileWriter, load_projection_file,
                                             verify_projection_file_assumptions)
 
+    attributes, targets, latents = memory.projection_attributes, memory.targets, memory.latents
+    count, res = len(targets), config.resolution
     path = workdir / "projection.hdf5"
     start = time.perf_counter()
     with ProjectionFileWriter(path, attributes) as writer:
@@ -3137,7 +3183,7 @@ def serve_audio_phase(config, nets, daemon, ledger: ServedLaunches, workdir: Pat
     require_close_frames("12b plan-cache hit vs the miss", again, frames)
 
     source = projection_source(config, workdir, False)
-    latents = source._latents[:, 0]  # (60, R, 512), rows identical
+    latents = source.latents[:, 0]  # (60, R, 512), rows identical
     reg = client.register_projection(final_latents=latents,
                                      projection_fps=FLAGSHIP_PROJECTION_FPS, name="phase9")
     require(reg["frames"] == FLAGSHIP_PROJECTION_FRAMES and reg["rows"] == config.num_style_rows,
@@ -4758,6 +4804,393 @@ def tensor_parallel_phase(config, workdir: Path, card: str,
     return totals
 
 
+def history_reader(config) -> MemoryProjectionReader:
+    """16a: a projection file in memory with latent histories:
+    HISTORY_FRAMES seeded smooth targets at the network's size, each frame's
+    final w from seeded z through network 0's mapping and a history of
+    HISTORY_STEPS steps that drifts into it (step s lies a seeded step of
+    (steps - 1 - s) / (steps - 1) of w's scale away), rows identical."""
+    from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply
+    from gance_tpu_torch.projection import LATEST_VERSION, ProjectionAttributes
+    from gance_tpu_torch.synthesis.runtime import params_to_device
+
+    count, steps, res = HISTORY_FRAMES, HISTORY_STEPS, config.resolution
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    targets = smooth_frames(count, res, gen)
+    mapping = params_to_device({"mapping": smoke_params(SEED, config)["mapping"]},
+                               torch.device("cuda"))
+    z = torch.randn((count, config.latent_size), generator=gen, device="cuda")
+    with torch.inference_mode():
+        finals = mapping_apply(mapping, z, config)  # (count, D)
+        drift = torch.randn((count, steps, finals.shape[-1]), generator=gen, device="cuda")
+        weight = torch.linspace(1.0, 0.0, steps, device="cuda")[None, :, None]
+        walk = finals[:, None] + drift * weight * finals.std()
+        histories = broadcast_dlatents(walk.reshape(count * steps, -1), config)
+        latents = broadcast_dlatents(finals, config)[:, None]  # (count, 1, R, D)
+    attributes = ProjectionAttributes(
+        version_number=LATEST_VERSION, complete=True, original_target_path="targets.mp4",
+        original_width_height=(res, res), projection_width_height=(res, res),
+        target_md5_hash="0" * 32, original_network_path="0_net.pkl",
+        network_md5_hash="0" * 32, steps_in_projection=steps, noises_shapes=np.nan,
+        latents_histories_enabled=True, noises_histories_enabled=False,
+        images_histories_enabled=False, original_fps=PIPELINE_FPS, projection_fps=PIPELINE_FPS,
+        original_frame_count=count, projection_frame_count=count)
+    return MemoryProjectionReader(
+        attributes, targets, latents.cpu().numpy(),
+        histories.reshape(count, steps, *histories.shape[1:]).cpu().numpy())
+
+
+def batch_one_check(label: str, net, latents: List[np.ndarray], got: List[np.ndarray]) -> float:
+    """Each image of `got` (the batched re-synthesis of `latents`) within 1
+    uint8 step on at least 99.9% of values of `latents` synthesized one at a
+    time; returns the seconds of those batch-1 forwards (one warm-up first)."""
+    net.images_from_matrices(latents[0][None])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ones = [net.images_from_matrices(w[None])[0] for w in latents]
+    seconds = time.perf_counter() - start
+    shares = []
+    for i, (image, one) in enumerate(zip(got, ones)):
+        worst, share = share_within_one_step(image, one)
+        require(share >= 0.999, f"{label}[{i}] batch 8 vs batch 1: {share:.5f} of values within "
+                f"1 step (max {worst})")
+        shares.append((worst, share))
+    print(f"{label}: {len(got)} images batched vs batch 1: max {max(w for w, _ in shares)} "
+          f"steps, least share within 1 step {min(s for _, s in shares):.6f}", flush=True)
+    return seconds
+
+
+def resynthesis_phase(config, workdir: Path, card: str) -> Tuple[Dict[str, int], object]:
+    """16a: the re-synthesis of a projection file's latent histories and
+    final latents (projection/visualization.py's reader-level generators and
+    projection/file_reader.py's readers) over `history_reader`, fp32 on the
+    standard path, with network 0 of phase 3. Returns its launches and the
+    reader."""
+    from gance_tpu_torch.media.video import write_source_to_disk_forward
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.projection.file_reader import (RESYNTHESIS_BATCH, images_in_batches,
+                                                        network_outputs_at_final_latents)
+    from gance_tpu_torch.projection.visualization import (partial_projection_history_frames,
+                                                          projection_history_frames)
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    res = config.resolution
+    totals: Dict[str, int] = {}
+    set_phase("off")
+    reader = history_reader(config)
+    net = SynthesisNetwork.from_pkl(workdir / "0_net.pkl", compute_dtype=torch.float32,
+                                    device="cuda")
+    images = HISTORY_FRAMES * HISTORY_STEPS
+    out = workdir / "history.avi"
+    os.environ["GANCE_TPU_EGRESS"] = "raw-spill"
+    try:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        history = list(write_source_to_disk_forward(projection_history_frames(reader, net),
+                                                    out, PIPELINE_FPS))
+        history_s = time.perf_counter() - start
+    finally:
+        del os.environ["GANCE_TPU_EGRESS"]
+    for k, v in launches_per_forward("16a history (stride 1)", -(-images // RESYNTHESIS_BATCH),
+                                     config).items():
+        totals[k] = totals.get(k, 0) + v
+    reset_launch_counts()
+    partial = list(partial_projection_history_frames(reader, net, HISTORY_PARTIAL_STEP))
+    for k, v in launches_per_forward(f"16a partial history (step {HISTORY_PARTIAL_STEP})",
+                                     -(-HISTORY_FRAMES // RESYNTHESIS_BATCH), config).items():
+        totals[k] = totals.get(k, 0) + v
+    reset_launch_counts()
+    finals = list(network_outputs_at_final_latents(reader, net))
+    for k, v in launches_per_forward("16a final latents", -(-HISTORY_FRAMES // RESYNTHESIS_BATCH),
+                                     config).items():
+        totals[k] = totals.get(k, 0) + v
+
+    frames, compressed, _ = read_avi(out)
+    require(len(history) == len(frames) == images and not compressed,
+            f"16a history video: {len(frames)} frames ({compressed} compressed), "
+            f"{len(history)} yielded, {images} expected")
+    require(all(f.shape == (res, 2 * res, 3) and np.array_equal(f, h)
+                for f, h in zip(frames, history)),
+            "16a: the history video's frames are not the frames the generator yielded")
+    del frames
+    out.unlink()
+    targets = reader.targets
+    require(all(np.array_equal(h[:, :res], targets[i // HISTORY_STEPS])
+                for i, h in enumerate(history)), "16a: a history frame's target tile is not its "
+            "frame's target")
+    check_frames("16a history images", np.stack([h[:, res:] for h in history]), images, res)
+    check_frames("16a final-latent images", np.stack(finals), HISTORY_FRAMES, res)
+    histories = [list(h) for h in reader.latents_histories]
+    ones_s = batch_one_check("16a history, frame 0's first 8 steps", net, histories[0][:8],
+                             [h[:, res:] for h in history[:8]])
+    ones_s += batch_one_check(f"16a partial history at step {HISTORY_PARTIAL_STEP}", net,
+                              [h[HISTORY_PARTIAL_STEP] for h in histories],
+                              [p[:, res:] for p in partial])
+    ones_s += batch_one_check("16a final latents", net, list(reader.final_latents), finals)
+    ones = 8 + 2 * HISTORY_FRAMES
+    latents = [w for h in histories for w in h]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    batched = sum(1 for _ in images_in_batches(net, latents))
+    batched_s = time.perf_counter() - start
+    print(f"16a re-synthesis (fp32, {res}px, standard path, {HISTORY_FRAMES} frames x "
+          f"{HISTORY_STEPS} history steps): the history generator and its raw write "
+          f"{history_s:.3f} s for {images} frames ({images / history_s:.2f} frames/s); "
+          f"re-synthesis alone {batched / batched_s:.2f} images/s in batches of "
+          f"{RESYNTHESIS_BATCH} ({batched} images, {batched_s:.3f} s) and "
+          f"{ones / ones_s:.2f} images/s at batch 1 ({ones} images, {ones_s:.3f} s); "
+          f"on {card}", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return totals, reader
+
+
+class RecordingVisualizer:
+    """Stands in for viz/panels.py's `synthesis_visualizer` while installed:
+    each renderer it builds records, per frame, the FrameInput, the panel and
+    the seconds the panel took; `renderer` builds a fresh one of the last
+    call's arguments."""
+
+    def __init__(self) -> None:
+        from gance_tpu_torch.viz import panels
+
+        self.panels, self.original = panels, panels.synthesis_visualizer
+        self.frames: List[tuple] = []
+        self.arguments: tuple = ((), {})
+
+    def __enter__(self) -> "RecordingVisualizer":
+        def build(*args, **kwargs):
+            self.arguments = (args, kwargs)
+            render = self.original(*args, **kwargs)
+
+            def run(frame):
+                start = time.perf_counter()
+                panel = render(frame)
+                self.frames.append((frame, panel, time.perf_counter() - start))
+                return panel
+
+            return run
+
+        self.panels.synthesis_visualizer = build
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.panels.synthesis_visualizer = self.original
+
+    def renderer(self):
+        args, kwargs = self.arguments
+        return self.original(*args, **kwargs)
+
+    def seconds_per_panel(self) -> float:
+        return sum(s for _, _, s in self.frames) / max(len(self.frames), 1)
+
+
+def check_debug_video(label: str, hero_path: Path, debug_path: Path, tiles: int,
+                      recorder: RecordingVisualizer, synthesis_tile: int) -> int:
+    """A debug render's video against its hero video: as many frames, each
+    `tiles` DEBUG_SIDE squares; the first tile the hero frame resized on the
+    host (cv2 cubic) within 1 step on 99.9%; every panel tile changing from
+    frame to frame (the cursor moves); the synthesis tile the visualizer's
+    own panels, and four of them equal to the visualizer drawn again on the
+    host from the recorded FrameInputs. Returns the frame count."""
+    import cv2
+
+    hero, hero_compressed, _ = read_avi(hero_path)
+    debug, compressed, _ = read_avi(debug_path)
+    require(len(debug) == len(hero) == DEBUG_FRAMES and not compressed and not hero_compressed,
+            f"{label}: {len(debug)} debug frames for {len(hero)} hero frames")
+    require(all(f.shape == (DEBUG_SIDE, tiles * DEBUG_SIDE, 3) for f in debug),
+            f"{label}: debug frames {debug[0].shape}, want {tiles} tiles of {DEBUG_SIDE}")
+    resized = np.stack([cv2.resize(h, (DEBUG_SIDE, DEBUG_SIDE), interpolation=cv2.INTER_CUBIC)
+                        for h in hero])
+    require_close_frames(f"{label} hero tile vs the hero frame resized on the host",
+                         np.stack([f[:, :DEBUG_SIDE] for f in debug]), resized)
+
+    def tile(frame: np.ndarray, index: int) -> np.ndarray:
+        return frame[:, index * DEBUG_SIDE:(index + 1) * DEBUG_SIDE]
+
+    for index in range(synthesis_tile, tiles):
+        require(all(not np.array_equal(tile(a, index), tile(b, index))
+                    for a, b in zip(debug, debug[1:])),
+                f"{label}: panel tile {index} repeats a frame")
+    require(len(recorder.frames) == DEBUG_FRAMES and all(
+        np.array_equal(tile(f, synthesis_tile), panel)
+        for f, (_, panel, _) in zip(debug, recorder.frames)),
+        f"{label}: the synthesis tiles are not the visualizer's panels")
+    render = recorder.renderer()
+    for i in (0, DEBUG_FRAMES // 3, 2 * DEBUG_FRAMES // 3, DEBUG_FRAMES - 1):
+        require(np.array_equal(render(recorder.frames[i][0]), tile(debug[i], synthesis_tile)),
+                f"{label}: frame {i}'s synthesis tile differs from its panel drawn again")
+    return len(debug)
+
+
+def debug_phase(config, workdir: Path, card: str, reader) -> Dict[str, int]:
+    """16b: the debug videos of both pipelines, the final-latents triptych
+    and the quick look, where matplotlib imports."""
+    if importlib.util.find_spec("matplotlib") is None:
+        print("16b: matplotlib is not importable on this host: the debug videos, the "
+              "final-latents triptych and the quick look are not rendered here (the CPU tests "
+              "hold them against gance_tpu's)", flush=True)
+        return {}
+    import cv2
+
+    from gance_tpu_torch.audio.io import read_wavs_scale_for_video
+    from gance_tpu_torch.audio.reduction import music_complexity_mask
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.pipelines import projection_file_blend as pfb
+    from gance_tpu_torch.pipelines.noise_blend import noise_blend_api
+    from gance_tpu_torch.projection import final_latents_matrices_label
+    from gance_tpu_torch.projection.visualization import final_latents_frames
+    from gance_tpu_torch.synthesis.inputs import (alpha_blend_projection_file,
+                                                  alpha_blend_vectors_max_rms_power_audio)
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+    from gance_tpu_torch.types import VectorsLabel
+    from gance_tpu_torch.viz.one_shot import vectors_single_network_visualization
+
+    totals: Dict[str, int] = {}
+    paths = [workdir / f"{i}_net.pkl" for i in range(2)]
+    wav = workdir / "song.wav"
+    os.environ["GANCE_TPU_EGRESS"] = "raw-spill"
+    try:
+        # noise-blend, fp32, 1024px, the 3D waterfall
+        audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR,
+                                          frames_per_second=PIPELINE_FPS).wav_data
+        indices = alpha_blend_vectors_max_rms_power_audio(
+            PIPELINE_ALPHA, False, (-1.0, 1.0), audio, PIPELINE_VECTOR, [0, 1],
+            device="cuda").network_indices.result.data[:DEBUG_FRAMES]
+        hero, debug = workdir / "debug-hero.avi", workdir / "debug.avi"
+        set_phase("off")
+        with RecordingVisualizer() as recorder:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            noise_blend_api([wav], hero, paths, DEBUG_FRAMES, PIPELINE_FPS, config.resolution,
+                            debug, DEBUG_WINDOW, DEBUG_SIDE, PIPELINE_ALPHA, False, (-1.0, 1.0),
+                            compute_dtype="float32", debug_3d=True, device="cuda")
+            wall = time.perf_counter() - start
+        for k, v in launches_per_forward("16b noise-blend debug", len(stream_batches(indices)),
+                                         config).items():
+            totals[k] = totals.get(k, 0) + v
+        frames = check_debug_video("16b noise-blend debug", hero, debug, 2, recorder, 1)
+        plain = RATES.get("fp32-1024")
+        print(f"16b noise-blend with the debug video (fp32, {config.resolution}px, 3D waterfall, "
+              f"{frames} frames): wall {wall:.3f} s, {frames / wall:.2f} frames/s end to end; "
+              f"matplotlib {recorder.seconds_per_panel():.3f} s per synthesis panel; without the "
+              f"debug video (8b, {plain['frames'] if plain else '-'} frames) "
+              f"{plain['frames'] / plain['wall'] if plain else float('nan'):.2f} frames/s; "
+              f"on {card}", flush=True)
+
+        # the flagship, bf16, 512px, the phase path, overlay and music mask
+        source = flagship_memory_reader(config)
+        count = int(FLAGSHIP_FPS // FLAGSHIP_PROJECTION_FPS) * FLAGSHIP_PROJECTION_FRAMES
+        audio = read_wavs_scale_for_video([wav], PIPELINE_VECTOR,
+                                          target_num_vectors=count).wav_data
+        mask = music_complexity_mask(audio, PIPELINE_VECTOR, MASK_WINDOW, device="cuda")
+        threshold = float(np.nanmedian(mask.result.data))
+        indices = alpha_blend_projection_file(
+            final_latents_matrices_label(source), PIPELINE_ALPHA, False, (-1.0, 1.0),
+            FLAGSHIP_BLEND_DEPTH, audio, PIPELINE_VECTOR, [0, 1],
+            device="cuda").network_indices.result.data[:DEBUG_FRAMES]
+        overlay = FLAGSHIP_OVERLAY if host_findings()[1] else None
+        set_phase("on")
+        try:
+            with RecordingVisualizer() as recorder:
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                pfb._blend_from_reader(
+                    reader=source, wav=[wav], output_path=hero, network_paths=paths,
+                    frames_to_visualize=DEBUG_FRAMES, output_fps=FLAGSHIP_FPS,
+                    output_side_length=RESIZE_SIDE, alpha=PIPELINE_ALPHA, fft_roll_enabled=False,
+                    fft_amplitude_range=(-1.0, 1.0), blend_depth=FLAGSHIP_BLEND_DEPTH,
+                    compute_dtype="bfloat16",
+                    complexity_change_rolling_sum_window=MASK_WINDOW if overlay else None,
+                    complexity_change_threshold=threshold if overlay else None,
+                    overlay_gates=overlay, overlay_detection_side=None, overlay_smoothing=0,
+                    device="cuda", debug_path=debug, debug_window=DEBUG_WINDOW,
+                    debug_side_length=DEBUG_SIDE)
+                wall = time.perf_counter() - start
+        finally:
+            set_phase("off")
+        for k, v in launches_per_forward("16b flagship debug", len(stream_batches(indices)),
+                                         config, phase=True).items():
+            totals[k] = totals.get(k, 0) + v
+        tiles = 6 if overlay else 3
+        frames = check_debug_video("16b flagship debug", hero, debug, tiles, recorder,
+                                   tiles - 3 if overlay else 2)
+        plain = RATES.get("flagship-bf16-512-phase")
+        print(f"16b flagship with the debug video (bf16, {RESIZE_SIDE}px, phase path, overlay "
+              f"{'on, music mask on' if overlay else 'off (no cascades)'}, {tiles} tiles, "
+              f"{frames} frames): wall {wall:.3f} s, {frames / wall:.2f} frames/s end to end; "
+              f"matplotlib {recorder.seconds_per_panel():.3f} s per synthesis panel; without the "
+              f"debug video (9d, {plain['frames'] if plain else '-'} frames) "
+              f"{plain['frames'] / plain['wall'] if plain else float('nan'):.2f} frames/s; "
+              f"on {card}", flush=True)
+        hero.unlink()
+        debug.unlink()
+
+        # the final-latents triptych of 16a's file
+        start = time.perf_counter()
+        triptych = list(final_latents_frames(reader, DEBUG_SIDE))
+        triptych_s = time.perf_counter() - start
+        require(len(triptych) == HISTORY_FRAMES
+                and all(f.shape == (DEBUG_SIDE, 3 * DEBUG_SIDE, 3) for f in triptych),
+                f"16b triptych: {len(triptych)} frames of {triptych[0].shape}")
+        for frame, target in zip(triptych, reader.targets):
+            want = cv2.resize(target, (DEBUG_SIDE, DEBUG_SIDE))
+            require(np.array_equal(frame[:, DEBUG_SIDE:2 * DEBUG_SIDE], want)
+                    and np.array_equal(frame[:, 2 * DEBUG_SIDE:], want),
+                    "16b triptych: a target or final tile is not the file's image resized")
+            require(float(frame[:, :DEBUG_SIDE].std()) > 1.0, "16b triptych: a blank scatter")
+        print(f"16b final-latents triptych: {len(triptych)} frames in {triptych_s:.3f} s "
+              f"({triptych_s / len(triptych):.3f} s per frame)", flush=True)
+
+        # the quick look: two batches of 8 vectors
+        net = SynthesisNetwork.from_pkl(paths[0], compute_dtype=torch.float32, device="cuda")
+        vectors = np.random.RandomState(SEED + 161).randn(
+            QUICK_LOOK_VECTORS, config.latent_size).astype(np.float32)
+        out = workdir / "quick_look.avi"
+        reset_launch_counts()
+        start = time.perf_counter()
+        vectors_single_network_visualization(
+            VectorsLabel(data=vectors.reshape(-1), vector_length=config.latent_size,
+                         label="quick look"), out, net, video_height=QUICK_LOOK_HEIGHT,
+            video_fps=PIPELINE_FPS)
+        quick_s = time.perf_counter() - start
+        for k, v in launches_per_forward("16b quick look", -(-QUICK_LOOK_VECTORS // 8),
+                                         config).items():
+            totals[k] = totals.get(k, 0) + v
+        frames, compressed, _ = read_avi(out)
+        require(len(frames) == QUICK_LOOK_VECTORS and not compressed and all(
+            f.shape == (QUICK_LOOK_HEIGHT, 2 * QUICK_LOOK_HEIGHT, 3) for f in frames),
+            f"16b quick look: {len(frames)} frames of {frames[0].shape}")
+        direct = np.concatenate([net.images_from_vectors(vectors[i:i + 8])
+                                 for i in range(0, QUICK_LOOK_VECTORS, 8)])
+        want = np.stack([cv2.resize(d, (QUICK_LOOK_HEIGHT, QUICK_LOOK_HEIGHT),
+                                    interpolation=cv2.INTER_AREA) for d in direct])
+        require_close_frames("16b quick look's synthesis halves vs images_from_vectors resized",
+                             np.stack([f[:, QUICK_LOOK_HEIGHT:] for f in frames]), want)
+        print(f"16b quick look: {QUICK_LOOK_VECTORS} frames in {quick_s:.3f} s "
+              f"({QUICK_LOOK_VECTORS / quick_s:.2f} frames/s); on {card}", flush=True)
+        out.unlink()
+        del net
+    finally:
+        del os.environ["GANCE_TPU_EGRESS"]
+    torch.cuda.empty_cache()
+    return totals
+
+
+def visualization_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 16, with phase 3's networks and phase 8's WAV in `workdir`."""
+    start = time.perf_counter()
+    totals, reader = resynthesis_phase(config, workdir, card)
+    for k, v in debug_phase(config, workdir, card, reader).items():
+        totals[k] = totals.get(k, 0) + v
+    print(f"phase 16 took {time.perf_counter() - start:.1f} s; its launches {totals}", flush=True)
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -4810,9 +5243,11 @@ def main() -> None:
         metrics_totals = metrics_training_phase(config, Path(nets_dir), smi)
         multi_totals, reference = multi_device_phase(config, Path(nets_dir), smi)
         tp_totals = tensor_parallel_phase(config, Path(nets_dir), smi, reference)
+        viz_totals = visualization_phase(config, Path(nets_dir), smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
-                       resume_totals, serving_totals, metrics_totals, multi_totals, tp_totals):
+                       resume_totals, serving_totals, metrics_totals, multi_totals, tp_totals,
+                       viz_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

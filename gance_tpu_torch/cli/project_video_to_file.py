@@ -15,8 +15,12 @@ same commands and option names plus --device).
 `--dist-coordinator host:port --dist-num-processes P --dist-process-id i`
 joins P processes, which default to pure data parallelism over every
 process's devices, with only process 0 writing the projection file.
-`visualize-final-latents` waits for ROADMAP.md Queue 1 item 13 (viz) and
-raises a usage error naming it.
+
+    python -m gance_tpu_torch.cli.project_video_to_file visualize-final-latents \
+        --projection-file projection.hdf5 --output-path triptych.mp4
+
+renders the [final latents plot | target | final image] triptych of a file
+on the host (matplotlib; no network, no device).
 """
 
 from pathlib import Path
@@ -248,11 +252,15 @@ def visualize_final_latents_command(
     video_height: int,
     log: Optional[str],
 ) -> None:
-    """Render [latents plot | target | final image] triptych video from a file
-    (not ported yet: ROADMAP.md Queue 1 item 13, viz)."""
-    raise click.UsageError(
-        "visualize-final-latents is not ported yet: it needs the viz panels "
-        "(ROADMAP.md Queue 1 item 13, debug visualisation)"
+    """Render [latents plot | target | final image] triptych video from a file."""
+    add_log_file(Path(log) if log else None)
+    from gance_tpu_torch.projection.visualization import visualize_final_latents
+
+    visualize_final_latents(
+        projection_file_path=Path(projection_file),
+        output_video_path=Path(output_path),
+        audio_paths=[Path(p) for p in audio_path] or None,
+        video_height=video_height,
     )
 
 

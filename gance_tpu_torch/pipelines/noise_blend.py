@@ -16,19 +16,20 @@ parallelism over every process's devices: each process synthesizes its
 share of every batch, every process runs the same frame loop, and only
 process 0 writes (`media/video.py::write_source_to_disk_forward`).
 
-The debug visualization video (`debug_path`) is not ported yet and raises
-NotImplementedError naming its ROADMAP item.
+`debug_path` also writes the debug video: per frame the hero frame, resized
+to `debug_side_length`, beside the synthesis panel (`viz/panels.py`, which
+imports matplotlib: only a render with a debug path needs it).
 """
 
 import contextlib
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gance_tpu_torch.audio.io import read_wavs_scale_for_video
 from gance_tpu_torch.media.resume import durable_frames, file_identity, write_source_resumable
-from gance_tpu_torch.media.video import write_source_to_disk_forward
+from gance_tpu_torch.media.video import resize_source, write_source_to_disk_forward
 from gance_tpu_torch.ops.precision import deterministic_cudnn
 from gance_tpu_torch.synthesis.inputs import alpha_blend_vectors_max_rms_power_audio
 from gance_tpu_torch.synthesis.orchestration import resumed_synthesis, vector_synthesis
@@ -36,9 +37,6 @@ from gance_tpu_torch.synthesis.runtime import MultiNetwork
 from gance_tpu_torch.utils.device import Device, resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 from gance_tpu_torch.utils.profiling import timed_iterator, timed_stage, trace
-
-DEBUG_VIDEO_ITEM = "ROADMAP.md Queue 1 item 13 (debug visualisation, viz/)"
-
 
 def _compute_dtype(compute_dtype: Optional[str]):
     import torch
@@ -117,6 +115,26 @@ def _resolve_placement(
                                                              device)
 
 
+def write_debug_video(
+    tiles: Sequence[Optional[Iterator[np.ndarray]]],
+    debug_path: Path,
+    video_fps: float,
+    audio_paths: List[Path],
+) -> Iterator[np.ndarray]:
+    """The debug video: per frame, the frames of `tiles` side by side (a None
+    tile is left out), written to `debug_path` with the audio as the stream
+    is drawn; yields each frame as it is written."""
+    from gance_tpu_torch.media.images import horizontal_concat_images
+
+    return write_source_to_disk_forward(
+        source=(horizontal_concat_images(frames)
+                for frames in zip(*[tile for tile in tiles if tile is not None])),
+        video_path=Path(debug_path),
+        video_fps=video_fps,
+        audio_paths=audio_paths,
+    )
+
+
 def check_resumable(resumable: bool, debug_path: Optional[Path]) -> None:
     """A resumable render has no debug video, and runs in one process: under a
     torch.distributed group of several, every process would race the same
@@ -174,11 +192,14 @@ def noise_blend_api(
         synthesized again, and the output equals an unbroken run's (cuDNN's
         deterministic algorithms, `deterministic_cudnn`). Requires
         debug_path=None.
+    :param debug_path: also write the debug video here: per frame the hero
+        frame resized to `debug_side_length` beside the synthesis panel of
+        that side, with the 3D waterfall of the whole stream when `debug_3d`.
+        gance_tpu's noise-blend video has no windowed tile, so
+        `debug_window` is not read.
     """
-    del debug_window, debug_side_length, debug_3d  # the debug video only
+    del debug_window  # gance_tpu's noise-blend debug video reads no window either
     check_resumable(resumable, debug_path)
-    if debug_path is not None:
-        raise NotImplementedError(f"the debug video is not ported yet: {DEBUG_VIDEO_ITEM}")
     device = resolve_device(device)
     mesh, device_per_network, network_parallel = _resolve_placement(
         data_parallel, device_per_network, network_parallel, network_paths, device)
@@ -248,10 +269,19 @@ def noise_blend_api(
                     ) - start)
                 LOGGER.info("noise_blend complete: %s", output_path)
                 return
+            visualizer = None
+            if debug_path is not None:
+                from gance_tpu_torch.viz.panels import synthesis_visualizer
+
+                visualizer = synthesis_visualizer(
+                    side_length=debug_side_length,
+                    waterfall_vectors=viz_input.combined if debug_3d else None,
+                )
             synthesis_output = vector_synthesis(
                 networks=multi_networks,
                 data=viz_input,
                 frames_to_visualize=frames_to_visualize,
+                visualizer=visualizer,
             )
             hero_frames = timed_iterator(
                 "encode",
@@ -263,6 +293,12 @@ def noise_blend_api(
                     high_quality=True,
                 ),
             )
+            if debug_path is not None:
+                hero_frames = write_debug_video(
+                    [resize_source(hero_frames, (debug_side_length, debug_side_length)),
+                     synthesis_output.visualization_images],
+                    debug_path, output_fps, audio_paths,
+                )
             render.tick(sum(1 for _ in hero_frames))
 
     LOGGER.info("noise_blend complete: %s", output_path)

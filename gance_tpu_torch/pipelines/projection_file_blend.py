@@ -16,16 +16,18 @@ frame count.
 
 The placements (`data_parallel`, `device_per_network`, `network_parallel`,
 and pure data parallelism across processes) are noise_blend's
-`_resolve_placement`; only process 0 writes. The debug visualization video
-(`debug_path`) is not ported yet and raises NotImplementedError naming its
-ROADMAP item.
+`_resolve_placement`; only process 0 writes. `debug_path` also writes the
+debug video (`_debug_tiles`): the blended frame, the foreground, the file's
+final image, the synthesis panel, the overlay panel and the music-mask panel,
+each `debug_side_length` square (the panels import matplotlib: only a render
+with a debug path needs it).
 """
 
 import contextlib
 import json
 import os
 import time
-from itertools import islice
+from itertools import islice, tee
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
@@ -43,10 +45,10 @@ from gance_tpu_torch.ops.precision import deterministic_cudnn
 from gance_tpu_torch.overlay.common import write_boxes_onto_image
 from gance_tpu_torch.overlay.eye_tracking import compute_eye_tracking_overlay
 from gance_tpu_torch.pipelines.noise_blend import (
-    DEBUG_VIDEO_ITEM,
     _compute_dtype,
     _resolve_placement,
     check_resumable,
+    write_debug_video,
 )
 from gance_tpu_torch.projection.file_reader import (
     final_latents_matrices_label,
@@ -55,7 +57,7 @@ from gance_tpu_torch.projection.file_reader import (
 from gance_tpu_torch.synthesis.inputs import alpha_blend_projection_file
 from gance_tpu_torch.synthesis.orchestration import resumed_synthesis, vector_synthesis
 from gance_tpu_torch.synthesis.runtime import MultiNetwork
-from gance_tpu_torch.types import BoundingBox, underlying_length
+from gance_tpu_torch.types import BoundingBox, ResultLayers, underlying_length
 from gance_tpu_torch.utils.device import Device, resolve_device
 from gance_tpu_torch.utils.divisor import divide_no_remainder
 from gance_tpu_torch.utils.logging import LOGGER
@@ -109,11 +111,12 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
         killed run resumes from the durable frame count, replaying cached
         decisions instead of detecting again, and its output equals an
         unbroken run's. Requires debug_path=None.
+    :param debug_path: also write the debug video here (`_debug_tiles`),
+        each tile `debug_side_length` square, the overlay and music-mask
+        panels windowed by `debug_window` frames, and the synthesis panel
+        with the 3D waterfall of the whole stream when `debug_3d`.
     """
-    del debug_window, debug_side_length, debug_3d  # the debug video only
     check_resumable(resumable, debug_path)
-    if debug_path is not None:
-        raise NotImplementedError(f"the debug video is not ported yet: {DEBUG_VIDEO_ITEM}")
     overlay_enabled = all(p is not None for p in (phash_distance, bbox_distance, track_length))
     music_mask_enabled = all(
         p is not None
@@ -154,6 +157,10 @@ def projection_file_blend_api(  # pylint: disable=too-many-arguments,too-many-lo
             resume_chunk_frames=resume_chunk_frames,
             projection_file_path=Path(projection_file_path),
             placement=placement,
+            debug_path=debug_path,
+            debug_window=debug_window,
+            debug_side_length=debug_side_length,
+            debug_3d=debug_3d,
         )
     LOGGER.info("projection_file_blend complete: %s", output_path)
 
@@ -182,6 +189,10 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     resume_chunk_frames: int = 300,
     projection_file_path: Optional[Path] = None,
     placement: Tuple = (None, False, False),
+    debug_path: Optional[Path] = None,
+    debug_window: Optional[int] = None,
+    debug_side_length: Optional[int] = None,
+    debug_3d: bool = False,
 ) -> None:
     """
     The render over an open projection file. `reader` needs only
@@ -192,8 +203,10 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
     music-complexity mask on. `projection_file_path` enters a resumable
     render's fingerprint beside the file's target md5. `placement` is
     `_resolve_placement`'s (mesh, device_per_network, network_parallel).
+    `debug_*` are the API's; the in-memory reader also needs `final_images`
+    for the debug video.
     """
-    check_resumable(resumable, None)
+    check_resumable(resumable, debug_path)
     mesh, device_per_network, network_parallel = placement
     audio_paths = [Path(p) for p in wav]
     dtype = _compute_dtype(compute_dtype)
@@ -250,6 +263,9 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
         # "render": synthesis, the overlay and the write together, from the
         # first dispatch to the finished file
         with timed_stage("render") as render:
+            music_mask = _music_mask(time_series_audio_vectors, vector_length,
+                                     complexity_change_rolling_sum_window, device)
+            skip_mask = _skip_mask(music_mask, num_output_frames, complexity_change_threshold)
             if resumable:
                 phash_distance, bbox_distance, track_length = overlay_gates or (None,) * 3
                 fingerprint = {
@@ -289,14 +305,7 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
                         total=total,
                         start=start,
                         audio_paths=audio_paths,
-                        skip_mask=_skip_mask(
-                            time_series_audio_vectors,
-                            vector_length,
-                            num_output_frames,
-                            complexity_change_rolling_sum_window,
-                            complexity_change_threshold,
-                            device,
-                        ),
+                        skip_mask=skip_mask,
                         overlay_gates=overlay_gates,
                         overlay_detection_side=overlay_detection_side,
                         overlay_smoothing=overlay_smoothing,
@@ -306,10 +315,19 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
                     )
                 render.tick(frames - start)
                 return
+            visualizer = None
+            if debug_path is not None:
+                from gance_tpu_torch.viz.panels import synthesis_visualizer
+
+                visualizer = synthesis_visualizer(
+                    side_length=debug_side_length,
+                    waterfall_vectors=viz_input.combined if debug_3d else None,
+                )
             synthesis_output = vector_synthesis(
                 networks=multi_networks,
                 data=viz_input,
                 frames_to_visualize=frames_to_visualize,
+                visualizer=visualizer,
                 unload_networks_when_complete=True,
             )
             backgrounds = timed_iterator(
@@ -319,10 +337,11 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
                     output_side_length=output_side_length,
                 ),
             )
+            foregrounds = contexts = None
             if overlay_gates is None:
                 blended: Iterator[np.ndarray] = backgrounds
             else:
-                blended = _overlay(
+                blended, foregrounds, contexts = _overlay(
                     foregrounds=timed_iterator(
                         "target_read",
                         scale_square_source_duplicate(
@@ -333,17 +352,11 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
                     ),
                     backgrounds=backgrounds,
                     gates=overlay_gates,
-                    skip_mask=_skip_mask(
-                        time_series_audio_vectors,
-                        vector_length,
-                        num_output_frames,
-                        complexity_change_rolling_sum_window,
-                        complexity_change_threshold,
-                        device,
-                    ),
+                    skip_mask=skip_mask,
                     detection_side=overlay_detection_side,
                     smoothing=overlay_smoothing,
                     device=device,
+                    for_debug=debug_path is not None,
                 )
             written = timed_iterator(
                 "encode",
@@ -355,29 +368,106 @@ def _blend_from_reader(  # pylint: disable=too-many-arguments,too-many-locals
                     high_quality=True,
                 ),
             )
+            if debug_path is not None:
+                written = write_debug_video(
+                    _debug_tiles(
+                        written=written,
+                        foregrounds=foregrounds,
+                        final_images=reader.final_images,
+                        visualization_images=synthesis_output.visualization_images,
+                        contexts=contexts,
+                        music_mask=music_mask,
+                        overlay_gates=overlay_gates,
+                        complexity_change_threshold=complexity_change_threshold,
+                        frame_multiplier=frame_multiplier,
+                        debug_window=debug_window,
+                        debug_side_length=debug_side_length,
+                    ),
+                    debug_path, output_fps, audio_paths,
+                )
             render.tick(sum(1 for _ in written))
 
 
-def _skip_mask(
+def _debug_tiles(  # pylint: disable=too-many-arguments
+    *,
+    written: Iterator[np.ndarray],
+    foregrounds: Optional[Iterator[np.ndarray]],
+    final_images: Iterator[np.ndarray],
+    visualization_images: Iterator[np.ndarray],
+    contexts,
+    music_mask: Optional[ResultLayers],
+    overlay_gates: Optional[Tuple[int, float, int]],
+    complexity_change_threshold: Optional[float],
+    frame_multiplier: int,
+    debug_window: int,
+    debug_side_length: int,
+) -> List[Optional[Iterator[np.ndarray]]]:
+    """The flagship's debug tiles, gance_tpu's six in its order: the blended
+    frame as written, the foreground and the overlay panel (with the
+    overlay), the file's final image at the output's frame rate, the
+    synthesis panel, and the music-mask panel (with the mask). Each frame
+    is `debug_side_length` square."""
+    from gance_tpu_torch.viz.overlay_viz import (
+        VisualizeOverlayThresholds,
+        visualize_overlay_computation,
+    )
+    from gance_tpu_torch.viz.reduction_viz import visualize_result_layers
+
+    def scaled(source, frame_multiplier: int = 1):
+        return scale_square_source_duplicate(
+            source=source, output_side_length=debug_side_length,
+            frame_multiplier=frame_multiplier,
+        )
+
+    return [
+        scaled(written),
+        scaled(foregrounds) if foregrounds is not None else None,
+        scaled(final_images, frame_multiplier),
+        visualization_images,
+        visualize_overlay_computation(
+            overlay=contexts,
+            frames_per_context=debug_window,
+            video_square_side_length=debug_side_length,
+            horizontal_lines=VisualizeOverlayThresholds(
+                phash_line=overlay_gates[0], bbox_distance_line=overlay_gates[1]
+            ),
+        ) if overlay_gates is not None else None,
+        visualize_result_layers(
+            result_layers=music_mask,
+            frames_per_context=debug_window,
+            video_height=debug_side_length,
+            title="Overlay binary mask",
+            horizontal_line=complexity_change_threshold,
+        ) if music_mask is not None else None,
+    ]
+
+
+def _music_mask(
     time_series_audio_vectors: np.ndarray,
     vector_length: int,
-    num_output_frames: int,
     rolling_sum_window: Optional[int],
-    threshold: Optional[float],
     device: Device,
-) -> List[bool]:
-    """Frames on which the overlay is skipped: where the music's complexity
-    changes faster than `threshold` (NaN, the rolling sum's warm-up, counts
-    as infinitely fast); none without a rolling-sum window."""
+) -> Optional[ResultLayers]:
+    """The music-complexity mask, or None without a rolling-sum window."""
     if rolling_sum_window is None:
-        return [False] * num_output_frames
-    mask = vector_reduction.music_complexity_mask(
+        return None
+    return vector_reduction.music_complexity_mask(
         time_series_audio_vectors=time_series_audio_vectors,
         vector_length=vector_length,
         rolling_sum_window=rolling_sum_window,
         device=device,
     )
-    mask_data = np.asarray(mask.result.data, dtype=float)
+
+
+def _skip_mask(
+    music_mask: Optional[ResultLayers], num_output_frames: int, threshold: Optional[float]
+) -> List[bool]:
+    """Frames on which the overlay is skipped: where the music's complexity
+    changes faster than `threshold` (NaN, the rolling sum's warm-up, counts
+    as infinitely fast); none without a mask."""
+    if music_mask is None:
+        return [False] * num_output_frames
+    mask_data = np.asarray(music_mask.result.data, dtype=float)
     mask_data = np.where(np.isnan(mask_data), np.inf, mask_data)
     return list(mask_data > threshold)
 
@@ -390,11 +480,14 @@ def _overlay(
     detection_side: Optional[int],
     smoothing: int,
     device: Device,
-) -> Iterator[np.ndarray]:
+    for_debug: bool = False,
+) -> Tuple[Iterator[np.ndarray], Optional[Iterator[np.ndarray]], Optional[Iterator]]:
     """The eye-tracked composite. Both streams are disk-teed (NPY): detection
     reads them here, and every decision is materialized (the track-length
     filter needs them all) before the returned stream replays the copies to
-    composite."""
+    composite. Returns (composited frames, foregrounds, overlay contexts);
+    the last two only `for_debug` (the debug video's tiles, drawn in step
+    with the composite), else None, and detection keeps no contexts."""
     phash_distance, bbox_distance, track_length = gates
     foreground_copies = iterator_on_disk(iterator=foregrounds, copies=1, serializer=NPY_SERIALIZER)
     background_copies = iterator_on_disk(iterator=backgrounds, copies=1, serializer=NPY_SERIALIZER)
@@ -406,7 +499,7 @@ def _overlay(
         skip_mask=skip_mask,
         detection_side=detection_side,
         temporal_smoothing=smoothing,
-        want_contexts=False,
+        want_contexts=for_debug,
         device=device,
     )
     LOGGER.info("Starting to compute mask to filter out short sequences of overlay frames.")
@@ -418,12 +511,12 @@ def _overlay(
         track_length=track_length,
     )
 
-    def compose() -> Iterator[np.ndarray]:
+    def compose() -> Iterator:
         try:
             for bounding_boxes, foreground, background, in_long_track in zip(
                 boxes_list, foreground_copies[1], background_copies[1], long_tracks_mask
             ):
-                yield (
+                blended = (
                     write_boxes_onto_image(
                         foreground_image=foreground,
                         background_image=background,
@@ -432,11 +525,16 @@ def _overlay(
                     if in_long_track
                     else background
                 )
+                yield (blended, foreground) if for_debug else blended
         finally:  # zip stops short of the copies' ends: close them, so the tees clean up
             for stream in foreground_copies + background_copies:
                 stream.close()
 
-    return compose()
+    if not for_debug:
+        return compose(), None, None
+    pairs, foreground_pairs = tee(compose())
+    return ((pair[0] for pair in pairs), (pair[1] for pair in foreground_pairs),
+            overlay_results.contexts)
 
 
 def _overlay_decisions_path(output_path: Path) -> Path:

@@ -11,11 +11,17 @@ Reference-layout compat: the reference writer stores flattened noises under
 `images_histories` and images under `noises_histories`. The reader detects
 that layout by payload shape (images are 3-D uint8, flattened noises 1-D
 float) and unswaps on read, so files of either writer read back alike.
+
+Re-synthesis (`network_outputs_at_final_latents`,
+`network_outputs_at_projection_step`) runs RESYNTHESIS_BATCH latents per
+forward, where gance_tpu runs one: the same images up to the order of the
+convolutions' sums.
 """
 
 from contextlib import contextmanager
+from itertools import islice
 from pathlib import Path
-from typing import TYPE_CHECKING, Iterator, Optional
+from typing import TYPE_CHECKING, Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -34,6 +40,8 @@ from gance_tpu_torch.utils.logging import LOGGER
 
 if TYPE_CHECKING:
     import h5py
+
+RESYNTHESIS_BATCH = 8  # latents per forward when re-synthesizing a file's latents
 
 
 def _sorted_items(group: "h5py.Group", h5_type) -> Iterator:
@@ -232,4 +240,60 @@ def final_latents_matrices_label(reader: ProjectionFileReader) -> MatricesLabel:
             f"{Path(attrs.original_target_path).name} "
             f"proj by {Path(attrs.original_network_path).name}"
         ),
+    )
+
+
+def images_in_batches(
+    network: "object", matrices: Iterable[np.ndarray], batch_size: int = RESYNTHESIS_BATCH
+) -> Iterator[np.ndarray]:
+    """
+    Each (R, V) w+ of `matrices` synthesized through `network`, in order,
+    `batch_size` per forward (the last batch takes what is left). Pulls at
+    most one batch ahead of what it has yielded.
+    :param network: a gance_tpu_torch.synthesis.runtime.SynthesisNetwork-like object.
+    """
+    matrices = iter(matrices)
+    while True:
+        batch = list(islice(matrices, batch_size))
+        if not batch:
+            return
+        yield from network.images_from_matrices(np.stack(batch))
+
+
+def network_outputs_at_final_latents(
+    reader: ProjectionFileReader, network: "object"
+) -> Iterator[np.ndarray]:
+    """
+    Re-synthesize every frame's final latents through a loaded network
+    (reference :400-417): the fidelity check that stored final images match
+    re-synthesis.
+    """
+    return images_in_batches(network, reader.final_latents)
+
+
+def _latents_at_step(reader: ProjectionFileReader, step: int) -> Iterator[np.ndarray]:
+    for history in reader.latents_histories:
+        # islice, not list(): materializing all (typically 1000) gzip-9 step
+        # datasets to index one decodes orders of magnitude more than needed.
+        at = next(islice(history, step, step + 1), None)
+        if at is None:
+            raise ValueError(f"History has no step {step}")
+        yield at
+
+
+def network_outputs_at_projection_step(
+    reader: ProjectionFileReader, network: "object", step: int
+) -> Iterator[np.ndarray]:
+    """Re-synthesize every frame's latents at one history step (reference :347-371)."""
+    return images_in_batches(network, _latents_at_step(reader, step))
+
+
+def projection_history_step_matrices_label(
+    reader: ProjectionFileReader, step: int
+) -> MatricesLabel:
+    """Latents at a fixed history step across all frames (reference :322)."""
+    attrs = reader.projection_attributes
+    return _iterator_to_matrices_label(
+        _latents_at_step(reader, step),
+        label=f"{Path(attrs.original_target_path).name} history step {step}",
     )

@@ -199,17 +199,23 @@ def test_cli_noise_blend_writes_video_with_audio(tmp_path, assets, no_encoders):
 def test_cli_deferred_options_raise(tmp_path, assets, option, no_encoders):
     """Of the options once deferred, a partial --dist-* triple is JAX's usage
     error, and --data-parallel (one CPU slot: it degrades with JAX's
-    warning) and --one-network-per-device render; the debug video still
-    raises, naming its item."""
+    warning), --one-network-per-device and --debug-path render; the debug
+    video has the hero video's frames, each [hero | synthesis panel] at
+    --debug-side-length."""
     paths, wav = assets
     out = tmp_path / "x.avi"
+    if option[0] == "--debug-path":
+        option = [option[0], str(tmp_path / option[1]), "--debug-side-length", "48"]
     result = CliRunner().invoke(cli, [
         "noise-blend", "--wav", str(wav), "--output-path", str(out),
         "--network-path", str(paths[0]), "--device", "cpu", "--frames-to-visualize", "4",
         "--output-side-length", "16", *option])
     if option[0] == "--debug-path":
-        assert isinstance(result.exception, NotImplementedError), result.output
-        assert "ROADMAP.md Queue 1 item" in str(result.exception)
+        assert result.exit_code == 0, result.output + repr(result.exception)
+        assert read_avi(out)[0].shape == (4, 16, 16, 3)
+        debug, audio, _ = read_avi(option[1])
+        assert debug.shape == (4, 48, 2 * 48, 3)
+        np.testing.assert_array_equal(audio, wavfile.read(str(wav))[1])
     elif option[0] == "--dist-coordinator":
         assert result.exit_code == 2 and "must be given together" in result.output
     else:
@@ -231,8 +237,20 @@ def assert_most_within_one_step(got: np.ndarray, want: np.ndarray) -> None:
 ])
 def test_deferred_options_raise(tmp_path, assets, kwargs, item, rendered, monkeypatch):
     """The placements (item 12, part 1) render over two CPU slots the frames
-    of the default placement; the debug video still raises."""
+    of the default placement; the debug video (item 13) renders the hero
+    video's frames beside their synthesis panels, and a resumable render
+    still refuses it."""
     paths, wav = assets
+    if item == "item 13":
+        hide_encoders(monkeypatch)
+        render(paths, wav, tmp_path / "x.avi", debug_path=tmp_path / kwargs["debug_path"],
+               debug_side_length=32)
+        hero = read_avi(tmp_path / "x.avi")[0]
+        assert_most_within_one_step(hero, rendered["frames"])
+        debug = read_avi(tmp_path / "d.avi")[0]
+        assert debug.shape == (len(hero), 32, 64, 3)
+        assert any(not np.array_equal(a[:, 32:], b[:, 32:]) for a, b in zip(debug, debug[1:]))
+        return
     if item != "item 12":
         with pytest.raises((NotImplementedError, ValueError), match=item):
             render(paths, wav, tmp_path / "x.avi", **kwargs)
@@ -510,8 +528,20 @@ def test_flagship_music_mask_without_overlay_raises_as_jax_does(tmp_path, flagsh
 ])
 def test_flagship_deferred_options_raise(tmp_path, flagship_assets, kwargs, item, monkeypatch):
     """The flagship's placements (item 12, part 1) render over two CPU slots
-    the frames of the default placement; the debug video still raises."""
+    the frames of the default placement; the debug video (item 13) renders
+    the hero video's frames as [blended | final image | synthesis panel]
+    without the overlay, and a resumable render still refuses it."""
     a = flagship_assets
+    if item == "item 13":
+        hero, _ = port_flagship(a, a["percussive"], tmp_path / "x.avi", frames_to_visualize=8,
+                                debug_path=tmp_path / kwargs["debug_path"], debug_window=10,
+                                debug_side_length=32)
+        with pytest.MonkeyPatch.context() as patch:
+            hide_encoders(patch)
+            debug = read_avi(tmp_path / "d.avi")[0]
+        assert hero.shape == (8, FLAGSHIP_SIDE, FLAGSHIP_SIDE, 3)
+        assert debug.shape == (8, 32, 3 * 32, 3)
+        return
     if item != "item 12":
         with pytest.raises((NotImplementedError, ValueError), match=item):
             port_flagship(a, a["percussive"], tmp_path / "x.avi", **kwargs)

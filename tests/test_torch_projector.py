@@ -690,25 +690,46 @@ def test_cli_videos_and_directory_with_vgg_weights(network_and_video, monkeypatc
     (None, "item 13"),
 ])
 def test_cli_unported_modes_raise_usage_errors(network_and_video, extra, item, monkeypatch):
-    """`visualize-final-latents` still raises a usage error naming its item.
-    The multi-device options (item 12, part 1) work now and keep JAX's
-    errors: --data-parallel 2 over one CPU slot is JAX's ValueError (not
-    divisible) and projects over two; a partial --dist-* triple is JAX's
-    usage error."""
+    """The modes once unported work now. `visualize-final-latents` (item 13)
+    writes the triptych video, a frame per projected frame. The
+    multi-device options (item 12, part 1) keep JAX's errors: --data-parallel
+    2 over one CPU slot is JAX's ValueError (not divisible) and projects over
+    two; a partial --dist-* triple is JAX's usage error."""
     from click.testing import CliRunner
 
     from gance_tpu_torch.cli.project_video_to_file import cli
+    from tests.test_torch_media import read_avi
 
     d, _, pkl, video = network_and_video
     if extra is None:
-        args = ["visualize-final-latents", "--projection-file", str(video), "--output-path",
-                str(d / "viz.mp4")]
-    else:
-        args = ["videos", "--path-to-network", str(pkl), "--device", "cpu", *extra,
-                "--steps-per-projection", "2", "--num-frames-to-project", "2",
-                "--video-output", str(video), str(d / "never.hdf5")]
+        projection = d / "triptych.hdf5"
+        attrs = port_writer.ProjectionAttributes(
+            version_number=port_writer.LATEST_VERSION, complete=True,
+            original_target_path=str(video), original_width_height=(16, 16),
+            projection_width_height=(16, 16), target_md5_hash="0" * 32,
+            original_network_path=str(pkl), network_md5_hash="0" * 32, steps_in_projection=1,
+            noises_shapes=np.nan, latents_histories_enabled=False,
+            noises_histories_enabled=False, images_histories_enabled=False, original_fps=30.0,
+            projection_fps=30.0, original_frame_count=3, projection_frame_count=3)
+        rng = np.random.RandomState(44)
+        with port_writer.ProjectionFileWriter(projection, attrs) as writer:
+            for _ in range(3):
+                target = (rng.rand(16, 16, 3) * 255).astype(np.uint8)
+                with writer.frame_writer() as frame:
+                    frame.finish(target, np.tile(rng.randn(16).astype(np.float32), (1, 6, 1)),
+                                 target)
+        monkeypatch.setenv("GANCE_TPU_EGRESS", "raw-spill")
+        result = CliRunner().invoke(cli, [
+            "visualize-final-latents", "--projection-file", str(projection), "--output-path",
+            str(d / "viz.avi"), "--video-height", "40"])
+        assert result.exit_code == 0, result.output + repr(result.exception)
+        assert read_avi(d / "viz.avi")[0].shape == (3, 40, 3 * 40, 3)
+        return
+    args = ["videos", "--path-to-network", str(pkl), "--device", "cpu", *extra,
+            "--steps-per-projection", "2", "--num-frames-to-project", "2",
+            "--video-output", str(video), str(d / "never.hdf5")]
     result = CliRunner().invoke(cli, args)
-    if extra is not None and extra[0] == "--data-parallel":
+    if extra[0] == "--data-parallel":
         assert isinstance(result.exception, ValueError), result.output
         assert "not divisible by dp=2" in str(result.exception)
         assert not (d / "never.hdf5").exists()
@@ -719,5 +740,5 @@ def test_cli_unported_modes_raise_usage_errors(network_and_video, extra, item, m
         (d / "never.hdf5").unlink()
         return
     assert result.exit_code == 2, result.output
-    assert ("must be given together" if extra else item) in result.output
+    assert "must be given together" in result.output
     assert not (d / "never.hdf5").exists()

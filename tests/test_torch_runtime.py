@@ -282,9 +282,11 @@ def test_port_imports_neither_jax_nor_gance_tpu():
 
 
 def test_card_path_imports_no_host_only_package():
-    """cv2, click, PIL, h5py and more_itertools are host-only packages that a
-    GPU machine may lack: the modules on the GPU path (and chip_smoke) must
-    import without them."""
+    """cv2, click, PIL, h5py, more_itertools and matplotlib are host-only
+    packages that a GPU machine may lack (the chip machine has neither h5py
+    nor matplotlib): the modules on the GPU path (and chip_smoke) must import
+    without them. matplotlib comes in only with a debug output, through
+    gance_tpu_torch.viz."""
     modules = ["gance_tpu_torch.pipelines.noise_blend", "gance_tpu_torch.media.video",
                "gance_tpu_torch.media", "gance_tpu_torch.media.native", "gance_tpu_torch.audio",
                "gance_tpu_torch.synthesis.inputs", "gance_tpu_torch.synthesis.orchestration",
@@ -300,12 +302,13 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.serving.daemon", "gance_tpu_torch.serving.audio",
                "gance_tpu_torch.metrics", "gance_tpu_torch.metrics.frechet",
                "gance_tpu_torch.metrics.ppl", "gance_tpu_torch.metrics.training_eval",
-               "chip_smoke"]
+               "gance_tpu_torch.projection.visualization", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('cv2', 'click', 'PIL', 'h5py', 'more_itertools', 'jax', 'jaxlib', 'gance_tpu'))\n"
+        "('cv2', 'click', 'PIL', 'h5py', 'more_itertools', 'matplotlib', 'mpl_toolkits', "
+        "'jax', 'jaxlib', 'gance_tpu'))\n"
         "assert not bad, bad\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
