@@ -23,7 +23,11 @@ in order (any failure exits non-zero; no phase's failure is caught):
    its twin the dense fold (1024 terms), summed in another order: fp32 at
    most 1e-4 of the output's scale, bf16 at most 1e-2 (z and the output
    round to bf16). B is also checked at the non-symmetric FIR (1, 2, 3, 4).
-   E's bound counts the products its folded weights need (36 of the 64
+   An fp32 `Conv0_up` hands C the transposed conv's four output phases (C's
+   second entry point, `blur4_separable_pad11_phases`): C's fp32 row is that
+   form at the path's shapes, with C's limits and no library call (no one
+   PyTorch call blurs the phases where they lie); its bf16 row is the
+   one-tensor form, the one bf16 runs. E's bound counts the products its folded weights need (36 of the 64
    blocks of the dense folded contraction are non-zero); the dense bound is
    printed beside it.
    D is held at the training path's shapes at batch 4 (every blur of one
@@ -205,9 +209,10 @@ in order (any failure exits non-zero; no phase's failure is caught):
    /healthz lists both;
    /synthesize from seeds, from dlatents and on network 1 by name, each
    within 1 uint8 step on at least 99.9% of pixels of
-   `images_from_vectors` / `_matrices` run directly on the same rows (fp32
-   cuDNN does not repeat itself bit for bit); 8 concurrent clients of 3-5
-   rows: fewer batches than requests, each client's rows back in order; a
+   `images_from_vectors` / `_matrices` run directly on the same rows (the
+   daemon's batches have other shapes, and cuDNN rounds by shape); 8
+   concurrent clients of 3-5 rows: fewer batches than requests, each
+   client's rows back in order; a
    png, a png-zip and (GANCE_TPU_EGRESS=raw-spill) an avi request decoded
    back within the same bound; /metrics parses. (b) /synthesize_audio over
    the 4 s WAV with both networks: the plan's indices equal the offline
@@ -333,6 +338,14 @@ in order (any failure exits non-zero; no phase's failure is caught):
    (16 vectors, 2 batches, height 512) against `images_from_vectors`
    resized. Frames/s beside phase 8b's and 9d's renders without the debug
    video, and matplotlib's seconds per panel.
+17. checks that fp32 synthesis repeats itself, with phase 3's network 0:
+   three renders of one batch of 8 at 1024px under cuDNN's default
+   algorithms give uint8 frames equal bit for bit, on the standard path and
+   on the phase path, launches 17 / 8 / 8 and 15 / 7 / 7 / 1 per forward
+   (each `Conv0_up` runs as stride-1 phase convolutions, ops/upfirdn2d.py);
+   then prints ms per batch under the default algorithms and under
+   `deterministic_cudnn`, timed in the order default, deterministic,
+   deterministic, default.
 
 The line before the last is the kernels' JSON record (A-E; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
@@ -558,6 +571,9 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
             # junk columns past an odd w_logical, filled with NaN: never read
             b, c, h, _ = shapes[-1][0]
             cases.append(((b, c, h, h + 15), 0, h, 0))
+            # an fp32 Conv0_up hands C the transposed conv's four phases: the
+            # path's fp32 launches; the one-tensor form's are bf16's
+            cases += [(s, n, "phases", 0) for s, n in shapes]
         if name == "upsample2x_blur":
             cases.append((shapes[-1][0], 0, TAPS_1234, 0))  # a FIR that is not symmetric
             cases.append((shapes[-1][0], 0, TAPS, 1))  # a misaligned base: B's scalar path
@@ -565,8 +581,14 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                 for d in ("float32", "bfloat16")}
         totals = sums["float32"]
         max_err, bound_by = 0.0, "bytes"
-        for shape, per_forward, option, offset in cases:
+        for shape, case_per_forward, option, offset in cases:
             for dtype in (torch.float32, torch.bfloat16):
+                per_forward = case_per_forward
+                if name == "blur4_separable_pad11" and dtype == torch.float32:
+                    if option is None:
+                        per_forward = 0  # fp32 takes the phase-plane form
+                elif option == "phases":
+                    continue  # fp32 only
                 if offset:
                     count = math.prod(shape)
                     x = randn((count + 16,), dtype)[offset:offset + count].view(shape)
@@ -627,6 +649,17 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                     note = (f" (dense folded contraction: bound_ms "
                             f"{bound_ms(moved, dense, flops_per_s)[0]:.4f}, information only)")
                     tolerance = dict(fp32_rel=1e-4, bf16_rel=1e-2)
+                elif option == "phases":
+                    half = (h - 1) // 2
+                    phases = [randn((b, c, half + 1 - i, half + 1 - j), dtype)
+                              for i in (0, 1) for j in (0, 1)]
+                    run = lambda: K.blur4_separable_pad11_phases(phases, TAPS)  # noqa: E731
+                    plain = lambda: K.blur4_separable_pad11_phases_plain(phases, TAPS)  # noqa: E731
+                    outs = b * c * (h - 1) * (h - 1)
+                    moved = (sum(p.numel() for p in phases) + outs) * size
+                    flops = 16 * outs
+                    # no one PyTorch call blurs the phases where they lie: the
+                    # one-tensor form's depthwise conv2d is its library call
                 else:
                     w_logical = option
                     wl = w if w_logical is None else w_logical
@@ -641,6 +674,8 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                 label = f"{name} {tuple(shape)} {str(dtype)[6:]}"
                 if name == "fused_bias_noise_lrelu" and option:
                     label += f" noise {tuple(noise.shape)}"
+                elif option == "phases":
+                    label = (f"{name} phase planes of {tuple(shape)} {str(dtype)[6:]}")
                 elif option is not None and name == "blur4_separable_pad11":
                     label += f" w_logical={option}"
                 elif name == "upsample2x_blur" and option != TAPS:
@@ -685,7 +720,9 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
             "plain_ms": totals["plain_ms"],
             "bound_ms": totals["bound_ms"],
             "bound_by": bound_by,
-            "library_ms": None if name == "fused_bias_noise_lrelu" else totals["library_ms"],
+            # A has no library call, nor C's fp32 path form (the phase planes)
+            "library_ms": (None if name in ("fused_bias_noise_lrelu", "blur4_separable_pad11")
+                           else totals["library_ms"]),
         })
     records.append(stencil_phase(config, randn))
     torch.cuda.empty_cache()
@@ -5191,6 +5228,58 @@ def visualization_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+def determinism_phase(config, workdir: Path, card: str) -> Dict[str, int]:
+    """Phase 17, with phase 3's network 0: three renders of one fp32 batch of 8
+    at 1024px under cuDNN's default algorithms equal bit for bit, on the
+    standard path and on the phase path (each `Conv0_up` runs as stride-1
+    phase convolutions, whose forward algorithms add no atomics); then ms
+    per batch under the default algorithms and under `deterministic_cudnn`,
+    in the order default, deterministic, deterministic, default."""
+    from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
+    from gance_tpu_torch.ops.precision import deterministic_cudnn
+    from gance_tpu_torch.synthesis.runtime import SynthesisNetwork
+
+    start = time.perf_counter()
+    require(not torch.backends.cudnn.deterministic, "17: cuDNN's deterministic flag is set")
+    net = SynthesisNetwork.from_pkl(workdir / "0_net.pkl", compute_dtype=torch.float32,
+                                    device="cuda")
+    z = np.random.RandomState(SEED + 170).standard_normal(
+        (BATCH, config.latent_size)).astype(np.float32)
+    modes = {"default": contextlib.nullcontext, "deterministic": deterministic_cudnn}
+    totals: Dict[str, int] = {}
+    for phase in (False, True):
+        path = "phase" if phase else "standard"
+        set_phase("on" if phase else "off")
+        reset_launch_counts()
+        renders = [net.images_from_vectors(z) for _ in range(3)]
+        for k, v in launches_per_forward(f"17 {path} path renders", 3, config,
+                                         phase=phase).items():
+            totals[k] = totals.get(k, 0) + v
+        check_frames(f"17 {path} path", renders[0], BATCH, config.resolution)
+        for i, frames in enumerate(renders[1:], 2):
+            steps = np.abs(frames.astype(int) - renders[0].astype(int))
+            require(not steps.any(), f"17 {path} path: render {i} differs from render 1 at "
+                    f"{int(np.count_nonzero(steps))} values, max {int(steps.max())} steps")
+        print(f"17 {path} path: three fp32 batches of {BATCH} at {config.resolution}px under "
+              f"cuDNN's default algorithms equal bit for bit", flush=True)
+        times: Dict[str, List[float]] = {name: [] for name in modes}
+        for name in ("default", "deterministic", "deterministic", "default"):
+            with modes[name]():
+                times[name].append(time_ms(lambda: net.device_images_from_vectors(z), 1000.0))
+        reset_launch_counts()  # the timed batches are not the path's run
+        mean = {name: sum(t) / len(t) for name, t in times.items()}
+        print(f"17 {path} path fp32 batch {BATCH} at {config.resolution}px, ms per batch "
+              f"(CUDA events): default {[round(t, 3) for t in times['default']]}, "
+              f"deterministic_cudnn {[round(t, 3) for t in times['deterministic']]}; "
+              f"deterministic / default {mean['deterministic'] / mean['default']:.4f} on {card}",
+              flush=True)
+    set_phase("off")
+    del net
+    torch.cuda.empty_cache()
+    print(f"phase 17 took {time.perf_counter() - start:.1f} s; its launches {totals}", flush=True)
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -5244,10 +5333,11 @@ def main() -> None:
         multi_totals, reference = multi_device_phase(config, Path(nets_dir), smi)
         tp_totals = tensor_parallel_phase(config, Path(nets_dir), smi, reference)
         viz_totals = visualization_phase(config, Path(nets_dir), smi)
+        repeat_totals = determinism_phase(config, Path(nets_dir), smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
                        resume_totals, serving_totals, metrics_totals, multi_totals, tp_totals,
-                       viz_totals):
+                       viz_totals, repeat_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

@@ -20,10 +20,11 @@ both endpoints, then t) come from a CPU `torch.Generator` seeded from (seed,
 chunk) and are copied to the device, so the card and the CPU draw the same
 numbers (JAX draws from threefry keys; ROADMAP.md lists the departure).
 A chunk runs under cuDNN's deterministic algorithms (`deterministic_cudnn`):
-the fp32 transposed convolution's default algorithms do not repeat from one
-call to the next on an H100, and the division by epsilon^2 turns that into a
-different PPL for the same seed. Distances are gathered on the host, one
-chunk at a time.
+the division by epsilon^2 would turn any difference between two calls into a
+different PPL for the same seed. Its forwards repeat themselves under cuDNN's
+default algorithms too (each `Conv0_up` runs as forward phase convolutions,
+ops/upfirdn2d.py), so the guard costs them nothing. Distances are gathered
+on the host, one chunk at a time.
 """
 
 from dataclasses import dataclass

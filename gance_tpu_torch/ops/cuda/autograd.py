@@ -113,11 +113,17 @@ class Blur4SeparablePad11(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):  # pylint: disable=arguments-differ
-        outer = tuple(a * b for a in ctx.taps for b in ctx.taps)
-        gx = K.stencil_blur4_valid(g.contiguous(), _flipped(outer), (2, 2))
+        gx = blur4_separable_pad11_input_grad(g, ctx.taps)
         if ctx.width > ctx.w_logical:
             gx = F.pad(gx, (0, ctx.width - ctx.w_logical))
         return gx, None, None
+
+
+def blur4_separable_pad11_input_grad(g: torch.Tensor, taps: Tuple[float, ...]) -> torch.Tensor:
+    """C's input gradient, (B, C, H-1, W-1) -> (B, C, H, W): D with the flipped
+    outer product of C's taps over g padded (2, 2)."""
+    outer = tuple(a * b for a in taps for b in taps)
+    return K.stencil_blur4_valid(g.contiguous(), _flipped(outer), (2, 2))
 
 
 class StencilBlur4Valid(torch.autograd.Function):

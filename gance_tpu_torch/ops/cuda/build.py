@@ -42,6 +42,13 @@ FUNCTIONS = {
         "gance_stencil_blur4_valid", [_P, _P, _L, _I, _I, _I, _I, _FP, _I, _P]
     ),
 }
+# a library's further C functions: name -> (source stem, C function, argtypes)
+ENTRY_POINTS = {
+    "blur4_separable_phases": (
+        "blur4_separable", "gance_blur4_separable_pad11_phases",
+        [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _P],
+    ),
+}
 
 # --fmad=false: no multiply-add contraction, so each kernel rounds after every
 # operation in the order its plain twin does, and the two agree bit for bit.
@@ -108,12 +115,16 @@ def build_all() -> float:
 
 
 def load(name: str) -> Callable[..., int]:
-    """The C entry point of kernel library `name`, building it if needed."""
+    """The C function `name` (a library of FUNCTIONS, or one of ENTRY_POINTS),
+    building the libraries if needed."""
     if name not in _LOADED:
-        target = library_path(name)
+        if name in FUNCTIONS:
+            stem, (symbol, argtypes) = name, FUNCTIONS[name]
+        else:
+            stem, symbol, argtypes = ENTRY_POINTS[name]
+        target = library_path(stem)
         if not target.is_file():
             build_all()
-        symbol, argtypes = FUNCTIONS[name]
         fn = getattr(ctypes.CDLL(str(target)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

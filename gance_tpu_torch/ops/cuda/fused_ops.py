@@ -14,6 +14,7 @@ backward.
 | A fused_bias_noise_lrelu | fused_ops.py (pallas_call :69) | fused_bias_noise_lrelu.cu |
 | B upsample2x_blur | fused_ops.py (pallas_call :152) | upsample2x_blur.cu |
 | C blur4_separable_pad11 | fused_ops.py (pallas_call :333, :350) | blur4_separable.cu |
+| C blur4_separable_pad11_phases | the same | blur4_separable.cu |
 | D stencil_blur4_valid | fused_ops.py (pallas_call :447) | stencil_blur4_valid.cu |
 | E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
 
@@ -28,7 +29,9 @@ lean for the small layers, whose time is host time: no device object is
 built, and the stream is PyTorch's current raw stream. A-D are memory-bound
 on the H100, E is bound by its operations; each source file states its bound
 and design. Every kernel takes
-NCHW-contiguous fp32 or bf16 activations and sums in fp32.
+NCHW-contiguous fp32 or bf16 activations and sums in fp32. C has two entry
+points: one reads its input as one tensor, the other (fp32) as the four
+output phases of the transposed conv before it; both count as C's launches.
 """
 
 import ctypes
@@ -285,6 +288,73 @@ def _blur4_separable_pad11_run(
         "blur4_separable_pad11", "blur4_separable", device,
         x.data_ptr(), out.data_ptr(), b * c, h, wp, w_logical,
         *taps, _DTYPE_CODES[x.dtype],
+    )
+    return out
+
+
+def interleave_phases2(phases: Sequence[torch.Tensor]) -> torch.Tensor:
+    """
+    The pre-blur tensor y (B, C, 2h+1, 2w+1) of a stride-2 3x3 transposed
+    conv from its four output phases (p00, p01, p10, p11), y[2m+i][2n+j] =
+    p_ij[m][n], p_ij (B, C, h+1-i, w+1-j).
+    """
+    p00 = phases[0]
+    b, c, h1, w1 = p00.shape
+    y = p00.new_empty((b, c, 2 * h1 - 1, 2 * w1 - 1))
+    for k, p in enumerate(phases):
+        y[:, :, k // 2::2, k % 2::2] = p
+    return y
+
+
+def blur4_separable_pad11_phases_plain(
+    phases: Sequence[torch.Tensor], taps: Sequence[float]
+) -> torch.Tensor:
+    """The twin of kernel C over phase planes: C's twin on their interleave."""
+    return blur4_separable_pad11_plain(interleave_phases2(phases), taps)
+
+
+def blur4_separable_pad11_phases(
+    phases: Sequence[torch.Tensor], taps: Sequence[float]
+) -> torch.Tensor:
+    """
+    Kernel C on the pre-blur tensor of a stride-2 3x3 transposed conv given
+    as its four output phases (p00, p01, p10, p11; `interleave_phases2`),
+    fp32, read where they lie: (B, C, 2h, 2w), equal bit for bit to
+    `blur4_separable_pad11` on their interleave. Forward only: its caller,
+    `ops/upfirdn2d.py::_PhasedUpconvBlur`, gives the gradient, so it raises
+    where autograd could ask for one.
+    """
+    taps = _four_taps(taps)
+    p00, p01, p10, p11 = phases
+    b, c, h1, w1 = p00.shape
+    h, w = h1 - 1, w1 - 1
+    want = ((b, c, h + 1, w + 1), (b, c, h + 1, w), (b, c, h, w + 1), (b, c, h, w))
+    if h < 1 or w < 1 or tuple(tuple(p.shape) for p in phases) != want:
+        raise ValueError(f"not the phases of a 3x3 stride-2 transposed conv: "
+                         f"{[tuple(p.shape) for p in phases]}")
+    if _needs_grad(*phases):
+        raise RuntimeError("blur4_separable_pad11_phases has no gradient of its own")
+    return _blur4_separable_pad11_phases_run(phases, taps)
+
+
+def _blur4_separable_pad11_phases_run(
+    phases: Sequence[torch.Tensor], taps: Tuple[float, ...]
+) -> torch.Tensor:
+    """C's phase-plane form: the twin on the CPU, else the kernel."""
+    p00, p01, p10, p11 = phases
+    if _on_cpu(p00):
+        return blur4_separable_pad11_phases_plain(phases, taps)
+    b, c, h1, w1 = p00.shape
+    h, w = h1 - 1, w1 - 1
+    if p00.dtype != torch.float32:
+        raise TypeError(f"blur4_separable_pad11_phases: dtype {p00.dtype} not supported "
+                        f"(float32)")
+    device = _check("blur4_separable_pad11", p00, p01, p10, p11)
+    out = p00.new_empty((b, c, 2 * h, 2 * w))
+    _launch(
+        "blur4_separable_pad11", "blur4_separable_phases", device,
+        p00.data_ptr(), p01.data_ptr(), p10.data_ptr(), p11.data_ptr(), out.data_ptr(),
+        b * c, h, w, *taps,
     )
     return out
 

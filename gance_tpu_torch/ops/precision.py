@@ -9,9 +9,13 @@ One knob, read once at import, the same as gance_tpu's: GANCE_TPU_PRECISION =
 
 The style/demod dots in modulated conv, `resize_images` and the plain twins
 of the kernels that sum products always run in exact fp32 (`exact_fp32`),
-whatever the tier. A resumable render runs with cuDNN's deterministic
-algorithms (`deterministic_cudnn`), so that it gives the same frames on every
-run.
+whatever the tier. fp32 synthesis repeats itself bit for bit under cuDNN's
+default algorithms: each `Conv0_up` runs as stride-1 phase convolutions
+(`ops/upfirdn2d.py`), and cuDNN's forward algorithms add without atomics.
+Resumable renders, the metrics and the card checks of training and
+projection still run under `deterministic_cudnn`, which costs a synthesis
+forward nothing and keeps cuDNN off algorithms that add with atomics
+wherever else it would pick one (weight gradients in a backward pass).
 """
 
 import os
@@ -50,13 +54,15 @@ def exact_fp32() -> Iterator[None]:
 @contextmanager
 def deterministic_cudnn() -> Iterator[None]:
     """Run the enclosed cuDNN calls with deterministic algorithms only, then
-    restore the flag. A transposed convolution's forward is cuDNN's
-    backward-data pass, whose default fp32 algorithms on an H100 gave one batch
-    of 1024px frames up to 1 uint8 step apart from one call to the next (bf16
-    repeated itself). A resumable render needs frames that repeat, or a resumed
-    render cannot equal an unbroken one; the deterministic algorithms cost
-    fp32 synthesis about half again as much time (PERF.md), so only
-    resumable renders ask for them."""
+    restore the flag. A synthesis forward repeats itself without it (its
+    convolutions are forward passes; each `Conv0_up` runs as phase
+    convolutions, ops/upfirdn2d.py) and costs the same under it: fp32 1024px
+    at batch 8, 130.378-131.051 ms per batch under it against
+    130.165-134.770 without (NVIDIA H100 80GB HBM3, 700.00 W;
+    tools/time_torch_deterministic_cudnn.py). Resumable renders, whose
+    resumed frames must equal an unbroken render's, the metrics and the card
+    checks of training and projection keep it: in a backward pass cuDNN's
+    default weight-gradient algorithms may add with atomics."""
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:

@@ -24,14 +24,16 @@ microseconds, so each resample function computes it once per key and keeps
 it (`_plan`): a synthesis forward then runs no numpy on its resample calls.
 """
 
-from typing import Callable, Dict, Hashable, Sequence, Tuple, Union
+from typing import Callable, Dict, Hashable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gance_tpu_torch.ops.cuda.autograd import blur4_separable_pad11_input_grad
 from gance_tpu_torch.ops.cuda.fused_ops import (
     blur4_separable_pad11,
+    blur4_separable_pad11_phases,
     stencil_blur4_valid,
     upsample2x_blur,
 )
@@ -189,6 +191,126 @@ def upsample2x_phases_nchw(
     return v_even_j0, v_even_j1, v_odd_j0, v_odd_j1
 
 
+def _axis_phases(ck: int, factor: int) -> List[Optional[Tuple[int, int]]]:
+    """
+    One axis of a stride-`factor` transposed conv with a `ck`-tap kernel, split
+    by output phase. Output sample r = factor*q + i of the transposed conv sums
+    x[m] * w[a] over the taps a with (r + a - (ck - 1)) % factor == 0,
+    m = (r + a - (ck - 1)) / factor (JAX's correlation of the zero-stuffed
+    input with the unflipped weight padded ck - 1). So phase i is a stride-1
+    correlation of x, padded by the same count on both sides, with the taps
+    first::factor, first = (ck - 1 - i) % factor; its output has as many
+    samples as phase i of the transposed conv's. Returns per phase i (first,
+    pad), or None where no tap reaches the phase (its samples are 0).
+    """
+    phases: List[Optional[Tuple[int, int]]] = []
+    for i in range(factor):
+        first = (ck - 1 - i) % factor
+        phases.append(None if first >= ck else (first, (ck - 1 - i - first) // factor))
+    return phases
+
+
+def phase_convs(
+    x: torch.Tensor, w: torch.Tensor, factor: int
+) -> Iterator[Tuple[int, int, Optional[torch.Tensor]]]:
+    """
+    The output phases (i, j) of the stride-`factor` VALID transposed conv of
+    `upsample_conv_2d`, row-major: a stride-1 forward conv of x each
+    (`_axis_phases`), or None where no tap reaches the phase (its samples are
+    0). Phase (i, j) holds the transposed conv's samples [i::factor,
+    j::factor]. The phases do the transposed conv's own kh*kw taps per input
+    sample, and cuDNN's forward algorithms add without atomics, so they repeat
+    themselves bit for bit: `F.conv_transpose2d`'s forward is cuDNN's
+    backward-data pass, whose default fp32 algorithms gave 1024px frames up
+    to 1 uint8 step apart from one call to the next on an H100. For factor 2
+    and a 3x3 weight the phases are 2x2, 2x1, 1x2 and 1x1 convs.
+    """
+    kh, kw = w.shape[2:]
+    for i, row in enumerate(_axis_phases(kh, factor)):
+        for j, col in enumerate(_axis_phases(kw, factor)):
+            if row is None or col is None:
+                yield i, j, None
+            else:
+                taps = w[:, :, row[0]::factor, col[0]::factor]
+                yield i, j, F.conv2d(x, taps, padding=(row[1], col[1]))
+
+
+def transposed_conv_phases(x: torch.Tensor, w: torch.Tensor, factor: int) -> torch.Tensor:
+    """
+    The stride-`factor` VALID transposed conv of `upsample_conv_2d` before its
+    blur, (B, Cin, H, W) -> (B, Cout, factor*(H-1)+kh, factor*(W-1)+kw), w OIHW
+    unflipped as JAX holds it: its phases (`phase_convs`) written into strided
+    slices of one tensor, for the blurs that take the interleaved tensor.
+    """
+    b, _, h, wd = x.shape
+    cout, _, kh, kw = w.shape
+    y = x.new_empty((b, cout, factor * (h - 1) + kh, factor * (wd - 1) + kw))
+    for i, j, p in phase_convs(x, w, factor):
+        if p is None:
+            y[:, :, i::factor, j::factor].zero_()
+        else:
+            y[:, :, i::factor, j::factor] = p
+    return y
+
+
+def _transposed_conv_grads(
+    ctx, gy: torch.Tensor, x: torch.Tensor, w: torch.Tensor, f: int
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """x's and w's gradients of the transposed conv given gy, its output's:
+    one `convolution_backward` of `F.conv_transpose2d`, whose input gradient
+    is a stride-`f` forward conv."""
+    gx, gwt, _ = torch.ops.aten.convolution_backward(
+        gy, x, w.flip(2, 3).transpose(0, 1), None, [f, f], [0, 0], [1, 1], True, [0, 0],
+        1, (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+    return gx, None if gwt is None else gwt.transpose(0, 1).flip(2, 3)
+
+
+class _PhasedTransposedConv(torch.autograd.Function):
+    """
+    The transposed conv, forward as its phases (`transposed_conv_phases`) and
+    backward as `F.conv_transpose2d`'s own (`_transposed_conv_grads`).
+    Through the phases' own autograd backward (four backward-data passes and
+    four weight gradients) config-f's eight Conv0_up took 134.757 ms forward
+    and backward per 1024px synthesis at batch 4 in fp32, against 67.572 for
+    the transposed conv and 70.597 this way (NVIDIA H100 80GB HBM3, 700.00 W;
+    tools/time_torch_upconv_phases.py). The backward is itself made of
+    differentiable ops, so second order (path length) runs through it.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, factor: int) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.factor = factor
+        return transposed_conv_phases(x, w, factor)
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        return (*_transposed_conv_grads(ctx, gy, x, w, ctx.factor), None)
+
+
+class _PhasedUpconvBlur(torch.autograd.Function):
+    """
+    A stride-2 3x3 transposed conv and kernel C's blur after it: the four
+    phases (`phase_convs`) go to C as they are (`blur4_separable_pad11_phases`),
+    which reads them where an interleave into the pre-blur tensor would read
+    and write them once more. Backward: C's input gradient (kernel D), then
+    the transposed conv's (`_transposed_conv_grads`); both are differentiable.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, taps: Tuple[float, ...]) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.taps = taps
+        return blur4_separable_pad11_phases([p for _, _, p in phase_convs(x, w, 2)], taps)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gy = blur4_separable_pad11_input_grad(g, ctx.taps)
+        return (*_transposed_conv_grads(ctx, gy, x, w, 2), None)
+
+
 def upsample_conv_2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -201,15 +323,28 @@ def upsample_conv_2d(
     `Conv0_up` layers of StyleGAN2 synthesis. x is (B, Cin, H, W), w is OIHW.
 
     The JAX reference correlates the zero-stuffed input with the *unflipped*
-    weight (padded kh-1 on each side). `F.conv_transpose2d` flips its kernel
-    and wants (Cin, Cout, kh, kw), so it gets w flipped and io-swapped; the
-    two flips cancel. Output is (B, Cout, 2H+1, 2W+1) before the blur and
-    (B, Cout, 2H, 2W) after it. The blur is upfirdn2d's true convolution, as in
-    JAX; kernel C correlates, so a separable FIR reaches it with its root
-    reversed.
+    weight (padded kh-1 on each side). In fp32 the port computes the same
+    sums, in another order, as one stride-1 conv per output phase
+    (`phase_convs`), so the result repeats itself bit for bit; where the blur
+    is kernel C, C reads the phases themselves (`_PhasedUpconvBlur`).
+    Output is (B, Cout, 2H+1, 2W+1) before the blur and (B, Cout, 2H, 2W)
+    after it. The blur is upfirdn2d's true convolution, as in JAX; kernel C
+    correlates, so a separable FIR reaches it with its root reversed.
     """
     plan = _plan("up_conv", kernel, (factor, gain, w.shape[2]), _upsample_conv_plan)
-    y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=factor)
+    if x.dtype == torch.bfloat16:
+        # bf16 keeps the transposed conv, which repeats itself in bf16: config-f's
+        # eight Conv0_up at batch 8 took 6.256 ms per 1024px forward as it and
+        # 12.833 as phases, and synthesis 38.6-41.1 ms per batch against
+        # 45.2-49.3 (NVIDIA H100 80GB HBM3, 700.00 W;
+        # tools/time_torch_upconv_phases.py, tools/time_torch_deterministic_cudnn.py).
+        # conv_transpose2d flips its kernel and wants (Cin, Cout, kh, kw): it gets
+        # w flipped and io-swapped, and the two flips cancel.
+        y = F.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=factor)
+    elif plan[0] == "C":
+        return _PhasedUpconvBlur.apply(x, w, plan[1])
+    else:
+        y = _PhasedTransposedConv.apply(x, w, factor)
     if plan[0] == "C":
         return blur4_separable_pad11(y, plan[1])
     _, k, pad0, pad1 = plan
@@ -218,11 +353,12 @@ def upsample_conv_2d(
 
 def _upsample_conv_plan(kernel: KernelLike, factor: int, gain: float, ck: int) -> tuple:
     """("C", reversed root) or ("upfirdn2d", FIR, pad0, pad1) for the blur of
-    `upsample_conv_2d` after a (ck x ck) transpose conv."""
+    `upsample_conv_2d` after a (ck x ck) transpose conv. C takes factor 2 only
+    (with pads (1, 1), a 3x3 conv), whose four phases it reads in fp32."""
     k = setup_filter_kernel(kernel, gain * (factor**2))
     p = (k.shape[0] - factor) - (ck - 1)
     pad0, pad1 = (p + 1) // 2 + factor - 1, p // 2 + 1
-    if pad0 == 1 and pad1 == 1 and _separable_4tap(k):
+    if factor == 2 and pad0 == 1 and pad1 == 1 and _separable_4tap(k):
         return "C", tuple(float(v) for v in _separable_root(k)[::-1])
     return "upfirdn2d", k, pad0, pad1
 

@@ -189,8 +189,10 @@ def noise_blend_api(
         frames (media/resume.py). A killed run resumes from the durable frame
         count: the inputs are sliced there (at the stream window at or
         before it, `resumed_synthesis`), so finished frames are not
-        synthesized again, and the output equals an unbroken run's (cuDNN's
-        deterministic algorithms, `deterministic_cudnn`). Requires
+        synthesized again, and the output equals an unbroken run's: fp32
+        synthesis repeats itself bit for bit (each `Conv0_up` runs as
+        forward phase convolutions), and the render runs under
+        `deterministic_cudnn`, which costs its synthesis nothing. Requires
         debug_path=None.
     :param debug_path: also write the debug video here: per frame the hero
         frame resized to `debug_side_length` beside the synthesis panel of

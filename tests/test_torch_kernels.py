@@ -228,8 +228,9 @@ def test_ctypes_bindings_match_c_signatures():
     """Every bound function exists in its source with as many parameters as argtypes
     (the wrapper appends the stream), and every source is built for sm_90a."""
     signatures = _c_signatures()
-    assert len(signatures) == len(build.FUNCTIONS) == 5
-    for stem, (symbol, argtypes) in build.FUNCTIONS.items():
+    assert len(signatures) == len(build.FUNCTIONS) + len(build.ENTRY_POINTS) == 6
+    bound = [(stem, symbol, argtypes) for stem, (symbol, argtypes) in build.FUNCTIONS.items()]
+    for stem, symbol, argtypes in bound + list(build.ENTRY_POINTS.values()):
         assert signatures[symbol] == (stem, len(argtypes))
         assert (build.CSRC / f"{stem}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

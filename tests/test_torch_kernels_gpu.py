@@ -290,6 +290,27 @@ def test_blur4_separable_pad11_ragged_on_gpu(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 1, 1), (1, 5, 7, 33), (3, 2, 40, 31), (8, 64, 512, 512)])
+def test_blur4_separable_pad11_phases_matches_c_on_gpu(cuda_device, shape):
+    """Kernel C over the four phase planes (B, C, h, w gives p_ij of (h+1-i) x
+    (w+1-j)) against C on their interleave and against its twin: equal bits,
+    one launch counted as C's; odd and even sizes, one sample a plane, one
+    row pair, several strips, and the largest `Conv0_up` shape."""
+    b, c, h, w = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    phases = [torch.randn((b, c, h + 1 - i, w + 1 - j), generator=gen, device=cuda_device)
+              for i in (0, 1) for j in (0, 1)]
+    for taps in (TAPS, TAPS_1234):
+        launches = K.LAUNCHES["blur4_separable_pad11"]
+        got = K.blur4_separable_pad11_phases(phases, taps)
+        assert K.LAUNCHES["blur4_separable_pad11"] == launches + 1
+        assert got.shape == (b, c, 2 * h, 2 * w)
+        assert torch.equal(got, K.blur4_separable_pad11(K.interleave_phases2(phases), taps))
+        assert torch.equal(got, K.blur4_separable_pad11_phases_plain(phases, taps))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("offset", range(8))
 def test_stencils_bf16_at_every_row_alignment_on_gpu(cuda_device, offset):
     """bf16 inputs that start `offset` elements (2 bytes each) past a 16-byte
@@ -497,3 +518,81 @@ def test_projector_step_gradients_on_gpu_match_cpu(cuda_device, monkeypatch, pha
     g_planes = torch.cat([g.reshape(-1) for g in got[1:]])
     w_planes = torch.cat([g.reshape(-1) for g in want[1:]])
     assert float((g_planes - w_planes).norm() / w_planes.norm()) <= 2e-2
+
+
+def _conv0_up_largest():
+    """The largest `Conv0_up` of config-f 1024px at batch 8: x (8, 128, 512,
+    512) to 64 channels at 1024x1024."""
+    from gance_tpu_torch.models.stylegan2 import GeneratorConfig
+
+    config = GeneratorConfig()
+    top = config.resolution_log2
+    return (8, config.nf(top - 2), 2 ** (top - 1), 2 ** (top - 1)), config.nf(top - 1)
+
+
+def _conv0_up_operands(gen, device, x_shape, cout):
+    x = torch.randn(x_shape, generator=gen, device=device)
+    w = torch.randn((cout, x_shape[1], 3, 3), generator=gen, device=device)
+    return x, w / (9 * x_shape[1]) ** 0.5
+
+
+@pytest.mark.gpu
+def test_upsample_conv_2d_repeats_itself_on_gpu(cuda_device):
+    """Three calls of the `Conv0_up` computation (phases, then kernel C) at its
+    largest shape in fp32 under cuDNN's default algorithms give equal bits:
+    the phases are forward convs. A transposed conv's forward, cuDNN's
+    backward-data pass, gave 1024px frames 1 uint8 step apart between calls."""
+    from gance_tpu_torch.ops.upfirdn2d import upsample_conv_2d
+
+    assert not torch.backends.cudnn.deterministic
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x, w = _conv0_up_operands(gen, cuda_device, *_conv0_up_largest())
+    with torch.inference_mode(), exact_fp32():
+        first = upsample_conv_2d(x, w)
+        again = [upsample_conv_2d(x, w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert first.shape == (8, 64, 1024, 1024)
+    for y in again:
+        assert torch.equal(y, first)
+
+
+@pytest.mark.gpu
+def test_transposed_conv_phases_match_conv_transpose2d_on_gpu(cuda_device):
+    """The phases against cuDNN's transposed conv at the largest `Conv0_up`
+    shape, fp32 without TF32: within 1e-5 of max |ref| (the same products,
+    summed in another order)."""
+    from gance_tpu_torch.ops.upfirdn2d import transposed_conv_phases
+
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    x, w = _conv0_up_operands(gen, cuda_device, *_conv0_up_largest())
+    with torch.inference_mode(), exact_fp32():
+        got = transposed_conv_phases(x, w, 2)
+        want = torch.nn.functional.conv_transpose2d(x, w.flip(2, 3).transpose(0, 1), stride=2)
+    assert got.shape == want.shape == (8, 64, 1025, 1025)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_upsample_conv_2d_gradients_on_gpu_match_cpu(cuda_device):
+    """d/dx and d/dw through the phases and kernel C on the card against the
+    same through C's twin on the CPU, within 1e-4 of each gradient's scale."""
+    from gance_tpu_torch.ops.upfirdn2d import upsample_conv_2d
+
+    gen = torch.Generator().manual_seed(19)
+    x, w = _conv0_up_operands(gen, "cpu", (2, 16, 33, 40), 8)
+    g = torch.randn((2, 8, 66, 80), generator=gen)
+
+    def grads(device):
+        xt = x.to(device).requires_grad_(True)
+        wt = w.to(device).requires_grad_(True)
+        (upsample_conv_2d(xt, wt) * g.to(device)).sum().backward()
+        return xt.grad.cpu(), wt.grad.cpu()
+
+    launches = K.LAUNCHES["blur4_separable_pad11"]
+    with exact_fp32():
+        got = grads(cuda_device)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["blur4_separable_pad11"] == launches + 1
+    for r, h in zip(grads("cpu"), got):
+        scale = float(r.abs().max())
+        assert scale > 0 and float((h - r).abs().max()) <= 1e-4 * scale

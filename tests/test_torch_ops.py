@@ -170,8 +170,9 @@ RESAMPLE_FIRS = {
 
 
 def _record_resample_kernels(m, seen):
-    """Wrap the four forms a resample call may take to record their arguments."""
-    for name in ("upsample2x_blur", "blur4_separable_pad11", "stencil_blur4_valid", "upfirdn2d"):
+    """Wrap the five forms a resample call may take to record their arguments."""
+    for name in ("upsample2x_blur", "blur4_separable_pad11", "blur4_separable_pad11_phases",
+                 "stencil_blur4_valid", "upfirdn2d"):
         real = getattr(port_up, name)
         m.setattr(port_up, name, lambda *a, _n=name, _r=real, **kw: (
             seen.append((_n, a[1:], kw)), _r(*a, **kw))[1])
@@ -184,8 +185,9 @@ def test_resample_plans_equal_the_per_call_analysis(rng, fir, monkeypatch):
     and again from the cache, with the FIR as a tuple, a nested tuple or a
     numpy array; the second call runs no analysis."""
     kernel = RESAMPLE_FIRS[fir]
-    kernel_of = {"B": "upsample2x_blur", "C": "blur4_separable_pad11", "D": "stencil_blur4_valid",
-                 "upfirdn2d": "upfirdn2d"}
+    # an fp32 C takes the transposed conv's phases (`blur4_separable_pad11_phases`)
+    kernel_of = {"B": "upsample2x_blur", "C": "blur4_separable_pad11_phases",
+                 "D": "stencil_blur4_valid", "upfirdn2d": "upfirdn2d"}
     monkeypatch.setattr(port_up, "_PLANS", {})
     x = torch.from_numpy(rng.randn(1, 2, 6, 6).astype(np.float32))
     w3 = torch.from_numpy(rng.randn(2, 2, 3, 3).astype(np.float32))

@@ -50,6 +50,7 @@ from gance_tpu.projection import lpips as jax_lpips  # noqa: E402
 from gance_tpu.projection import projector as jax_proj  # noqa: E402
 from gance_tpu_torch.models import stylegan2 as port_g  # noqa: E402
 from gance_tpu_torch.models.convert import params_from_reference  # noqa: E402
+from gance_tpu_torch.ops import upfirdn2d as port_up  # noqa: E402
 from gance_tpu_torch.projection import file_reader as port_reader  # noqa: E402
 from gance_tpu_torch.projection import file_writer as port_writer  # noqa: E402
 from gance_tpu_torch.projection import lpips as port_lpips  # noqa: E402
@@ -379,21 +380,90 @@ def test_project_batch_matches_tpu_projector(trajectories):
     np.testing.assert_allclose(got_eval, want_eval, rtol=1e-4)
 
 
+# At test_batch_composition_does_not_change_per_frame_result's seed, with the
+# phase path off, frame 1's last Adam step meets an lrelu input within fp32
+# rounding of its kink: the CPU's conv library sums a batch of one and a batch
+# of three in other orders (oneDNN takes batches over one), a 4e-6 latent
+# difference moves one w gradient component by 4e-3 of the gradient's scale,
+# and the two runs end 1.2e-4 apart.
+LAST_STEP_KINK = {"off": 1}
+
+
+def _phase_convs_one_frame_at_a_time(real):
+    """`ops/upfirdn2d.py::phase_convs` run on each frame alone, then stacked:
+    a `Conv0_up` whose sums do not depend on the batch beside a frame."""
+
+    def per_frame(x, w, factor):
+        frames = [list(real(x[k:k + 1], w, factor)) for k in range(x.shape[0])]
+        for items in zip(*frames):
+            i, j, first = items[0]
+            yield i, j, None if first is None else torch.cat([p for _, _, p in items])
+
+    return per_frame
+
+
 @pytest.mark.parametrize("phase", ["off", "on"])
 def test_batch_composition_does_not_change_per_frame_result(monkeypatch, phase):
+    """Frames optimize independently (the summed batch loss gives each frame
+    its own gradient), with the stochastic inputs pinned (jitter 0, shared
+    initial noise buffers). (1) A frame among other frames, at another
+    position of a batch of the same size, follows its whole trajectory bit
+    for bit: a convolution sums each frame alone, in a blocking set by the
+    batch's shape. (2) A frame alone (batch 1) against the same frame in the
+    batch of 3: every step's latents and the final latents within 1e-4, one
+    step's loss gradients within 1e-4 of their scale, and the final distance
+    within 1e-4. The frame of `LAST_STEP_KINK` is held so through its
+    next-to-last step; its final latents are held within 1e-4 with the
+    `Conv0_up` phase convs run one frame at a time, which takes the batch's
+    blocking out of the one step that follows rounding."""
     monkeypatch.setenv(PHASE_ENV, phase)
     params = jax_params(32, TINY)
     targets, w0, noises = pinned_inputs(params, TINY, BATCH, seed=33)
     shared = [n[:1] for n in noises]  # (1, h, w, 1), broadcast over the batch
     projector = port_projector(params, TINY, num_steps=STEPS, dlatent_avg_samples=64)
-    batched = projector.project_batch(targets, want_step_images=False, per_step_noises=False,
-                                      initial_latents=w0, initial_noises=shared,
-                                      noise_factor=0.0)
+    run = dict(want_step_images=False, initial_noises=shared, noise_factor=0.0)
+    batched_steps = []
+    batched = projector.project_batch(
+        targets, initial_latents=w0, per_step_noises=False,
+        step_callback=lambda s, lat, *_: batched_steps.append(lat.copy()), **run)
+    others, others_w0, _ = pinned_inputs(params, TINY, BATCH, seed=34)
+    planes = nchw([np.repeat(n, BATCH, axis=0) for n in shared])
+    _, _, _, grads = projector._loss_and_gradients(
+        torch.from_numpy(w0), planes, projector._target_proc(targets), torch.zeros(BATCH, 16))
+    kinked = LAST_STEP_KINK.get(phase)
     for i in range(BATCH):
-        single = projector.project(targets[i], want_step_images=False, initial_latents=w0[i],
-                                   initial_noises=shared, noise_factor=0.0)
-        np.testing.assert_allclose(batched[i].final_latents, single.final_latents, atol=1e-4)
+        j = (i + 1) % BATCH
+        mixed, mixed_w0 = others.copy(), others_w0.copy()
+        mixed[j], mixed_w0[j] = targets[i], w0[i]
+        moved = projector.project_batch(mixed, initial_latents=mixed_w0, per_step_noises=False,
+                                        **run)[j]
+        np.testing.assert_array_equal(moved.final_latents, batched[i].final_latents)
+        assert moved.final_distance == batched[i].final_distance
+
+        _, _, _, alone = projector._loss_and_gradients(
+            torch.from_numpy(w0[i:i + 1]), [p[i:i + 1] for p in planes],
+            projector._target_proc(targets[i:i + 1]), torch.zeros(1, 16))
+        for got, want in zip(alone, grads):
+            want = want[i:i + 1]
+            assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        single_steps = []
+        single = projector.project(
+            targets[i], initial_latents=w0[i],
+            step_callback=lambda s, lat, *_: single_steps.append(lat.copy()), **run)
+        assert len(single_steps) == len(batched_steps) == STEPS
+        for step in range(STEPS - (i == kinked)):
+            np.testing.assert_allclose(batched_steps[step][i], single_steps[step][0], atol=1e-4)
+        if i != kinked:
+            np.testing.assert_allclose(batched[i].final_latents, single.final_latents, atol=1e-4)
         assert abs(batched[i].final_distance - single.final_distance) < 1e-4
+    if kinked is not None:
+        monkeypatch.setattr(port_up, "phase_convs",
+                            _phase_convs_one_frame_at_a_time(port_up.phase_convs))
+        batched = projector.project_batch(targets, initial_latents=w0, per_step_noises=False,
+                                          **run)
+        single = projector.project(targets[kinked], initial_latents=w0[kinked], **run)
+        np.testing.assert_allclose(batched[kinked].final_latents, single.final_latents,
+                                   atol=1e-4)
 
 
 def test_segmented_loop_equals_per_step_loop():

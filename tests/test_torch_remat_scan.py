@@ -50,13 +50,15 @@ def _all_leaves(state):
 
 
 def _count_runs(monkeypatch):
+    """Each kernel's forward runs; C's phase-plane form counts as C's."""
     counts = {}
     for name in ("_fused_bias_noise_lrelu_run", "_upsample2x_blur_run",
-                 "_blur4_separable_pad11_run", "_stencil_blur4_valid_run",
-                 "_phase_conv1_torgb_run"):
+                 "_blur4_separable_pad11_run", "_blur4_separable_pad11_phases_run",
+                 "_stencil_blur4_valid_run", "_phase_conv1_torgb_run"):
         real = getattr(K, name)
+        key = name.replace("_phases", "")
 
-        def counted(*args, _real=real, _name=name):
+        def counted(*args, _real=real, _name=key):
             counts[_name] = counts.get(_name, 0) + 1
             return _real(*args)
 

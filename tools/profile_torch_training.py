@@ -32,7 +32,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from profile_torch_synthesis import family  # noqa: E402
 
-PORT_KERNELS = ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel", "stencil_kernel")
+PORT_KERNELS = ("bias_noise_lrelu", "upsample2x_blur", "blur4_kernel", "blur4_phases_kernel",
+                "stencil_kernel")
 
 
 def main() -> None:

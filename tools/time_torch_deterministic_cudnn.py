@@ -9,9 +9,11 @@ seeded z, fp32 and bf16, the phase path off and on. For each case it times
 `torch.backends.cudnn.deterministic` off (cuDNN's default algorithms) and on
 (`gance_tpu_torch.ops.precision.deterministic_cudnn`, which the resumable
 renders run under), in the order off, on, on, off, and renders the batch
-three times under each to see whether the frames repeat. A transposed
-convolution's forward is cuDNN's backward-data pass, whose default fp32
-algorithm may add with atomics.
+three times under each to see whether the frames repeat. Each fp32 `Conv0_up`
+runs as stride-1 phase convolutions (`ops/upfirdn2d.py::phase_convs`, which
+kernel C then reads), forward passes whose cuDNN algorithms add no atomics; a transposed
+convolution's forward, cuDNN's backward-data pass, may add with atomics in
+fp32 (run this script from an older checkout to see it).
 
     python3 tools/time_torch_deterministic_cudnn.py
 

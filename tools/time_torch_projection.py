@@ -43,7 +43,7 @@ from chip_smoke import SEED, own_frames, seeded_planes, smoke_params  # noqa: E4
 FAMILIES = (
     ("A fused_bias_noise_lrelu", ("bias_noise_lrelu",)),
     ("B upsample2x_blur", ("upsample2x_blur",)),
-    ("C blur4_separable_pad11", ("blur4_kernel",)),
+    ("C blur4_separable_pad11", ("blur4_kernel", "blur4_phases_kernel")),
     ("D stencil_blur4_valid", ("stencil_kernel",)),
     ("E phase_conv1_torgb", ("phase_f32_kernel", "phase_bf16_kernel")),
     ("convolution", ("conv", "xmma", "gemm", "cudnn", "cutlass", "sm90", "sm80", "winograd")),
