@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the device,
+from the profiler's trace: 1 - the union of the device intervals over the
+window, in percent."""
+
+from port_bench.harness.layers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
