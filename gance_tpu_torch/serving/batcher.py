@@ -14,6 +14,14 @@ next batch. On a CUDA network the rows also go to the device from pinned
 memory without blocking the dispatch thread, and the pinned buffer is kept
 until the batch's event has fired.
 
+Each request's queue wait (submit until the dispatch of the batch that takes
+its last rows) and latency (submit until its future resolves) are stamped on
+the span clock (`utils/profiling.py::now_us`) and reported by `stats()`.
+While a profiler records, both threads' steps are spans
+(`serving.batcher.*`), and each request adds `serving.request` and
+`serving.queue_wait`, the latter's parent the `serving.batcher.issue` span of
+the batch that took its last rows.
+
 A network on a mesh returns its frames as `parallel/mesh.py::ShardedRows`.
 In one process the fetch thread copies them from their devices. Across
 processes their fetch is an all_gather, a collective that every process
@@ -23,6 +31,7 @@ batch; JAX launches a replicate program there instead).
 """
 
 import collections
+import itertools
 import os
 import queue
 import threading
@@ -36,6 +45,7 @@ import torch
 from gance_tpu_torch.parallel.mesh import ShardedRows
 from gance_tpu_torch.synthesis.runtime import _bucket_size, _start_host_copy
 from gance_tpu_torch.utils.logging import LOGGER
+from gance_tpu_torch.utils.profiling import add_span, now_us, span
 
 # Lane kinds: z vectors (rank 2 input) and w+ matrices (rank 3). A request's
 # lane is its network index, its kind and its full per-row shape: a device
@@ -43,21 +53,30 @@ from gance_tpu_torch.utils.logging import LOGGER
 LANE_VECTORS = "z"
 LANE_MATRICES = "w+"
 
+_REQUEST_IDS = itertools.count(1)
+
+
+def next_request_id() -> int:
+    """A process-wide request id: the `request` of a request's spans."""
+    return next(_REQUEST_IDS)
+
 
 class _Request:
     """One submitted batch: rows are consumed (possibly across several device
     batches), parts accumulate in row order, the future resolves when all
-    rows are done."""
+    rows are done. `queued` counts the rows no batch has taken yet;
+    `arrived` is the start of its `serving.request` span (`now_us()`)."""
 
-    __slots__ = ("rows", "lane", "future", "parts", "remaining", "arrived")
+    __slots__ = ("rows", "lane", "future", "parts", "remaining", "queued", "arrived", "id")
 
-    def __init__(self, rows: np.ndarray, lane: Tuple) -> None:
+    def __init__(self, rows: np.ndarray, lane: Tuple, request_id: int) -> None:
         self.rows = rows
         self.lane = lane
         self.future: "Future[np.ndarray]" = Future()
         self.parts: List[np.ndarray] = []
-        self.remaining = rows.shape[0]
-        self.arrived = time.monotonic()
+        self.remaining = self.queued = rows.shape[0]
+        self.arrived = now_us()
+        self.id = request_id
 
 
 def bucket_rows(real: int, max_batch: int, multiple: int = 8) -> int:
@@ -178,6 +197,8 @@ class DynamicBatcher:
             "errors": 0,
         }
         self._latencies: "collections.deque[float]" = collections.deque(maxlen=512)
+        self._queue_waits: "collections.deque[float]" = collections.deque(maxlen=512)
+        self._batch_ids = itertools.count(1)
         self._net_frames = [0] * len(self.networks)
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="batcher-dispatch", daemon=True
@@ -190,11 +211,14 @@ class DynamicBatcher:
 
     # ---- public surface ----
 
-    def submit(self, batch: np.ndarray, network_index: int = 0) -> "Future[np.ndarray]":
+    def submit(
+        self, batch: np.ndarray, network_index: int = 0, request_id: Optional[int] = None
+    ) -> "Future[np.ndarray]":
         """
         Enqueue a (B, V) z batch or (B, R, V) w+ batch for network
         `network_index`; the future resolves to the (B, H, W, 3) uint8 images
-        in row order. Shape problems raise ValueError at once.
+        in row order. Shape problems raise ValueError at once. `request_id`
+        (default: `next_request_id()`) names the request's spans.
         """
         if not 0 <= network_index < len(self.networks):
             raise ValueError(
@@ -216,7 +240,7 @@ class DynamicBatcher:
             raise ValueError(f"latent length {rows.shape[-1]} != network's {expected}")
         if rows.shape[0] == 0:
             raise ValueError("empty batch")
-        request = _Request(rows, lane)
+        request = _Request(rows, lane, next_request_id() if request_id is None else request_id)
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -235,6 +259,7 @@ class DynamicBatcher:
         with self._stats_lock:
             out = dict(self._stat)
             latencies = sorted(self._latencies)
+            waits = sorted(self._queue_waits)
             if len(self.networks) > 1:
                 out["frames_by_network"] = list(self._net_frames)
         out["max_batch"] = self.max_batch
@@ -245,6 +270,11 @@ class DynamicBatcher:
             out["latency_p50_ms"] = round(latencies[len(latencies) // 2] * 1e3, 2)
             out["latency_p99_ms"] = round(
                 latencies[min(len(latencies) - 1, int(len(latencies) * 0.99))] * 1e3, 2
+            )
+        if waits:
+            out["queue_wait_p50_ms"] = round(waits[len(waits) // 2] * 1e3, 2)
+            out["queue_wait_p95_ms"] = round(
+                waits[min(len(waits) - 1, int(len(waits) * 0.95))] * 1e3, 2
             )
         return out
 
@@ -377,26 +407,29 @@ class DynamicBatcher:
         rows of one lane from the queue front. Returns [(request,
         rows_consumed, row_slice)], or None on close."""
         with self._lock:
-            while not self._closed:
-                # Requests whose future already resolved (a failed slice of a
-                # split request, or a caller's cancel) burn no device batches.
-                while self._pending and self._pending[0].future.done():
-                    dead = self._pending.popleft()
-                    self._drop_live_locked(dead)
-                if self._pending:
-                    break
-                self._lock.wait()
+            with span("serving.batcher.await_request"):
+                while not self._closed:
+                    # Requests whose future already resolved (a failed slice
+                    # of a split request, or a caller's cancel) burn no
+                    # device batches.
+                    while self._pending and self._pending[0].future.done():
+                        dead = self._pending.popleft()
+                        self._drop_live_locked(dead)
+                    if self._pending:
+                        break
+                    self._lock.wait()
             if self._closed:
                 return None
             if self.max_delay:
                 # Linger for company, but stop once a full batch is queued.
-                deadline = time.monotonic() + self.max_delay
-                while time.monotonic() < deadline and not self._closed:
-                    lane = self._pending[0].lane
-                    queued = sum(r.rows.shape[0] for r in self._pending if r.lane == lane)
-                    if queued >= self.max_batch:
-                        break
-                    self._lock.wait(timeout=deadline - time.monotonic())
+                with span("serving.batcher.linger"):
+                    deadline = time.monotonic() + self.max_delay
+                    while time.monotonic() < deadline and not self._closed:
+                        lane = self._pending[0].lane
+                        queued = sum(r.rows.shape[0] for r in self._pending if r.lane == lane)
+                        if queued >= self.max_batch:
+                            break
+                        self._lock.wait(timeout=deadline - time.monotonic())
                 if self._closed:
                     return None
             lane: Optional[Tuple] = None  # the first live request's
@@ -414,6 +447,7 @@ class DynamicBatcher:
                     break  # another lane; the next dispatch takes it
                 take = min(head.rows.shape[0], self.max_batch - total)
                 consumed.append((head, take, head.rows[:take]))
+                head.queued -= take
                 total += take
                 if take == head.rows.shape[0]:
                     self._pending.popleft()
@@ -451,14 +485,18 @@ class DynamicBatcher:
             if not consumed:  # only dead requests were queued
                 continue
             lane = consumed[0][0].lane
-            rows = np.concatenate([slice_ for _req, _take, slice_ in consumed])
-            real = rows.shape[0]
-            bucket = bucket_rows(real, self.max_batch, self.pad_multiple)
-            if bucket > real:
-                pad = np.zeros((bucket - real,) + rows.shape[1:], rows.dtype)
-                rows = np.concatenate([rows, pad])
+            batch_id = next(self._batch_ids)
+            with span("serving.batcher.assemble", batch=batch_id):
+                rows = np.concatenate([slice_ for _req, _take, slice_ in consumed])
+                real = rows.shape[0]
+                bucket = bucket_rows(real, self.max_batch, self.pad_multiple)
+                if bucket > real:
+                    pad = np.zeros((bucket - real,) + rows.shape[1:], rows.dtype)
+                    rows = np.concatenate([rows, pad])
             try:
-                images, ready, pinned = self._issue(lane, rows, real)
+                with span("serving.batcher.issue", batch=batch_id) as issue:
+                    self._note_dispatch(consumed, issue.id)
+                    images, ready, pinned = self._issue(lane, rows, real)
             except Exception as error:  # pylint: disable=broad-except
                 LOGGER.exception("serving dispatch failed")
                 with self._stats_lock:
@@ -472,28 +510,43 @@ class DynamicBatcher:
                 self._stat["dispatched_rows"] += bucket
                 self._net_frames[lane[0]] += real
             meta = [(request, take) for request, take, _slice in consumed]
-            while True:
-                try:
-                    # Bounded put = backpressure; re-check closed so that a
-                    # dead fetch thread cannot strand this one.
-                    self._fetch_queue.put((images, ready, pinned, meta, real), timeout=1.0)
-                    break
-                except queue.Full:
-                    if self._closed:
-                        for request, _take in meta:
-                            self._finish(request, error=RuntimeError("batcher closed"))
-                        return
+            with span("serving.batcher.backpressure", batch=batch_id):
+                while True:
+                    try:
+                        # Bounded put = backpressure; re-check closed so that
+                        # a dead fetch thread cannot strand this one.
+                        self._fetch_queue.put((images, ready, pinned, meta, real, batch_id),
+                                              timeout=1.0)
+                        break
+                    except queue.Full:
+                        if self._closed:
+                            for request, _take in meta:
+                                self._finish(request, error=RuntimeError("batcher closed"))
+                            return
+
+    def _note_dispatch(self, consumed: List[Tuple[_Request, int, np.ndarray]],
+                       batch_span: Optional[int]) -> None:
+        """Stamp the queue wait of every request whose last rows this batch
+        takes: one clock read per batch."""
+        now = now_us()
+        last = [request for request, _take, _slice in consumed if request.queued == 0]
+        with self._stats_lock:
+            self._queue_waits.extend((now - request.arrived) * 1e-6 for request in last)
+        for request in last:
+            add_span("serving.queue_wait", request.arrived, now, parent=batch_span,
+                     request=request.id)
 
     def _fetch_loop(self) -> None:
         while True:
             item = self._fetch_queue.get()
             if item is None:
                 return
-            images, ready, _pinned, consumed, real = item
+            images, ready, _pinned, consumed, real, batch_id = item
             try:
                 # the pinned input buffer (_pinned) lives until here, after
                 # the event that follows its copy has fired
-                host = _host_frames(images, ready, real)
+                with span("serving.batcher.await_frames", batch=batch_id):
+                    host = _host_frames(images, ready, real)
             except Exception as error:  # pylint: disable=broad-except
                 LOGGER.exception("serving fetch failed")
                 with self._stats_lock:
@@ -502,28 +555,36 @@ class DynamicBatcher:
                     self._finish(request, error=error)
                 continue
             del item, images, _pinned
-            offset = 0
-            for request, take in consumed:
-                if request.future.done():
-                    # An earlier slice failed, or the caller cancelled while
-                    # the batch was in flight: drop the rows and the live-set
-                    # entry, or wait_idle and retire would never drain.
-                    with self._lock:
-                        self._drop_live_locked(request)
-                    offset += take
-                    continue
-                request.parts.append(host[offset: offset + take])
+            with span("serving.batcher.resolve", batch=batch_id):
+                self._resolve(consumed, host)
+
+    def _resolve(self, consumed: List[Tuple[_Request, int]], host: np.ndarray) -> None:
+        """Hand each request its rows of a fetched batch; resolve those that
+        are complete."""
+        offset = 0
+        for request, take in consumed:
+            if request.future.done():
+                # An earlier slice failed, or the caller cancelled while the
+                # batch was in flight: drop the rows and the live-set entry,
+                # or wait_idle and retire would never drain.
+                with self._lock:
+                    self._drop_live_locked(request)
                 offset += take
-                request.remaining -= take
-                if request.remaining == 0:
-                    result = (
-                        request.parts[0]
-                        if len(request.parts) == 1
-                        else np.concatenate(request.parts)
-                    )
-                    with self._stats_lock:
-                        self._latencies.append(time.monotonic() - request.arrived)
-                    self._finish(request, result=result)
+                continue
+            request.parts.append(host[offset: offset + take])
+            offset += take
+            request.remaining -= take
+            if request.remaining == 0:
+                result = (
+                    request.parts[0]
+                    if len(request.parts) == 1
+                    else np.concatenate(request.parts)
+                )
+                now = now_us()
+                with self._stats_lock:
+                    self._latencies.append((now - request.arrived) * 1e-6)
+                add_span("serving.request", request.arrived, now, request=request.id)
+                self._finish(request, result=result)
 
 
 def default_max_batch() -> int:

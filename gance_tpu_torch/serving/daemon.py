@@ -5,7 +5,8 @@ A small stdlib server (no web-framework dependency on this host class) that
 exposes a loaded generator for production serving:
 
   GET  /healthz      -> {"ok": true, "resolution": R, "vector_length": V, ...}
-  GET  /stats        -> batcher counters (batches, occupancy, latency p50/p99)
+  GET  /stats        -> batcher counters (batches, occupancy, latency p50/p99,
+                        queue wait p50/p95)
   GET  /metrics      -> the same counters in Prometheus text exposition format
                         (scrapeable by any standard monitoring stack)
   POST /synthesize   -> images for a JSON request body:
@@ -48,7 +49,10 @@ exposes a loaded generator for production serving:
 Concurrency model: ThreadingHTTPServer gives one thread per connection; every
 handler submits to the shared DynamicBatcher and blocks on its future, so
 concurrent requests coalesce into device batches (batcher.py). The batcher's
-one dispatch thread issues all device work.
+one dispatch thread issues all device work. While a profiler records
+(`utils/profiling.py`), a /synthesize handler's steps are spans
+(`serving.http.parse`, `.await_result`, `.encode`, `.write`) that share the
+request's id with the batcher's spans of it.
 
 The counterpart of gance_tpu/serving/daemon.py: the same routes, bodies,
 statuses and wire format. Departures: registered projections are held to a
@@ -69,8 +73,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from gance_tpu_torch.serving.batcher import DynamicBatcher
+from gance_tpu_torch.serving.batcher import DynamicBatcher, next_request_id
 from gance_tpu_torch.utils.logging import LOGGER
+from gance_tpu_torch.utils.profiling import span
 
 MAX_BODY_BYTES = 256 * 1024 * 1024  # latents are small; refuse absurd bodies
 MAX_FRAMES_PER_REQUEST = 4096
@@ -286,6 +291,13 @@ def _prometheus_metrics(daemon: "SynthesisDaemon") -> str:
         if key in stats:
             metric(f"latency_{quantile}_seconds", "gauge",
                    f"Request latency {quantile} over the last 512 requests",
+                   round(stats[key] / 1e3, 6))
+    for quantile in ("p50", "p95"):
+        key = f"queue_wait_{quantile}_ms"
+        if key in stats:
+            metric(f"queue_wait_{quantile}_seconds", "gauge",
+                   f"Queue wait (submit to the dispatch of a request's last rows) "
+                   f"{quantile} over the last 512 requests",
                    round(stats[key] / 1e3, 6))
     cache_stats = daemon.plan_cache.stats()
     metric("plan_cache_hits_total", "counter",
@@ -645,38 +657,43 @@ class SynthesisDaemon:
                 if self.path == "/synthesize_audio":
                     self._do_synthesize_audio()
                     return
+                request_id = next_request_id()
                 try:
-                    payload = self._read_json_body()
-                    index = daemon.resolve_network_index(payload)
-                    # Snapshot the object: a concurrent /admin/unload may
-                    # None the slot between resolve and here (submit's own
-                    # locked check is the authoritative gate).
-                    network = daemon.networks[index]
-                    if network is None:
-                        raise ServingError(f"network {index} has been unloaded")
-                    rows = _rows_from_request(
-                        payload,
-                        network.expected_vector_length,
-                        daemon.frame_caps[index],
-                        style_rows=daemon.style_rows_by_network[index],
-                    )
-                    fmt = payload.get("format", "npy")
-                    _validate_format(fmt, rows.shape[0])
-                    # parse + range-check avi's fps BEFORE device work, like
-                    # every other request-shape gate
-                    try:
-                        fps = float(payload.get("fps", 30.0))
-                    except (TypeError, ValueError) as error:
-                        raise ServingError(
-                            f'"fps" must be a number: {error}'
-                        ) from error
-                    if fmt == "avi" and not 0 < fps <= 240:
-                        raise ServingError(
-                            f'"fps" must be in (0, 240], got {fps:g}'
+                    with span("serving.http.parse", request=request_id):
+                        payload = self._read_json_body()
+                        index = daemon.resolve_network_index(payload)
+                        # Snapshot the object: a concurrent /admin/unload may
+                        # None the slot between resolve and here (submit's
+                        # own locked check is the authoritative gate).
+                        network = daemon.networks[index]
+                        if network is None:
+                            raise ServingError(f"network {index} has been unloaded")
+                        rows = _rows_from_request(
+                            payload,
+                            network.expected_vector_length,
+                            daemon.frame_caps[index],
+                            style_rows=daemon.style_rows_by_network[index],
                         )
-                    future = daemon.batcher.submit(rows, network_index=index)
+                        fmt = payload.get("format", "npy")
+                        _validate_format(fmt, rows.shape[0])
+                        # parse + range-check avi's fps BEFORE device work,
+                        # like every other request-shape gate
+                        try:
+                            fps = float(payload.get("fps", 30.0))
+                        except (TypeError, ValueError) as error:
+                            raise ServingError(
+                                f'"fps" must be a number: {error}'
+                            ) from error
+                        if fmt == "avi" and not 0 < fps <= 240:
+                            raise ServingError(
+                                f'"fps" must be in (0, 240], got {fps:g}'
+                            )
+                    future = daemon.batcher.submit(
+                        rows, network_index=index, request_id=request_id
+                    )
                     try:
-                        images = future.result(timeout=REQUEST_TIMEOUT_S)
+                        with span("serving.http.await_result", request=request_id):
+                            images = future.result(timeout=REQUEST_TIMEOUT_S)
                     except FuturesTimeout:
                         future.cancel()  # drops any undispatched rows
                         self._reply_json(
@@ -685,7 +702,8 @@ class SynthesisDaemon:
                              f"{REQUEST_TIMEOUT_S:g}s"},
                         )
                         return
-                    body, content_type = _encode_images(images, fmt, fps=fps)
+                    with span("serving.http.encode", request=request_id):
+                        body, content_type = _encode_images(images, fmt, fps=fps)
                 except (ServingError, ValueError, json.JSONDecodeError) as error:
                     self._reply_json(400, {"error": str(error)})
                     return
@@ -693,10 +711,11 @@ class SynthesisDaemon:
                     LOGGER.exception("serving request failed")
                     self._reply_json(500, {"error": str(error)})
                     return
-                self._reply(
-                    200, body, content_type,
-                    extra={"X-Gance-Shape": "x".join(map(str, images.shape))},
-                )
+                with span("serving.http.write", request=request_id):
+                    self._reply(
+                        200, body, content_type,
+                        extra={"X-Gance-Shape": "x".join(map(str, images.shape))},
+                    )
 
         self._server = ThreadingHTTPServer((host, port), Handler)
         self.port = self._server.server_address[1]

@@ -52,6 +52,7 @@ from gance_tpu_torch.parallel.mesh import fetch_to_host as _fetch_to_host
 from gance_tpu_torch.types import is_vector
 from gance_tpu_torch.utils.device import resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
+from gance_tpu_torch.utils.profiling import count, span
 
 Params = Dict[str, Any]
 
@@ -100,15 +101,18 @@ Window = Tuple[int, List[Tuple[Any, List[int]]], List[torch.cuda.Event]]
 
 
 def _window_in_order(window: Window, window_start: int) -> Iterator[np.ndarray]:
-    """Wait for a dispatched window's copies and yield its frames in stream order."""
-    count, groups, ready = window
-    for event in ready:
-        event.synchronize()
-    out: List[Optional[np.ndarray]] = [None] * count
-    for images, positions in groups:
-        host_images = _fetch_to_host(images)
-        for row, position in enumerate(positions):
-            out[position - window_start] = host_images[row]
+    """Wait for a dispatched window's copies and yield its frames in stream
+    order (the spans close before the first frame goes to the caller)."""
+    frames, groups, ready = window
+    with span("runtime.await_window"):
+        for event in ready:
+            event.synchronize()
+    with span("runtime.deliver"):
+        out: List[Optional[np.ndarray]] = [None] * frames
+        for images, positions in groups:
+            host_images = _fetch_to_host(images)
+            for row, position in enumerate(positions):
+                out[position - window_start] = host_images[row]
     for image in out:
         assert image is not None
         yield image
@@ -576,27 +580,32 @@ class MultiNetwork:
 
         def dispatch_window(start: int, end: int) -> Window:
             """Group [start:end) by index, queue each group and its copy to the host."""
-            window_indices = network_indices[start:end]
-            groups: List[Tuple[Any, List[int]]] = []
-            gpus: Dict[torch.device, None] = {}
-            for index in dict.fromkeys(int(i) for i in window_indices):
-                positions = [start + int(o) for o in np.nonzero(window_indices == index)[0]]
-                # Full batches first; only the remainder pays pad waste.
-                for chunk_start in range(0, len(positions), batch_size):
-                    chunk_positions = positions[chunk_start : chunk_start + batch_size]
-                    padded, real = _pad_batch(
-                        frame_data[chunk_positions],
-                        _bucket_size(len(chunk_positions), batch_size, multiple=data_axis),
-                    )
-                    images = networks[index].device_images_generic(padded)
-                    if torch.is_tensor(images) and images.is_cuda:
-                        gpus[images.device] = None
-                    groups.append((_start_host_copy(images, real), chunk_positions))
-            ready = []
-            for gpu in gpus:
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(gpu))
-                ready.append(event)
+            with span("runtime.dispatch_window"):
+                window_indices = network_indices[start:end]
+                groups: List[Tuple[Any, List[int]]] = []
+                gpus: Dict[torch.device, None] = {}
+                for index in dict.fromkeys(int(i) for i in window_indices):
+                    positions = [start + int(o) for o in np.nonzero(window_indices == index)[0]]
+                    # Full batches first; only the remainder pays pad waste.
+                    for chunk_start in range(0, len(positions), batch_size):
+                        chunk_positions = positions[chunk_start : chunk_start + batch_size]
+                        rows = _bucket_size(len(chunk_positions), batch_size, multiple=data_axis)
+                        padded, real = _pad_batch(frame_data[chunk_positions], rows)
+                        with span("runtime.forward"):
+                            images = networks[index].device_images_generic(padded)
+                        if torch.is_tensor(images) and images.is_cuda:
+                            gpus[images.device] = None
+                        with span("runtime.host_copy"):
+                            groups.append((_start_host_copy(images, real), chunk_positions))
+                        count("runtime.forwards")
+                        count("runtime.rows_real", real)
+                        count("runtime.rows_dispatched", rows)
+                ready = []
+                for gpu in gpus:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(gpu))
+                    ready.append(event)
+            count("runtime.windows")
             return end - start, groups, ready
 
         pending: Optional[Window] = None

@@ -5,7 +5,13 @@ gance_tpu/utils/profiling.py).
   * `trace(log_dir)`: a context manager around torch.profiler (host ops, and
     the device's kernels when CUDA is present); on exit it writes a Chrome
     trace (`trace.<pid>.json`, viewable in Perfetto or chrome://tracing) into
-    `log_dir`.
+    `log_dir`, with the spans of every thread of the process.
+  * `span(name, **ids)` / `add_span` / `count(name, n)`: the program's own
+    spans and counters. They record exactly while a torch profiler is active
+    in the process (torch's process-wide `_is_profiler_enabled`, which
+    `trace()` and any `torch.profiler.profile` set); otherwise `span` returns
+    one shared null context after reading that flag, with no clock read and
+    no `record_function`. `spans()` and `counters()` return snapshots.
   * `StageTimer` / `timed_iterator` / `timed_stage`: frames/s counters for
     pipeline stages; each logs rolling rates and a final summary dict, which
     is also appended as one JSON line to $GANCE_TPU_STAGE_STATS when that is
@@ -13,13 +19,18 @@ gance_tpu/utils/profiling.py).
   * `start_memwatch`: a sampler of host RSS and device memory in use.
 """
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, Optional, TypeVar
+from typing import Any, Dict, Iterable, Iterator, List, NamedTuple, Optional, TypeVar
+
+import torch.autograd.profiler as _autograd_profiler
 
 from gance_tpu_torch.utils.logging import LOGGER
 
@@ -29,9 +40,188 @@ _T = TypeVar("_T")
 STAGE_STATS_ENV = "GANCE_TPU_STAGE_STATS"
 
 
+#: Spans kept in memory per process; once full, the oldest go first.
+SPAN_BUFFER = 1 << 18
+#: The span `trace()` records on the profiler's thread as it starts: the one
+#: span that is in the profiler's trace and in the buffer both, so the export
+#: reads the offset between the two clocks from it.
+CLOCK_MARK = "profiling.clock_mark"
+
+
+class Span(NamedTuple):
+    """One recorded span. Times are `now_us()`. `tid` is the native id of the
+    thread it ran on, None for a span measured across threads (`add_span`);
+    `parent` is the `id` of the span that caused it."""
+
+    name: str
+    tid: Optional[int]
+    start_us: float
+    end_us: float
+    id: int
+    parent: Optional[int]
+    ids: Dict[str, Any]
+
+
+def now_us() -> float:
+    """The span clock: the host's monotonic clock in microseconds (a step
+    of the wall clock moves no span). `trace()` maps it onto the trace's
+    clock through `CLOCK_MARK`."""
+    return time.monotonic_ns() / 1e3
+
+
+class _Recorder:
+    """The process's span buffer and counters (torch's profiler is
+    process-wide, and so is what records beside it)."""
+
+    def __init__(self) -> None:
+        self.spans: "collections.deque[Span]" = collections.deque(maxlen=SPAN_BUFFER)
+        self.counts: Dict[str, int] = {}
+        self.lock = threading.Lock()
+        self.ids = itertools.count(1)
+        self.local = threading.local()
+
+    def open_spans(self) -> List[int]:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_RECORDER = _Recorder()
+
+
+class _NullSpan:
+    """What `span` returns while nothing records: one shared object."""
+
+    __slots__ = ()
+    id = None
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        return None
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """A recording span: a `record_function` (so the profiler's own thread
+    shows it in its trace) and an entry in the buffer (every thread)."""
+
+    __slots__ = ("name", "ids", "id", "parent", "start", "annotation")
+
+    def __init__(self, name: str, ids: Dict[str, Any]) -> None:
+        self.name = name
+        self.ids = ids
+
+    def __enter__(self) -> "_Span":
+        stack = _RECORDER.open_spans()
+        self.parent = stack[-1] if stack else None
+        self.id = next(_RECORDER.ids)
+        stack.append(self.id)
+        self.annotation = _autograd_profiler.record_function(self.name)
+        self.annotation.__enter__()
+        self.start = now_us()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        end = now_us()
+        self.annotation.__exit__(*exc)
+        _RECORDER.open_spans().pop()
+        _RECORDER.spans.append(Span(self.name, threading.get_native_id(), self.start, end,
+                                    self.id, self.parent, self.ids))
+
+
+def span(name: str, **ids: Any) -> Any:
+    """A context manager around one step of the program, named `name`, with
+    identifiers `ids` (a request's id, a batch's). Its `id` is the parent a
+    child names (None while nothing records)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NULL_SPAN
+    return _Span(name, ids)
+
+
+def add_span(name: str, start_us: float, end_us: float, parent: Optional[int] = None,
+             **ids: Any) -> None:
+    """Record a span measured elsewhere, on the `now_us()` clock: one that
+    starts on one thread and ends on another (a request's wait)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    _RECORDER.spans.append(Span(name, None, start_us, end_us, next(_RECORDER.ids), parent, ids))
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` while recording."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _RECORDER.lock:
+        _RECORDER.counts[name] = _RECORDER.counts.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the counters."""
+    with _RECORDER.lock:
+        return dict(_RECORDER.counts)
+
+
+def spans() -> List[Span]:
+    """A snapshot of the span buffer, oldest first."""
+    return list(_RECORDER.spans)
+
+
+def reset() -> None:
+    """Empty the span buffer and the counters."""
+    with _RECORDER.lock:
+        _RECORDER.spans.clear()
+        _RECORDER.counts.clear()
+
+
+def _add_buffered_spans(path: Path, recorded: List[Span], mark_us: float,
+                        own_tid: int) -> None:
+    """Write into the Chrome trace at `path` the buffered spans of the threads
+    the profiler did not record (it records annotations on its own thread,
+    `own_tid`, only): one complete event per span on its thread's track, and
+    a pair of async events for a span measured across threads. The offset
+    between the span clock and the trace's is that of `CLOCK_MARK`, which
+    started at `mark_us`. A trace with no such span is left as it is."""
+    if all(item.tid == own_tid for item in recorded):
+        return
+    with open(path, encoding="utf-8") as handle:
+        document = json.load(handle)
+    events = document["traceEvents"]
+    annotated = {e.get("tid") for e in events if e.get("cat") == "user_annotation"}
+    mark = [e for e in events if e.get("name") == CLOCK_MARK and e.get("ph") == "X"][0]
+    offset = float(mark["ts"]) - mark_us
+    pid = os.getpid()
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tracks = set()
+    for item in recorded:
+        args = dict(item.ids, span=item.id, parent=item.parent)
+        start = item.start_us + offset
+        if item.tid is None:
+            common = {"cat": "program_span", "name": item.name, "id": item.id, "pid": pid,
+                      "tid": pid}
+            events.append(dict(common, ph="b", ts=start, args=args))
+            events.append(dict(common, ph="e", ts=item.end_us + offset))
+        elif item.tid not in annotated:
+            tracks.add(item.tid)
+            events.append({"ph": "X", "cat": "user_annotation", "name": item.name, "pid": pid,
+                           "tid": item.tid, "ts": start, "dur": item.end_us - item.start_us,
+                           "args": args})
+    for tid in sorted(tracks):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                       "args": {"name": f"{names.get(tid, 'thread')} ({tid})"}})
+    with open(path, "w", encoding="utf-8") as handle:
+        json.dump(document, handle)
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[Path]) -> Iterator[None]:
-    """torch.profiler trace written to `log_dir` when one is given; no-op otherwise."""
+    """torch.profiler trace written to `log_dir` when one is given; no-op
+    otherwise. The span buffer and counters start empty, and the trace gets
+    the spans of every thread."""
     if log_dir is None:
         yield
         return
@@ -43,9 +233,13 @@ def trace(log_dir: Optional[Path]) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as profiler:
+        reset()
+        with span(CLOCK_MARK) as mark:
+            pass
         yield
     path = log_dir / f"trace.{os.getpid()}.json"
     profiler.export_chrome_trace(str(path))
+    _add_buffered_spans(path, spans(), mark.start, threading.get_native_id())
     LOGGER.info("Wrote profiler trace to %s", path)
 
 

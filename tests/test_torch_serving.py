@@ -90,6 +90,12 @@ def outcome(future, timeout: float = 30.0):
         return ("error", type(error).__name__, str(error))
 
 
+def timeless(stats):
+    """The batcher's counters without its times (latency and, in the port,
+    queue wait), which differ from run to run."""
+    return {k: v for k, v in stats.items() if "latency" not in k and "queue_wait" not in k}
+
+
 def scenario_coalesce(pkg, record):
     batcher_mod, runtime = PACKAGES[pkg]
     fake = gated_fake(runtime)
@@ -101,7 +107,7 @@ def scenario_coalesce(pkg, record):
                   batcher.submit(rows(5, 2, 6, VECTOR))]
         fake.gate.set()
         record["results"] = [outcome(f) for f in [first] + queued]
-        record["stats"] = {k: v for k, v in batcher.stats().items() if "latency" not in k}
+        record["stats"] = timeless(batcher.stats())
     record["batches"] = fake.batches
 
 
@@ -113,7 +119,7 @@ def scenario_partial_consume(pkg, record):
     with batcher_mod.DynamicBatcher(fake, max_batch=8, max_delay_ms=0) as batcher:
         record["results"] = [outcome(batcher.submit(data))]
         record["direct"] = fake._render(data).tolist()
-        record["stats"] = {k: v for k, v in batcher.stats().items() if "latency" not in k}
+        record["stats"] = timeless(batcher.stats())
     record["batches"] = fake.batches
 
 
@@ -154,7 +160,7 @@ def scenario_retire(pkg, record):
                 call()
             record.setdefault("errors", []).append(str(info.value))
         record["added"] = batcher.add_network(gated_fake(runtime))
-        record["stats"] = {k: v for k, v in batcher.stats().items() if "latency" not in k}
+        record["stats"] = timeless(batcher.stats())
 
 
 def scenario_close(pkg, record):

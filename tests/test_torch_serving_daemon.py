@@ -7,9 +7,10 @@ uint8 step of JAX's on at least 99.9% of pixels (fp32 sums in another order
 can cross a rounding boundary), and at least 90% equal; the error statuses,
 the /healthz and /stats keys and the /metrics names as JAX's; each package's
 client against the other's daemon; the drain (in process, and the serve CLI
-in a child process under SIGTERM); hot load and unload. Two departures are
-shown beside JAX's behaviour: the byte bound on registered projections, and
-a drain that waits for responses still being written.
+in a child process under SIGTERM); hot load and unload. Three departures are
+shown beside JAX's behaviour: the byte bound on registered projections, a
+drain that waits for responses still being written, and the queue-wait
+quantiles in /stats and /metrics.
 """
 
 import io
@@ -147,10 +148,17 @@ def test_malformed_body_status_matches_jax(daemons):
     assert statuses["port"] == statuses["jax"] == 400
 
 
+# the port's /stats and /metrics fields that JAX's daemon lacks
+PORT_ONLY_STATS = {"queue_wait_p50_ms", "queue_wait_p95_ms"}
+PORT_ONLY_METRICS = {"gance_serving_queue_wait_p50_seconds",
+                     "gance_serving_queue_wait_p95_seconds"}
+
+
 def test_healthz_stats_and_metrics_have_jax_keys(daemons):
     for path in ("/healthz", "/stats"):
         got, want = (json.loads(call(daemons[pkg], path)[1]) for pkg in ("port", "jax"))
-        assert set(got) == set(want)
+        # the port adds its queue-wait quantiles exactly where latency is reported
+        assert set(got) == set(want) | (PORT_ONLY_STATS if "latency_p50_ms" in want else set())
     health = json.loads(call(daemons["port"], "/healthz")[1])
     import gance_tpu_torch
 
@@ -161,7 +169,9 @@ def test_healthz_stats_and_metrics_have_jax_keys(daemons):
         return {line.rsplit(" ", 1)[0].split("{")[0] for line in text.splitlines()
                 if line and not line.startswith("#")}
 
-    assert names("port") == names("jax")
+    want = names("jax")
+    served = "gance_serving_latency_p50_seconds" in want
+    assert names("port") == want | (PORT_ONLY_METRICS if served else set())
 
 
 def test_rows_and_frame_caps_match_jax():
