@@ -16,9 +16,12 @@ in order (any failure exits non-zero; no phase's failure is caught):
    function where there is one, and the least time the card could take
    (bound). A and B must equal their twins bit for bit; C rounds like its
    twin: fp32 max abs error at most 1e-5 of the output's scale, bf16 at most
-   2 bf16 ulps. A is also held with
-   per-sample noise at training's (4, 64, 1024, 1024), and A and B with x
-   one element past a 16-byte boundary (their scalar paths). E takes the nine taps of
+   2 bf16 ulps. A runs at each shape with a (B, C) `scale` (the layer's
+   demodulation, the form the path launches, which A's per-forward sums
+   count) and without one (the form the autograd route launches). A is also
+   held with per-sample noise at training's (4, 64, 1024, 1024), and A
+   (with and without a scale) and B with x one element past a 16-byte
+   boundary (their scalar paths). E takes the nine taps of
    its folded Conv1 weight (576 conv terms per output) and 256 ToRGB terms,
    its twin the dense fold (1024 terms), summed in another order: fp32 at
    most 1e-4 of the output's scale, bf16 at most 1e-2 (z and the output
@@ -564,9 +567,14 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
         # past a 16-byte boundary (a contiguous view with a storage offset)
         cases = [(s, n, TAPS if name == "upsample2x_blur" else None, 0) for s, n in shapes]
         if name == "fused_bias_noise_lrelu":
+            # A's option is (noise batch, scaled): the path launches A with the
+            # layer's demodulation as its scale (the per-forward sums); the
+            # autograd route (training, projection) launches it without
             top = shapes[-1][0]
-            cases.append(((TRAIN_BATCH,) + top[1:], 0, TRAIN_BATCH, 0))  # per-sample noise
-            cases.append((top, 0, None, 1))  # a misaligned base: A's scalar path
+            cases = [(s, n, (1, True), 0) for s, n in shapes]
+            cases += [(s, 0, (1, False), 0) for s, _ in shapes]
+            cases.append(((TRAIN_BATCH,) + top[1:], 0, (TRAIN_BATCH, False), 0))  # per-sample noise
+            cases += [(top, 0, (1, scaled), 1) for scaled in (True, False)]  # A's scalar path
         if name == "blur4_separable_pad11":
             # junk columns past an odd w_logical, filled with NaN: never read
             b, c, h, _ = shapes[-1][0]
@@ -601,12 +609,17 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                 tolerance: Dict[str, float] = {}
                 flops_per_s = FP32_FLOPS_PER_S
                 if name == "fused_bias_noise_lrelu":
-                    noise = randn((option or 1, 1, h, w), torch.float32)
+                    noise_batch, scaled = option
+                    noise = randn((noise_batch, 1, h, w), torch.float32)
                     bias = randn((c,), torch.float32)
                     strength = torch.tensor(0.37, device="cuda")
-                    run = lambda: K.fused_bias_noise_lrelu(x, noise, bias, strength)  # noqa: E731
-                    plain = lambda: K.fused_bias_noise_lrelu_plain(x, noise, bias, strength)  # noqa: E731
-                    moved, flops = 2 * x.numel() * size + noise.numel() * 4, 5 * x.numel()
+                    scale = randn((b, c), torch.float32).abs() + 0.5 if scaled else None
+                    run = lambda: K.fused_bias_noise_lrelu(  # noqa: E731
+                        x, noise, bias, strength, scale=scale)
+                    plain = lambda: K.fused_bias_noise_lrelu_plain(  # noqa: E731
+                        x, noise, bias, strength, scale)
+                    moved = 2 * x.numel() * size + noise.numel() * 4 + (b * c * 4 if scaled else 0)
+                    flops = (6 if scaled else 5) * x.numel()
                 elif name == "upsample2x_blur":
                     taps = option
                     run = lambda: K.upsample2x_blur(x, taps)  # noqa: E731
@@ -672,8 +685,9 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
                     outs = b * c * (h - 1) * (wl - 1)
                     moved, flops = (b * c * h * wl + outs) * size, 16 * outs
                 label = f"{name} {tuple(shape)} {str(dtype)[6:]}"
-                if name == "fused_bias_noise_lrelu" and option:
-                    label += f" noise {tuple(noise.shape)}"
+                if name == "fused_bias_noise_lrelu":
+                    label += f" noise {tuple(noise.shape)}" if option[0] != 1 else ""
+                    label += " with scale (B, C)" if option[1] else " without scale"
                 elif option == "phases":
                     label = (f"{name} phase planes of {tuple(shape)} {str(dtype)[6:]}")
                 elif option is not None and name == "blur4_separable_pad11":

@@ -44,6 +44,7 @@ from gance_tpu_torch.ops.modulated_conv import (
     conv2d_layer,
     dense_layer,
     modulated_conv2d,
+    modulated_conv2d_undemodulated,
     runtime_weight_coef,
 )
 from gance_tpu_torch.ops.precision import apply_conv_precision, exact_fp32
@@ -318,15 +319,17 @@ def _synthesis_layer(
     config: GeneratorConfig,
     compute_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """conv (maybe up) -> noise inject -> bias + lrelu (NVlabs `layer()`)."""
-    x = modulated_conv2d(
+    """conv (maybe up) -> noise inject -> bias + lrelu (NVlabs `layer()`). With
+    noise, kernel A applies the conv's demodulation in its own pass."""
+    y, demod = modulated_conv2d_undemodulated(
         x, dlatent_row, layer_params["weight"], layer_params["mod_weight"],
         layer_params["mod_bias"], up=up, demodulate=True,
         resample_kernel=config.resample_kernel, compute_dtype=compute_dtype,
     )
     if noise is None:
-        return bias_act(x, layer_params["bias"], act="lrelu")
-    return fused_bias_noise_lrelu(x, noise, layer_params["bias"], layer_params["noise_strength"])
+        return bias_act(y * demod[:, :, None, None].to(y.dtype), layer_params["bias"], act="lrelu")
+    return fused_bias_noise_lrelu(y, noise, layer_params["bias"], layer_params["noise_strength"],
+                                  scale=demod)
 
 
 def _torgb(

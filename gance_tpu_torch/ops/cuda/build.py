@@ -27,7 +27,7 @@ _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 FUNCTIONS = {
     "fused_bias_noise_lrelu": (
-        "gance_fused_bias_noise_lrelu", [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P]
+        "gance_fused_bias_noise_lrelu", [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P]
     ),
     "upsample2x_blur": (
         "gance_upsample2x_blur", [_P, _P, _L, _I, _I, _F, _F, _F, _F, _I, _P]

@@ -1,26 +1,37 @@
 // Kernel A: the synthesis layer epilogue
-//     out = lrelu(x + noise * strength + bias[c], 0.2) * sqrt(2)
-// over NCHW x (fp32 or bf16), noise (1 or B, 1, H, W) fp32, bias (C,) fp32 and
+//     out = lrelu(x * scale[b, c] + noise * strength + bias[c], 0.2) * sqrt(2)
+// over NCHW x (fp32 or bf16), noise (1 or B, 1, H, W) fp32, bias (C,) fp32,
 // strength, a 0-d fp32 tensor read through a device pointer (so the host never
-// syncs to read it). The sum is (x + noise * strength) + bias in fp32, as the
-// twin (fused_ops.py::fused_bias_noise_lrelu_plain) takes it, then one rounding
-// to x's dtype.
+// syncs to read it), and an optional scale (B, C) fp32: the layer's
+// demodulation, which the conv before it leaves unapplied. A null scale is
+// the epilogue without it. The scale and the product x * scale round to x's
+// dtype (each operation rounds alone: build.py's --fmad=false, and
+// __fmul_rn), as the separate multiply in x's dtype it replaces; then the
+// sum is
+// (x + noise * strength) + bias in fp32, as the twin
+// (fused_ops.py::fused_bias_noise_lrelu_plain) takes it, then one rounding to
+// x's dtype. So A with a scale equals that multiply followed by A without one,
+// bit for bit.
 //
 // Replaces gance_tpu/ops/pallas/fused_ops.py::fused_bias_noise_lrelu.
 // Bound on the H100: memory. It reads x and noise once and writes out once,
-// (2|x| + |noise|) bytes at 3.35 TB/s; the 5 flops per element are far below
-// the fp32 rate.
+// (2|x| + |noise|) bytes at 3.35 TB/s, plus B*C scale floats (under 0.01% of
+// x at config-f's shapes); the 6 flops per element are far below the fp32
+// rate. The scale saves the separate multiply's read and write of x (2|x|).
 // Design: a streaming epilogue. A block takes a run of pixels of one sample
 // across a group of channels: blockIdx.x a tile of pixels, blockIdx.y a group
 // of channels, blockIdx.z the sample. Each thread owns one 16-byte unit of
 // pixels (4 fp32 or 8 bf16) and a few channels of the group: it reads the
 // noise of its unit once (the noise plane broadcasts over C), scales it by
 // strength, keeps it in registers and applies it in each of its channels, so
-// noise is read once per group and not once per plane. x is loaded as 16-byte
-// vectors, kInFlight channels before the first use, and out stored as 16-byte
-// vectors, both with the streaming hint so that noise stays in L2. A plane
-// with fewer units than a block's threads shares the block with other
-// channels (threadIdx.y), so the 4x4 to 64x64 layers launch one wave or less.
+// noise is read once per group and not once per plane. It reads bias[c] and
+// scale[b, c] once per channel (every thread of a channel reads the same
+// word, from L1). x is loaded as 16-byte vectors, kInFlight channels before
+// the first use, and out stored as 16-byte vectors, both with the streaming
+// hint so that noise stays in L2. A plane with fewer units than a block's
+// threads shares the block with other channels (threadIdx.y), so the 4x4 to
+// 64x64 layers launch one wave or less. Whether a scale is given is a
+// template parameter: without one the kernel is the epilogue alone.
 // The vector path needs 16-byte aligned x, noise and out and H*W a multiple of
 // the unit; anything else (a view with a storage offset, odd H*W) takes the
 // scalar path of the same kernel: units of one element, the same map.
@@ -84,12 +95,12 @@ struct Unit<T, 1> {
   static __device__ __forceinline__ void noise(const float* p, float (&n)[1]) { n[0] = __ldg(p); }
 };
 
-template <typename T, int V>
+template <typename T, int V, bool kScaled>
 __global__ void __launch_bounds__(kThreads, 4)  // at most 64 registers a thread
 bias_noise_lrelu_kernel(const T* __restrict__ x, const float* __restrict__ noise,
                         const float* __restrict__ bias, const float* __restrict__ strength,
-                        T* __restrict__ out, int channels, long hw, int noise_per_sample,
-                        int channels_per_thread) {
+                        const float* __restrict__ scale, T* __restrict__ out, int channels,
+                        long hw, int noise_per_sample, int channels_per_thread) {
   using U = Unit<T, V>;
   const long unit = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (unit * V >= hw) return;
@@ -126,6 +137,14 @@ bias_noise_lrelu_kernel(const T* __restrict__ x, const float* __restrict__ noise
         U::unpack(raw[j], f);
 #if GANCE_A_ABLATE != 2
         const float bc = __ldg(bias + c);
+        if constexpr (kScaled) {
+          // scale and x * scale rounded to T, as the separate multiply in T rounds them
+          const float sc = gance::to_float(gance::from_float<T>(__ldg(scale + b * channels + c)));
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            f[i] = gance::to_float(gance::from_float<T>(__fmul_rn(f[i], sc)));
+          }
+        }
 #pragma unroll
         for (int i = 0; i < V; ++i) {
           const float v = (f[i] + ns[i]) + bc;
@@ -171,40 +190,47 @@ Plan plan(long batch, int channels, long units) {
 }
 
 template <typename T, int V>
-int launch(const void* x, const void* noise, const void* bias, const void* strength, void* out,
-           long batch, int channels, long hw, int noise_per_sample, cudaStream_t stream) {
+int launch(const void* x, const void* noise, const void* bias, const void* strength,
+           const void* scale, void* out, long batch, int channels, long hw,
+           int noise_per_sample, cudaStream_t stream) {
   const Plan p = plan(batch, channels, hw / V);
   if (p.tiles > 2147483647L || p.groups > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(p.tiles), static_cast<unsigned>(p.groups),
                   static_cast<unsigned>(batch));
   const dim3 block(p.unit_threads, p.lanes);
-  bias_noise_lrelu_kernel<T, V><<<grid, block, 0, stream>>>(
+  auto kernel = scale != nullptr ? bias_noise_lrelu_kernel<T, V, true>
+                                 : bias_noise_lrelu_kernel<T, V, false>;
+  kernel<<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(noise),
       static_cast<const float*>(bias), static_cast<const float*>(strength),
-      static_cast<T*>(out), channels, hw, noise_per_sample, p.channels_per_thread);
+      static_cast<const float*>(scale), static_cast<T*>(out), channels, hw, noise_per_sample,
+      p.channels_per_thread);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* x, const void* noise, const void* bias, const void* strength, void* out,
-             long batch, int channels, long hw, int noise_per_sample, cudaStream_t stream) {
+int dispatch(const void* x, const void* noise, const void* bias, const void* strength,
+             const void* scale, void* out, long batch, int channels, long hw,
+             int noise_per_sample, cudaStream_t stream) {
   constexpr int V = gance::kVec<T>;
   const bool vector = GANCE_A_ABLATE != 3 && hw % V == 0 && gance::aligned(x, 16) &&
                       gance::aligned(out, 16) && gance::aligned(noise, 16);
   if (vector) {
-    return launch<T, V>(x, noise, bias, strength, out, batch, channels, hw, noise_per_sample,
-                        stream);
+    return launch<T, V>(x, noise, bias, strength, scale, out, batch, channels, hw,
+                        noise_per_sample, stream);
   }
-  return launch<T, 1>(x, noise, bias, strength, out, batch, channels, hw, noise_per_sample,
-                      stream);
+  return launch<T, 1>(x, noise, bias, strength, scale, out, batch, channels, hw,
+                      noise_per_sample, stream);
 }
 
 }  // namespace
 
+// scale: (B, C) fp32, or null for none.
 extern "C" int gance_fused_bias_noise_lrelu(const void* x, const void* noise,
                                             const void* bias, const void* strength,
-                                            void* out, long planes, int channels, long hw,
-                                            int noise_per_sample, int dtype, void* stream) {
+                                            const void* scale, void* out, long planes,
+                                            int channels, long hw, int noise_per_sample,
+                                            int dtype, void* stream) {
   if (planes <= 0 || channels <= 0 || hw <= 0 || planes % channels != 0 ||
       planes / channels > 65535) {
     return cudaErrorInvalidValue;
@@ -212,10 +238,11 @@ extern "C" int gance_fused_bias_noise_lrelu(const void* x, const void* noise,
   const long batch = planes / channels;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == gance::kFloat32) {
-    return dispatch<float>(x, noise, bias, strength, out, batch, channels, hw, noise_per_sample, s);
+    return dispatch<float>(x, noise, bias, strength, scale, out, batch, channels, hw,
+                           noise_per_sample, s);
   }
   if (dtype == gance::kBFloat16) {
-    return dispatch<__nv_bfloat16>(x, noise, bias, strength, out, batch, channels, hw,
+    return dispatch<__nv_bfloat16>(x, noise, bias, strength, scale, out, batch, channels, hw,
                                    noise_per_sample, s);
   }
   return cudaErrorInvalidValue;

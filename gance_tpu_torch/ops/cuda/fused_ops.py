@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from gance_tpu_torch.ops.cuda import autograd as _autograd
 from gance_tpu_torch.ops.cuda import build
 from gance_tpu_torch.ops.precision import exact_fp32
+from gance_tpu_torch.utils import profiling
 
 LAUNCHES: Dict[str, int] = {
     "fused_bias_noise_lrelu": 0,
@@ -121,9 +122,16 @@ def _launch(name: str, library: str, device: int, *args) -> None:
 
 
 def fused_bias_noise_lrelu_plain(
-    x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor, strength: torch.Tensor
+    x: torch.Tensor,
+    noise: torch.Tensor,
+    bias: torch.Tensor,
+    strength: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The twin of kernel A: same fp32 arithmetic, output in x's dtype."""
+    """The twin of kernel A: same fp32 arithmetic, output in x's dtype. A
+    scale multiplies x first, rounded to x's dtype as a separate multiply is."""
+    if scale is not None:
+        x = x * scale.to(x.dtype)[:, :, None, None]
     pre = (
         x.float()
         + noise.float() * strength.float()
@@ -133,43 +141,67 @@ def fused_bias_noise_lrelu_plain(
 
 
 def fused_bias_noise_lrelu(
-    x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor, strength: torch.Tensor
+    x: torch.Tensor,
+    noise: torch.Tensor,
+    bias: torch.Tensor,
+    strength: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """
-    lrelu(x + noise * strength + bias, 0.2) * sqrt(2) in one pass.
+    lrelu(x * scale + noise * strength + bias, 0.2) * sqrt(2) in one pass.
 
     :param x: (B, C, H, W) fp32 or bf16.
     :param noise: (1, 1, H, W) constant noise, or (B, 1, H, W) per-sample noise.
     :param bias: (C,).
     :param strength: 0-d tensor; the kernel reads it on the device (no sync).
+    :param scale: None, or (B, C) per-sample channel scales (a conv's
+        demodulation), applied to x in the same pass and rounded to x's dtype
+        as `x * scale` is. Where a gradient may be asked for, `x * scale` runs
+        as its own PyTorch op before the kernel, as it would without A.
     """
     b, c, h, w = x.shape
     if noise.shape not in ((1, 1, h, w), (b, 1, h, w)) or bias.shape != (c,):
         raise ValueError(f"bad shapes x {tuple(x.shape)}, noise {tuple(noise.shape)}, "
                          f"bias {tuple(bias.shape)}")
+    if scale is not None and scale.shape != (b, c):
+        raise ValueError(f"bad scale shape {tuple(scale.shape)} for x {tuple(x.shape)}")
     if strength.numel() != 1:
         raise ValueError("strength must hold one value")
     strength = _float32(strength)
     args = (x, _float32(noise), _float32(bias),
             strength.reshape(()) if strength.dim() else strength)
+    if scale is not None:
+        if _needs_grad(*args, scale):
+            profiling.count("ops.demod_separate")
+            args, scale = (x * scale[:, :, None, None].to(x.dtype), *args[1:]), None
+        else:
+            profiling.count("ops.demod_folded")
+            scale = _float32(scale)
     if _needs_grad(*args):
         return _autograd.FusedBiasNoiseLrelu.apply(*args)
-    return _fused_bias_noise_lrelu_run(*args)
+    return _fused_bias_noise_lrelu_run(*args, scale)
 
 
 def _fused_bias_noise_lrelu_run(
-    x: torch.Tensor, noise: torch.Tensor, bias: torch.Tensor, strength: torch.Tensor
+    x: torch.Tensor,
+    noise: torch.Tensor,
+    bias: torch.Tensor,
+    strength: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """A's forward without autograd: the twin on the CPU, else the kernel."""
+    """A's forward without autograd: the twin on the CPU, else the kernel. A
+    scale is fp32; both round it to x's dtype."""
     if _on_cpu(x):
-        return fused_bias_noise_lrelu_plain(x, noise, bias, strength)
+        return fused_bias_noise_lrelu_plain(x, noise, bias, strength, scale)
     b, c, h, w = x.shape
     noise, bias, strength = noise.contiguous(), bias.contiguous(), strength.contiguous()
-    device = _check("fused_bias_noise_lrelu", x, noise, bias, strength)
+    scales = () if scale is None else (scale.contiguous(),)
+    device = _check("fused_bias_noise_lrelu", x, noise, bias, strength, *scales)
     out = torch.empty_like(x)
     _launch(
         "fused_bias_noise_lrelu", "fused_bias_noise_lrelu", device,
         x.data_ptr(), noise.data_ptr(), bias.data_ptr(), strength.data_ptr(),
+        scales[0].data_ptr() if scales else None,
         out.data_ptr(), b * c, c, h * w, int(noise.shape[0] != 1),
         _DTYPE_CODES[x.dtype],
     )

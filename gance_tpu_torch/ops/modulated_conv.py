@@ -73,6 +73,30 @@ def modulated_conv2d(
     :param demodulate: apply weight demodulation (off for ToRGB).
     :return: (B, Cout, H', W') in `compute_dtype` (x's dtype by default).
     """
+    y, demod = modulated_conv2d_undemodulated(
+        x, style_w, weight, mod_weight, mod_bias, up=up, demodulate=demodulate,
+        resample_kernel=resample_kernel, compute_dtype=compute_dtype, down=down,
+    )
+    if demod is not None:
+        y = y * demod[:, :, None, None].to(y.dtype)
+    return y
+
+
+def modulated_conv2d_undemodulated(
+    x: torch.Tensor,
+    style_w: torch.Tensor,
+    weight: torch.Tensor,
+    mod_weight: torch.Tensor,
+    mod_bias: torch.Tensor,
+    up: bool = False,
+    demodulate: bool = True,
+    resample_kernel: Tuple[int, ...] = DEFAULT_RESAMPLE_KERNEL,
+    compute_dtype: Optional[torch.dtype] = None,
+    down: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """modulated_conv2d's conv and its demodulation d (B, Cout) fp32 (None
+    without `demodulate`), d not applied: the synthesis layers that end in
+    kernel A hand it d as A's `scale`."""
     if up and down:
         raise ValueError("up and down are mutually exclusive")
     dtype = compute_dtype or x.dtype
@@ -90,9 +114,7 @@ def modulated_conv2d(
         y = conv_downsample_2d(x, w, kernel=resample_kernel)
     else:
         y = F.conv2d(x, w, padding=kh // 2)  # SAME for the odd kernels used here
-    if demod is not None:
-        y = y * demod[:, :, None, None].to(y.dtype)
-    return y
+    return y, demod
 
 
 def dense_layer(

@@ -153,6 +153,8 @@ def _wrapper_calls(rng):
         rng.randn(2, 12, 16).astype(np.float32) * 0.2]
     return {
         "A": (K.fused_bias_noise_lrelu, A.FusedBiasNoiseLrelu, _a_inputs(rng, 2)),
+        "A_scaled": (K.fused_bias_noise_lrelu, A.FusedBiasNoiseLrelu,
+                     _a_inputs(rng, 2) + [rng.rand(2, 3).astype(np.float32) + 0.5]),
         "B": (lambda x: K.upsample2x_blur(x, TAPS_1234), A.Upsample2xBlur,
               [rng.randn(2, 3, 5, 6).astype(np.float32)]),
         "C": (lambda x: K.blur4_separable_pad11(x, TAPS_1234, 9), A.Blur4SeparablePad11,
@@ -163,7 +165,7 @@ def _wrapper_calls(rng):
     }
 
 
-@pytest.mark.parametrize("name", ["A", "B", "C", "D", "E"])
+@pytest.mark.parametrize("name", ["A", "A_scaled", "B", "C", "D", "E"])
 def test_wrappers_skip_the_function_where_no_gradient_is_wanted(rng, name, monkeypatch):
     """Each public wrapper gives the same output with grad enabled and inputs
     that require it (through its autograd Function, whose node the output
@@ -186,6 +188,36 @@ def test_wrappers_skip_the_function_where_no_gradient_is_wanted(rng, name, monke
         outputs.append(fn(*plain))
     for out in outputs:
         assert out.grad_fn is None and torch.equal(out, with_grad.detach())
+
+
+@pytest.mark.parametrize("noise_batch", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_noise_lrelu_scale_equals_the_separate_multiply(rng, dtype, noise_batch):
+    """A's twin and its CPU wrapper with `scale` (a conv's demodulation) give
+    `x * scale` in x's dtype followed by A without it, bit for bit; a scale of
+    ones changes nothing."""
+    x = torch.from_numpy(rng.randn(3, 5, 6, 7).astype(np.float32)).to(dtype)
+    noise = torch.from_numpy(rng.randn(noise_batch, 1, 6, 7).astype(np.float32))
+    bias, strength = torch.from_numpy(rng.randn(5).astype(np.float32)), torch.tensor(0.37)
+    scale = torch.from_numpy(rng.rand(3, 5).astype(np.float32) + 0.3)
+    want = K.fused_bias_noise_lrelu_plain(x * scale[:, :, None, None].to(dtype), noise, bias,
+                                          strength)
+    # the scale rounded to x's dtype first, held in fp32: the same
+    rounded = scale.to(dtype).float()
+    for got in (K.fused_bias_noise_lrelu_plain(x, noise, bias, strength, scale),
+                K.fused_bias_noise_lrelu_plain(x, noise, bias, strength, rounded),
+                K.fused_bias_noise_lrelu(x, noise, bias, strength, scale=scale)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(K.fused_bias_noise_lrelu(x, noise, bias, strength, torch.ones(3, 5)),
+                       K.fused_bias_noise_lrelu(x, noise, bias, strength))
+
+
+def test_fused_bias_noise_lrelu_rejects_a_bad_scale():
+    x, noise, bias, strength = torch.zeros(2, 3, 4, 4), torch.zeros(1, 1, 4, 4), torch.zeros(3), \
+        torch.tensor(1.0)
+    for shape in ((3, 2), (2,), (2, 3, 1, 1), (1, 3)):
+        with pytest.raises(ValueError, match="bad scale shape"):
+            K.fused_bias_noise_lrelu(x, noise, bias, strength, scale=torch.ones(shape))
 
 
 def test_wrappers_reject_bad_inputs():
@@ -883,14 +915,17 @@ def a_unit(elem_bytes, hw, x_offset=0, noise_offset=0):
     return v if aligned and hw % v == 0 else 1
 
 
-def a_emulate(x, noise, bias, strength, elem_bytes, x_offset=0, noise_offset=0, plan_batch=None):
+def a_emulate(x, noise, bias, strength, elem_bytes, x_offset=0, noise_offset=0, plan_batch=None,
+              scale=None):
     """
     bias_noise_lrelu_kernel over x (B, C, H*W) and noise (1 or B, H*W) as
     fp32 values: the plan, each thread's unit and channels, the noise read
     once per unit and kept, the arithmetic in fp32 in the kernel's order.
-    Returns the fp32 output (to be rounded to x's dtype), the plan and the
-    unit. `plan_batch` plans the launch for a larger batch of which x is the
-    first samples (blockIdx.z only picks the sample).
+    With `scale` (B, C) fp32, each channel's scale[b, c] multiplies x first,
+    the scale and the product each rounded to x's dtype. Returns the fp32 output (to be rounded to
+    x's dtype), the plan and the unit. `plan_batch` plans the launch for a
+    larger batch of which x is the first samples (blockIdx.z only picks the
+    sample).
     """
     b, c, hw = x.shape
     v = a_unit(elem_bytes, hw, x_offset, noise_offset)
@@ -913,7 +948,15 @@ def a_emulate(x, noise, bias, strength, elem_bytes, x_offset=0, noise_offset=0, 
                     if ch >= c:
                         continue
                     idx = (bz * c + ch) * hw + pixels
-                    val = (xf[idx] + ns) + np.float32(bias[ch])
+                    xv = xf[idx]
+                    if scale is not None:
+                        sc = scale.reshape(-1)[bz * c + ch:bz * c + ch + 1]
+                        if elem_bytes == 2:
+                            sc = _bits(sc, torch.bfloat16).float().numpy()
+                        xv = xv * sc[0]
+                        if elem_bytes == 2:
+                            xv = _bits(xv, torch.bfloat16).float().numpy()
+                    val = (xv + ns) + np.float32(bias[ch])
                     out[idx] = np.where(val >= 0, val, val * np.float32(0.2)) * SQRT2_F32
                     writes += idx.size
     assert writes == out.size and not np.isnan(out).any()  # each output written once
@@ -926,17 +969,21 @@ def _normal(rng, shape):
 
 
 def _a_emulation_case(rng, shape, dtype, noise_batch=1, x_offset=0, noise_offset=0,
-                      plan_batch=None):
+                      plan_batch=None, scaled=False):
     b, c, h, w = shape
     x = _bits(_normal(rng, shape), dtype)
     noise = torch.from_numpy(_normal(rng, (noise_batch, 1, h, w)))
     bias = torch.from_numpy(_normal(rng, c))
     strength = torch.tensor(0.37)
+    scale = torch.from_numpy(_normal(rng, (b, c))).abs().add(0.5) if scaled else None
     got, g, v = a_emulate(x.float().numpy().reshape(b, c, h * w), noise.numpy().reshape(-1, h * w),
-                          bias.numpy(), 0.37, x.element_size(), x_offset, noise_offset, plan_batch)
+                          bias.numpy(), 0.37, x.element_size(), x_offset, noise_offset, plan_batch,
+                          None if scale is None else scale.numpy())
     got = _bits(got, dtype).reshape(shape)
     for c0 in range(0, c, 16):  # the twin is elementwise: compare in slices of channels
-        want = K.fused_bias_noise_lrelu_plain(x[:, c0:c0 + 16], noise, bias[c0:c0 + 16], strength)
+        cut = None if scale is None else scale[:, c0:c0 + 16]
+        want = K.fused_bias_noise_lrelu_plain(x[:, c0:c0 + 16], noise, bias[c0:c0 + 16], strength,
+                                              cut)
         assert torch.equal(got[:, c0:c0 + 16], want), (shape, dtype, c0)
     return g, v
 
@@ -978,6 +1025,21 @@ def test_a_emulation_ragged(rng, dtype):
     for offset in range(4):
         _, v = _a_emulation_case(rng, (2, 21, 8, 8), dtype, 2, noise_offset=offset)
         assert v == (vec if offset == 0 else 1)
+    assert units == {1, vec}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_emulation_with_scale(rng, dtype):
+    """The scale's index, scale[b, c] for each thread's channels, at batch 2
+    at config-f's 4x4 layer (512 channels) and with its top block's 64
+    channels on a 32x32 plane, and in ragged launches (odd H*W, C not a
+    multiple of the group, per-sample noise, x off its 16-byte boundary):
+    bit for bit with the twin given the same scale."""
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    cases = [((2, _nf(1), 4, 4), 1, 0), ((2, _nf(9), 32, 32), 2, 0), ((2, 3, 5, 7), 2, 0),
+             ((3, 37, 8, 8), 3, 0), ((2, 21, 8, 8), 2, 1)]
+    units = {_a_emulation_case(rng, shape, dtype, noise_batch, x_offset=offset, scaled=True)[1]
+             for shape, noise_batch, offset in cases}
     assert units == {1, vec}
 
 

@@ -405,6 +405,42 @@ def test_fused_bias_noise_lrelu_ragged_on_gpu(cuda_device, dtype):
     assert K.LAUNCHES["fused_bias_noise_lrelu"] == launches + len(cases)
 
 
+def _config_f_channels(stage):
+    """config-f's channel count at a stage (GeneratorConfig.nf)."""
+    return min(32768 >> stage, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_bias_noise_lrelu_scale_equals_separate_multiply_on_gpu(cuda_device, dtype):
+    """Kernel A with `scale` (a conv's demodulation, applied in A's pass)
+    equals `x * scale` in x's dtype followed by A without it, bit for bit
+    (atol 0): at config-f's channels on every side from 4 to 1024, batch 1
+    and 8, constant (1, 1, H, W) and per-sample (B, 1, H, W) noise, and on
+    the scalar path (x at an element offset, odd H*W). One launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    strength = torch.tensor(0.37, device=cuda_device)
+    sides = [(_config_f_channels(1), 4)] + [(_config_f_channels(r - 1), 2 ** r)
+                                             for r in range(3, 11)]
+    cases = [((b, c, r, r), noise_batch, 0) for c, r in sides for b in (1, 8)
+             for noise_batch in sorted({1, b})]
+    cases += [((8, 64, 33, 33), 8, 0), ((2, 21, 9, 9), 1, 1), ((8, 512, 16, 16), 1, 3)]
+    for shape, noise_batch, offset in cases:
+        b, c, h, w = shape
+        x = _at_offset(shape, offset, dtype, gen, cuda_device)
+        noise = torch.randn((noise_batch, 1, h, w), generator=gen, device=cuda_device)
+        bias = torch.randn((c,), generator=gen, device=cuda_device)
+        scale = torch.rand((b, c), generator=gen, device=cuda_device) + 0.05
+        launches = K.LAUNCHES["fused_bias_noise_lrelu"]
+        got = K.fused_bias_noise_lrelu(x, noise, bias, strength, scale=scale)
+        assert K.LAUNCHES["fused_bias_noise_lrelu"] == launches + 1
+        want = K.fused_bias_noise_lrelu(x * scale[:, :, None, None].to(dtype), noise, bias,
+                                        strength)
+        assert torch.equal(got, want), (shape, noise_batch, offset)
+        del x, got, want
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_upsample2x_blur_ragged_on_gpu(cuda_device, dtype):

@@ -6,7 +6,10 @@ in fp32 and bf16, and the host time per call of all five kernel wrappers:
 
   * A: each noise-carrying layer's epilogue, (8, C, r, r) for r = 4 .. 1024,
     with the constant noise (1, 1, r, r); and training's per-sample noise at
-    (4, 64, 1024, 1024);
+    (4, 64, 1024, 1024). Where the tree's A takes a `scale` (the layer's
+    demodulation, applied in A's pass), also A with it, checked bit for bit
+    against the separate multiply `x * scale` followed by A, and that
+    multiply's own ms;
   * B: the ToRGB skip upsample, (8, 3, r/2, r/2) for r = 8 .. 1024.
 
 For each shape it checks the kernel against its plain twin (bit for bit,
@@ -35,6 +38,7 @@ one run on one card. `--ablate` also builds measurement variants of A and B
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 import sys
@@ -109,6 +113,7 @@ def main() -> None:
     cases.append(("A", top, 0, S.TRAIN_BATCH))  # training's per-sample noise
     cases += [("B", shape, n, None) for shape, n in shapes["upsample2x_blur"]]
 
+    takes_scale = "scale" in inspect.signature(K.fused_bias_noise_lrelu).parameters
     records, totals = [], {}
     for kernel, shape, per_forward, noise_batch in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -139,27 +144,49 @@ def main() -> None:
                 del got, want
                 ms = S.time_ms(run)
                 lib_ms = S.time_ms(library) if library is not None else None
+                scaled_ms = multiply_ms = None
+                if kernel == "A" and takes_scale:
+                    scale = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+                    scaled = lambda: K.fused_bias_noise_lrelu(  # noqa: E731
+                        x, noise, bias, strength, scale=scale)
+                    multiply = lambda: x * scale[:, :, None, None].to(dtype)  # noqa: E731
+                    got = scaled()
+                    exact = exact and bool(torch.equal(
+                        got, K.fused_bias_noise_lrelu(multiply(), noise, bias, strength)))
+                    del got
+                    scaled_ms, multiply_ms = S.time_ms(scaled), S.time_ms(multiply)
             bound = moved / S.HBM_BYTES_PER_S * 1e3
             dname = str(dtype)[6:]
+            with_scale = ("" if scaled_ms is None else
+                          f" with scale ms {scaled_ms:.4f}, separate x * scale ms {multiply_ms:.4f}")
             print(f"{what} {dname}: ms {ms:.4f} bound {bound:.4f} share {bound / ms:.3f} "
                   f"GB/s {moved / ms / 1e6:.1f} library_ms "
-                  f"{None if lib_ms is None else round(lib_ms, 4)} exact {exact}", flush=True)
+                  f"{None if lib_ms is None else round(lib_ms, 4)}{with_scale} exact {exact}",
+                  flush=True)
             if not exact:
                 print(f"MISMATCH against the twin: {what} {dname}", file=sys.stderr, flush=True)
             records.append({"kernel": kernel, "shape": list(shape), "noise_batch": noise_batch,
                             "dtype": dname, "per_forward": per_forward, "ms": ms,
-                            "bound_ms": bound, "library_ms": lib_ms, "exact": exact})
+                            "bound_ms": bound, "library_ms": lib_ms, "scaled_ms": scaled_ms,
+                            "multiply_ms": multiply_ms, "exact": exact})
             if per_forward:
                 t = totals.setdefault((kernel, dname), {"ms": 0.0, "bound_ms": 0.0,
-                                                        "library_ms": 0.0})
+                                                        "library_ms": 0.0, "scaled_ms": 0.0,
+                                                        "multiply_ms": 0.0})
                 t["ms"] += per_forward * ms
                 t["bound_ms"] += per_forward * bound
                 t["library_ms"] += per_forward * (lib_ms or 0.0)
+                t["scaled_ms"] += per_forward * (scaled_ms or 0.0)
+                t["multiply_ms"] += per_forward * (multiply_ms or 0.0)
             del x
     for (kernel, dname), t in sorted(totals.items()):
+        with_scale = ("" if kernel != "A" or not takes_scale else
+                      f" with scale ms {t['scaled_ms']:.4f}, separate x * scale ms "
+                      f"{t['multiply_ms']:.4f}")
         print(f"sum {kernel} {dname} per synthesis forward at batch 8: ms {t['ms']:.4f} bound "
               f"{t['bound_ms']:.4f} share {t['bound_ms'] / t['ms']:.3f} library_ms "
-              f"{t['library_ms'] if kernel == 'B' else None} [{label}] on {card}", flush=True)
+              f"{t['library_ms'] if kernel == 'B' else None}{with_scale} [{label}] on {card}",
+              flush=True)
     torch.cuda.empty_cache()
     host = host_phase(S, K, build, config, gen, card, label)
     if args.json is not None:
@@ -324,7 +351,7 @@ def ablate(S, K, build, config, gen, card) -> None:
                       lambda x=x, noise=noise, bias=bias: K.fused_bias_noise_lrelu_plain(
                           x, noise, bias, strength),
                       (x.data_ptr(), noise.data_ptr(), bias.data_ptr(), strength.data_ptr(),
-                       out.data_ptr(), b * c, c, h * w, 0, code),
+                       None, out.data_ptr(), b * c, c, h * w, 0, code),
                       (2 * x.numel() * x.element_size() + noise.numel() * 4), (x, noise, bias)))
         for shape in (b_top, b_small):
             b, c, h, w = shape
