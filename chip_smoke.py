@@ -35,7 +35,11 @@ in order (any failure exits non-zero; no phase's failure is caught):
    printed beside it.
    D is held at the training path's shapes at batch 4 (every blur of one
    discriminator forward, C's input gradient at the top block, the FIR
-   (1, 2, 3, 4)) with A-C's limits; its library call is a depthwise conv2d;
+   (1, 2, 3, 4)) with A-C's limits; its library call is a depthwise conv2d.
+   F (StyleGAN3's filtered leaky ReLU) is held bit for bit against its twin
+   at the 14 layer shapes of the 1024px StyleGAN3-T network at batch 8, fp32
+   with a (B, C) scale, its bound port_bench/reference/bounds_sg3.py's
+   bytes and multiply-adds; no library call computes it;
 3. drives the main path: a random config-f 1024px network (seeded, with
    non-zero noise strengths, biases and dlatent_avg) is written with
    `save_generator_pickle`, loaded with `SynthesisNetwork.from_pkl`, and serves
@@ -349,12 +353,21 @@ in order (any failure exits non-zero; no phase's failure is caught):
    then prints ms per batch under the default algorithms and under
    `deterministic_cudnn`, timed in the order default, deterministic,
    deterministic, default.
+18. drives StyleGAN3-T at 1024px (gance_tpu_torch/models/stylegan3.py) on
+   the render path with two networks of the benchmark's weights, fp32:
+   vectors and their w+ as matrices at batch 8, a 40-frame 2-network
+   stream against each network's own renders, network 0's frames against
+   the plain reference (port_bench/reference/stylegan3.py) at the cell
+   sg3t1024-render's limit, and one frame's w+ gradient through F's
+   autograd Function against the twin's; every step launches F 14 times a
+   forward and no other kernel (`stylegan3_phase`).
 
-The line before the last is the kernels' JSON record (A-E; D's time is per
+The line before the last is the kernels' JSON record (A-F; D's time is per
 discriminator forward at batch 4, its launches are the training run's and
 phases 10, 13, 14 and 15's; E's launches include the phase-path G steps'; A,
-B, C and E's include phases 8-16's, each child's included); the last line
-is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
+B, C and E's include phases 8-16's, each child's included; F's time is per
+StyleGAN3-T 1024px forward at batch 8, its launches phase 18's); the last
+line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and
 prints no result.
 """
 
@@ -451,6 +464,7 @@ REPLACES = {
     "blur4_separable_pad11": "gance_tpu/ops/pallas/fused_ops.py:304",
     "phase_conv1_torgb": "gance_tpu/ops/pallas/phase_fused.py:125",
     "stencil_blur4_valid": "gance_tpu/ops/pallas/fused_ops.py:412",
+    "filtered_lrelu": "none: the JAX package runs no StyleGAN3",
 }
 SOURCES = {
     "fused_bias_noise_lrelu": "gance_tpu_torch/ops/cuda/csrc/fused_bias_noise_lrelu.cu",
@@ -458,6 +472,7 @@ SOURCES = {
     "blur4_separable_pad11": "gance_tpu_torch/ops/cuda/csrc/blur4_separable.cu",
     "phase_conv1_torgb": "gance_tpu_torch/ops/cuda/csrc/phase_conv1_torgb.cu",
     "stencil_blur4_valid": "gance_tpu_torch/ops/cuda/csrc/stencil_blur4_valid.cu",
+    "filtered_lrelu": "gance_tpu_torch/ops/cuda/csrc/filtered_lrelu.cu",
 }
 
 
@@ -795,6 +810,65 @@ def stencil_phase(config, randn: Callable) -> dict:
             "launches": 0, "max_abs_err": max_err, "bound_by": "bytes", **sums["float32"]}
 
 
+def sg3_bench_config() -> dict:
+    """The benchmark's StyleGAN3-T 1024px configuration (cell sg3t1024-render)."""
+    return json.loads((ROOT / "port_bench" / "configs" / "stylegan3-t-1024.json").read_text())
+
+
+def filtered_lrelu_phase(gen: torch.Generator) -> dict:
+    """Kernel F at every layer of the 1024px StyleGAN3-T network that
+    launches it (14 a forward), at batch 8 in fp32, with the layer's
+    demodulation as its (B, C) scale: bit for bit with its twin (the port's
+    separable `upfirdn2d` and `bias_act`, two rows at a time, TF32 off). Its
+    bound is port_bench/reference/bounds_sg3.py's bytes and multiply-adds a
+    launch at this script's peaks; no one PyTorch call computes F."""
+    from gance_tpu_torch.models import stylegan3 as S
+    from gance_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_plain
+    from gance_tpu_torch.ops.precision import exact_fp32
+    from port_bench.reference import bounds_sg3
+
+    specs = {spec["name"]: spec for spec in bounds_sg3.f_layers(sg3_bench_config())}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    bound_by: Dict[str, float] = collections.Counter()
+    max_err = 0.0
+    for geo in S.synthesis_geometry(S.StyleGAN3Config())[1]:
+        if geo.is_torgb:
+            continue
+        side = geo.in_size + geo.kernel - 1
+        x = torch.randn((BATCH, geo.out_channels, side, side), generator=gen, device="cuda") * 2
+        bias = torch.randn((geo.out_channels,), generator=gen, device="cuda") * 0.2
+        scale = torch.rand((BATCH, geo.out_channels), generator=gen, device="cuda") + 0.5
+        call = (geo.up_filter, geo.down_filter, bias, geo.up, geo.down, geo.padding, geo.gain,
+                geo.slope, geo.clamp)
+        run = lambda: filtered_lrelu(x, *call, scale=scale)  # noqa: E731
+        plain = lambda: torch.cat([  # noqa: E731
+            filtered_lrelu_plain(x[i:i + 2], *call, scale[i:i + 2]) for i in range(0, BATCH, 2)])
+        label = f"filtered_lrelu {geo.name} {tuple(x.shape)} float32 up {geo.up} down {geo.down}"
+        with torch.inference_mode(), exact_fp32():
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = check_close(label, got, want, fp32_rel=0.0)
+            del got, want
+            ms, plain_ms = time_ms(run), time_ms(plain)
+        spec = specs[geo.name]
+        bms, by = bound_ms(bounds_sg3.f_bytes(spec, BATCH), 2 * bounds_sg3.f_macs(spec, BATCH))
+        print(f"kernel {label}: max_abs_err {err:.3g} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms None bound_ms {bms:.4f} ({by})", flush=True)
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms)):
+            totals[key] += value
+        bound_by[by] += bms
+        max_err = max(max_err, err)
+        del x
+    print(f"kernel filtered_lrelu per StyleGAN3-T 1024px forward at batch 8: float32 ms "
+          f"{totals['ms']:.4f} plain_ms {totals['plain_ms']:.4f} library_ms None bound_ms "
+          f"{totals['bound_ms']:.4f} ({100 * totals['bound_ms'] / totals['ms']:.1f}% of F's "
+          "time)", flush=True)
+    torch.cuda.empty_cache()
+    return {"name": "filtered_lrelu", "route": "cuda", "source": SOURCES["filtered_lrelu"],
+            "replaces": REPLACES["filtered_lrelu"], "launches": 0, "max_abs_err": max_err,
+            "bound_by": max(bound_by, key=bound_by.get), "library_ms": None, **totals}
+
+
 def smoke_params(seed: int, config) -> dict:
     """Random config-f params with every epilogue term non-zero."""
     from gance_tpu_torch.models.stylegan2 import init_generator_params
@@ -844,7 +918,8 @@ def forward_launches(config, phase: bool = False, resize: bool = False) -> Dict[
     blur is folded into the conv (not C), and its Conv1 + ToRGB run as E; the
     last skip upsample is B's interleave on the float path (a resize, or a
     float output as the projector asks for) and the plain phase planes on the
-    fused uint8 path."""
+    fused uint8 path. F (StyleGAN3's filtered leaky ReLU) never runs in a
+    config-f forward."""
     blocks = config.resolution_log2 - 2
     return {
         "fused_bias_noise_lrelu": 1 + 2 * blocks - 2 * phase,
@@ -852,6 +927,7 @@ def forward_launches(config, phase: bool = False, resize: bool = False) -> Dict[
         "blur4_separable_pad11": blocks - phase,
         "phase_conv1_torgb": int(phase),
         "stencil_blur4_valid": 0,
+        "filtered_lrelu": 0,
     }
 
 
@@ -876,7 +952,7 @@ def recompute_launches(config, phase: bool) -> Dict[str, int]:
     blocks = config.resolution_log2 - 2 - phase
     return {"fused_bias_noise_lrelu": 2 * blocks, "upsample2x_blur": blocks,
             "blur4_separable_pad11": blocks, "phase_conv1_torgb": int(phase),
-            "stencil_blur4_valid": 0}
+            "stencil_blur4_valid": 0, "filtered_lrelu": 0}
 
 
 def projection_launches(config, steps: int, phase: bool, remat: bool = False) -> Dict[str, int]:
@@ -1161,7 +1237,7 @@ def train_launches(config, apply_r1: bool, apply_pl: bool, remat: bool = False) 
     return {"fused_bias_noise_lrelu": a * forwards + again * 2 * blocks,
             "upsample2x_blur": bc * (forwards + again),
             "blur4_separable_pad11": bc * (forwards + again), "stencil_blur4_valid": d_launches,
-            "phase_conv1_torgb": 0}
+            "phase_conv1_torgb": 0, "filtered_lrelu": 0}
 
 
 def g_step_launches(config, apply_pl: bool, phase: bool, remat: bool = False) -> Dict[str, int]:
@@ -1180,7 +1256,7 @@ def g_step_launches(config, apply_pl: bool, phase: bool, remat: bool = False) ->
     counts = {"fused_bias_noise_lrelu": (1 + 2 * blocks - 2 * phase) * forwards,
               "upsample2x_blur": blocks * forwards, "blur4_separable_pad11": c * forwards,
               "stencil_blur4_valid": 4 * blocks + c + 3 * c * apply_pl + remat * 2 * blocks,
-              "phase_conv1_torgb": int(phase) * forwards}
+              "phase_conv1_torgb": int(phase) * forwards, "filtered_lrelu": 0}
     return {k: v + recomputes * again[k] for k, v in counts.items()}
 
 
@@ -4373,6 +4449,7 @@ def tp_forward_launches(config, model: int, phase: bool = False,
             "blur4_separable_pad11": c,
             "phase_conv1_torgb": int(phase) * (slot == 0),
             "stencil_blur4_valid": 0,
+            "filtered_lrelu": 0,
         })
     return slots
 
@@ -5294,6 +5371,132 @@ def determinism_phase(config, workdir: Path, card: str) -> Dict[str, int]:
     return totals
 
 
+def stylegan3_phase(card: str) -> Dict[str, int]:
+    """Phase 18: StyleGAN3-T at 1024px on the port's render path, with two
+    networks of the benchmark's weights (port_bench/harness/weights_sg3.py)
+    for seeds SEED and SEED + 10, fp32. Each step's launches are counted
+    from 0: F 14 times a forward and no other kernel; no frame may be
+    constant, and under a quarter of a request's values lie at 0 or 255
+    (random weights saturate a few frames whole). Vectors at batch 8;
+    the same rows' w+ (16 rows through the mapping and truncation) as
+    matrices, within 1 uint8 step on 99.9% of the vectors' frames; a 40-frame
+    2-network `MultiNetwork.synthesize_stream` with alternating indices (6
+    forwards) against each network's own renders of the rows; network 0's
+    batch against the plain reference (port_bench/reference/stylegan3.py,
+    unfused, TF32 off) at the cell's limit (at most 1 step, on under 0.1%
+    of values); then one frame's w+ gradient under autograd, where F
+    launches in the forward (its `FilteredLrelu`) and the backward is the
+    twin's: against the same gradient with the twin in every layer, within
+    1e-4 norm-wise."""
+    from gance_tpu_torch.models import stylegan3 as S
+    from gance_tpu_torch.ops.cuda.fused_ops import LAUNCHES, reset_launch_counts
+    from gance_tpu_torch.ops.filtered_lrelu import filtered_lrelu_plain
+    from gance_tpu_torch.synthesis.runtime import MultiNetwork, SynthesisNetwork
+    from port_bench.harness import weights_sg3
+    from port_bench.reference import stylegan3 as reference
+
+    start = time.perf_counter()
+    bench = sg3_bench_config()
+    config = S.StyleGAN3Config(**{f.name: bench[f.name]
+                                  for f in dataclasses.fields(S.StyleGAN3Config)})
+    psi = bench["truncation_psi"]
+    per_forward = sum(1 for geo in S.synthesis_geometry(config)[1] if not geo.is_torgb)
+    require(per_forward == 14, f"18: {per_forward} F layers, not 14")
+    params = [weights_sg3.generator_params(bench, SEED + 10 * i, "cuda") for i in range(2)]
+    nets = [SynthesisNetwork(params=p, config=config, truncation_psi=psi, device="cuda")
+            for p in params]
+    totals: Dict[str, int] = {}
+
+    def served(label: str, request: Callable[[], np.ndarray], forwards: int,
+               count: int) -> np.ndarray:
+        reset_launch_counts()
+        images = request()
+        want = dict.fromkeys(LAUNCHES, 0)
+        want["filtered_lrelu"] = per_forward * forwards
+        print(f"launches 18 {label} ({forwards} forwards): {dict(LAUNCHES)}", flush=True)
+        count_launches(totals, f"18 {label}", want)
+        require(images.dtype == np.uint8 and images.shape == (count, config.resolution,
+                                                              config.resolution, 3),
+                f"18 {label}: got {images.dtype} {images.shape}")
+        # the benchmark's random weights saturate some frames whole (4.4% of
+        # the cell's values lie at 0 or 255, 8 of 576 frames over half): no
+        # frame may be constant, and a request's frames must be saturated on
+        # under a quarter of their values
+        saturated = np.mean((images == 0) | (images == 255), axis=(1, 2, 3))
+        spread = images.reshape(count, -1).std(axis=1)
+        print(f"18 {label}: saturated share per frame mean {float(saturated.mean()):.3f}, "
+              f"max {float(saturated.max()):.3f}; least std {float(spread.min()):.2f}",
+              flush=True)
+        require(float(spread.min()) > 1.0, f"18 {label}: a constant image")
+        require(float(saturated.mean()) < 0.25,
+                f"18 {label}: {float(saturated.mean()):.2f} of values saturated")
+        return images
+
+    rng = np.random.RandomState(SEED + 180)
+    z = rng.standard_normal((BATCH, config.latent_size)).astype(np.float32)
+    vectors = served("images_from_vectors", lambda: nets[0].images_from_vectors(z), 1, BATCH)
+    with torch.inference_mode():
+        w = S.broadcast_dlatents(S.mapping_apply(nets[0].params, torch.from_numpy(z).cuda(),
+                                                 config), config)
+        w = S.truncate_dlatents(w, nets[0].params["mapping"]["w_avg"], psi).cpu().numpy()
+    require(w.shape == (BATCH, 16, config.dlatent_size), f"18: w+ of shape {w.shape}")
+    matrices = served("images_from_matrices", lambda: nets[0].images_from_matrices(w), 1, BATCH)
+    require_close_frames("18 matrices vs vectors", matrices, vectors)
+
+    frames = rng.standard_normal((40, config.latent_size)).astype(np.float32)
+    indices = np.arange(40) % 2
+    multi = MultiNetwork.from_networks(nets)
+    stream = served("synthesize_stream", lambda: np.stack(list(multi.synthesize_stream(
+        frames, indices, batch_size=BATCH, lookahead=2))), 6, 40)
+    for first, end in ((0, 16), (16, 32), (32, 40)):
+        for index in (0, 1):
+            rows = np.arange(first, end)[indices[first:end] == index]
+            want = nets[index].images_from_vectors(frames[rows])
+            steps = np.abs(stream[rows].astype(int) - want.astype(int))
+            require(int(steps.max()) <= 1, f"18 stream frames {rows.tolist()} out of order or "
+                    f"wrong network (max {int(steps.max())} steps)")
+    other = nets[1].images_from_vectors(frames[:1])
+    require(float(np.abs(other.astype(int) - stream[:1].astype(int)).mean()) > 5.0,
+            "18: networks 0 and 1 render the same frame")
+    del multi
+
+    want = reference.frames_from_z(params[0], torch.from_numpy(z).cuda(), bench).cpu().numpy()
+    steps = np.abs(vectors.astype(int) - want.astype(int))
+    share = float(np.mean(steps > 0))
+    print(f"18 port vs plain reference ({BATCH} frames): max {int(steps.max())} steps, "
+          f"{share:.3e} of values off", flush=True)
+    require(int(steps.max()) <= 1 and share < 1e-3, f"18: reference max {int(steps.max())} "
+            f"steps, {share:.3e} of values off")
+
+    probe = torch.randn((1, config.resolution, config.resolution, 3), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 181))
+
+    def w_gradient() -> torch.Tensor:
+        ws = torch.from_numpy(w[:1]).cuda().requires_grad_(True)
+        image = S.synthesis_apply(nets[0].params, ws, config)
+        (image * probe).sum().backward()
+        return ws.grad
+
+    reset_launch_counts()
+    got = w_gradient()
+    want_launches = dict.fromkeys(LAUNCHES, 0)
+    want_launches["filtered_lrelu"] = per_forward
+    print(f"launches 18 w+ gradient (1 forward, its backward): {dict(LAUNCHES)}", flush=True)
+    count_launches(totals, "18 w+ gradient", want_launches)
+    with mock.patch.object(S, "filtered_lrelu", filtered_lrelu_plain):
+        twin = w_gradient()
+    rel = float((got - twin).norm() / twin.norm())
+    print(f"18 w+ gradient through F's Function vs the twin in every layer: {rel:.3g} "
+          f"norm-wise, |grad| {float(twin.norm()):.4g}", flush=True)
+    require(bool(torch.isfinite(got).all()) and float(twin.norm()) > 0 and rel <= 1e-4,
+            f"18: w+ gradient {rel:.3g} norm-wise from the twin's")
+    del nets, params
+    torch.cuda.empty_cache()
+    print(f"phase 18 took {time.perf_counter() - start:.1f} s; its launches {totals} on {card}",
+          flush=True)
+    return totals
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA GPU")
@@ -5326,6 +5529,7 @@ def main() -> None:
     config = GeneratorConfig()  # config-f, 1024px
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(config, gen)
+    records.append(filtered_lrelu_phase(gen))
     # phase 3's networks stay in this directory for phase 8
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as nets_dir:
         launches, net, z = main_path_phase(config, Path(nets_dir))
@@ -5348,10 +5552,11 @@ def main() -> None:
         tp_totals = tensor_parallel_phase(config, Path(nets_dir), smi, reference)
         viz_totals = visualization_phase(config, Path(nets_dir), smi)
         repeat_totals = determinism_phase(config, Path(nets_dir), smi)
+    sg3_totals = stylegan3_phase(smi)
     for record in records:
         for totals in (train_totals, pipeline_totals, flagship_totals, projector_totals,
                        resume_totals, serving_totals, metrics_totals, multi_totals, tp_totals,
-                       viz_totals, repeat_totals):
+                       viz_totals, repeat_totals, sg3_totals):
             record["launches"] += totals.get(record["name"], 0)
 
     print(json.dumps({"kernels": records}))

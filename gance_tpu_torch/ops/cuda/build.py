@@ -41,6 +41,10 @@ FUNCTIONS = {
     "stencil_blur4_valid": (
         "gance_stencil_blur4_valid", [_P, _P, _L, _I, _I, _I, _I, _FP, _I, _P]
     ),
+    "filtered_lrelu": (
+        "gance_filtered_lrelu",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    ),
 }
 # a library's further C functions: name -> (source stem, C function, argtypes)
 ENTRY_POINTS = {

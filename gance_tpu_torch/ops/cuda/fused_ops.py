@@ -1,6 +1,8 @@
 """
-The port's five kernels, each as a wrapper, a plain PyTorch twin and a launch
-count.
+The port's five kernels of the JAX package's Pallas functions, each as a
+wrapper, a plain PyTorch twin and a launch count (`LAUNCHES` also counts
+kernel F, StyleGAN3's filtered leaky ReLU, whose wrapper and twin are in
+`ops/filtered_lrelu.py`).
 
 A wrapper takes its twin only when the tensor it is given lies on the CPU. For
 a CUDA tensor it launches the hand-written kernel (`csrc/`, built by
@@ -17,6 +19,7 @@ backward.
 | C blur4_separable_pad11_phases | the same | blur4_separable.cu |
 | D stencil_blur4_valid | fused_ops.py (pallas_call :447) | stencil_blur4_valid.cu |
 | E phase_conv1_torgb | phase_fused.py::phase_conv1_torgb_fused (pallas_call :143) | phase_conv1_torgb.cu |
+| F filtered_lrelu (ops/filtered_lrelu.py) | none: the JAX package has no StyleGAN3 | filtered_lrelu.cu |
 
 Where a gradient may be asked for (grad enabled and an input that requires
 it), every wrapper goes through its `torch.autograd.Function` in `autograd.py`
@@ -54,6 +57,7 @@ LAUNCHES: Dict[str, int] = {
     "blur4_separable_pad11": 0,
     "stencil_blur4_valid": 0,
     "phase_conv1_torgb": 0,
+    "filtered_lrelu": 0,  # F, StyleGAN3's filtered leaky ReLU (ops/filtered_lrelu.py)
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

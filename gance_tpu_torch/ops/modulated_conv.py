@@ -11,6 +11,8 @@ input channels, run one conv with the weight shared across the batch, scale
 the output channels. Stored weights keep the TF checkpoint's "unit"
 parameterization; the equalized-LR coefficient is applied here. The style and
 demod dots always run in exact fp32, whatever the conv precision tier.
+StyleGAN3 (models/stylegan3.py) makes its own styles and weights and enters
+at `styled_conv2d`, the same route from the styles on.
 """
 
 from typing import Optional, Tuple
@@ -42,10 +44,13 @@ def style_vector(
     return s + mod_bias.float() + 1.0
 
 
-def demod_vector(styles: torch.Tensor, w_scaled: torch.Tensor) -> torch.Tensor:
+def demod_vector(styles: torch.Tensor, w_scaled: torch.Tensor,
+                 w_sq_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """d[b, o] = rsqrt(sum_i s[b, i]^2 * sum_khw w[o, i]^2 + 1e-8); `w_scaled` is
-    the runtime-scaled fp32 OIHW weight."""
-    w_sq_sum = w_scaled.square().sum(dim=(2, 3))  # (Cout, Cin)
+    the runtime-scaled fp32 OIHW weight, `w_sq_sum` its (Cout, Cin) sums of
+    squares where the caller keeps them."""
+    if w_sq_sum is None:
+        w_sq_sum = w_scaled.square().sum(dim=(2, 3))  # (Cout, Cin)
     with exact_fp32():
         return torch.rsqrt(styles.square() @ w_sq_sum.t() + 1e-8)
 
@@ -97,23 +102,48 @@ def modulated_conv2d_undemodulated(
     """modulated_conv2d's conv and its demodulation d (B, Cout) fp32 (None
     without `demodulate`), d not applied: the synthesis layers that end in
     kernel A hand it d as A's `scale`."""
+    _, cin, kh, kw = weight.shape
+    styles = style_vector(style_w, mod_weight, mod_bias)  # (B, Cin)
+    w = weight.float() * runtime_weight_coef(kh * kw * cin)
+    return styled_conv2d(x, styles, w, demodulate=demodulate, up=up, down=down,
+                         resample_kernel=resample_kernel, compute_dtype=compute_dtype)
+
+
+def styled_conv2d(
+    x: torch.Tensor,
+    styles: torch.Tensor,
+    w: torch.Tensor,
+    demodulate: bool = True,
+    w_sq_sum: Optional[torch.Tensor] = None,
+    input_gain: Optional[torch.Tensor] = None,
+    padding: Optional[int] = None,
+    up: bool = False,
+    down: bool = False,
+    resample_kernel: Tuple[int, ...] = DEFAULT_RESAMPLE_KERNEL,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A modulated conv from its styles on: the demodulation d (B, Cout) fp32
+    from `styles` (B, Cin) and the fp32 OIHW weight `w` as it is applied (or
+    from `w_sq_sum`, w's per-(out, in) sums of squares), x scaled by the
+    styles times `input_gain` (a 0-d tensor, StyleGAN3's), one conv with the
+    weight shared across the batch (`padding`: SAME by default). Returns
+    (y, d), d not applied (None without `demodulate`)."""
     if up and down:
         raise ValueError("up and down are mutually exclusive")
     dtype = compute_dtype or x.dtype
-    cout, cin, kh, kw = weight.shape
-    styles = style_vector(style_w, mod_weight, mod_bias)  # (B, Cin)
-    w = weight.float() * runtime_weight_coef(kh * kw * cin)
-    demod = demod_vector(styles, w) if demodulate else None  # (B, Cout)
+    kh = w.shape[2]
+    demod = demod_vector(styles, w, w_sq_sum) if demodulate else None  # (B, Cout)
 
-    x = x * styles[:, :, None, None].to(x.dtype)
+    scale = styles if input_gain is None else styles * input_gain
+    x = x * scale[:, :, None, None].to(x.dtype)
     w = w.to(dtype)
     x = x.to(dtype)
     if up:
         y = upsample_conv_2d(x, w, kernel=resample_kernel)
     elif down:
         y = conv_downsample_2d(x, w, kernel=resample_kernel)
-    else:
-        y = F.conv2d(x, w, padding=kh // 2)  # SAME for the odd kernels used here
+    else:  # SAME for the odd kernels used here unless told otherwise
+        y = F.conv2d(x, w, padding=kh // 2 if padding is None else padding)
     return y, demod
 
 

@@ -108,14 +108,17 @@ def upfirdn2d(
     The upsample -> FIR -> downsample primitive on x (N, C, H, W), in plain
     PyTorch (a depthwise conv2d).
 
-    :param kernel: 2-D FIR, already gain-scaled (see `setup_filter_kernel`).
+    :param kernel: 2-D FIR, already gain-scaled (see `setup_filter_kernel`);
+        or a 1-D FIR k, the separable outer(k, k), applied along W and then
+        along H as NVlabs' upfirdn2d applies a 1-D filter (k carries the gain
+        of one axis).
     :return: (N, C, H_out, W_out), H_out = (H*up + pad0 + pad1 - kh) // down + 1.
     """
     if x.ndim != 4:
         raise ValueError(f"upfirdn2d expects NCHW input, got shape {tuple(x.shape)}")
     kernel = np.asarray(kernel, dtype=np.float32)
-    if kernel.ndim != 2:
-        raise ValueError("upfirdn2d kernel must be 2D; use setup_filter_kernel first.")
+    if kernel.ndim not in (1, 2):
+        raise ValueError("upfirdn2d kernel must be 1-D (separable) or 2-D.")
     n, c, h, w = x.shape
     if up > 1:
         stuffed = x.new_zeros((n, c, h, up, w, up))
@@ -123,6 +126,11 @@ def upfirdn2d(
         x = stuffed.reshape(n, c, h * up, w * up)
     x = F.pad(x, (pad0, pad1, pad0, pad1))  # negative pads crop
     # true convolution: conv2d correlates, so flip the kernel
+    if kernel.ndim == 1:
+        k = torch.from_numpy(kernel[::-1].copy()).to(x.device, x.dtype)
+        k = k[None, None].expand(c, 1, kernel.shape[0])
+        x = F.conv2d(x, k[:, :, None, :], stride=(1, down), groups=c)
+        return F.conv2d(x, k[:, :, :, None], stride=(down, 1), groups=c)
     k = torch.from_numpy(np.ascontiguousarray(kernel[::-1, ::-1])).to(x.device, x.dtype)
     k = k[None, None].expand(c, 1, *kernel.shape)
     return F.conv2d(x, k, stride=down, groups=c)

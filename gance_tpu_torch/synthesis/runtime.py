@@ -48,6 +48,7 @@ from gance_tpu_torch.models.stylegan2 import (
     resize_images,
     synthesis_apply,
 )
+from gance_tpu_torch.models import stylegan3
 from gance_tpu_torch.parallel.mesh import fetch_to_host as _fetch_to_host
 from gance_tpu_torch.types import is_vector
 from gance_tpu_torch.utils.device import resolve_device
@@ -120,10 +121,13 @@ def _window_in_order(window: Window, window_start: int) -> Iterator[np.ndarray]:
 
 @dataclass
 class SynthesisNetwork:
-    """A loaded generator: params resident on `device` + config + batched apply."""
+    """A loaded generator: params resident on `device` + config + batched
+    apply. `config` is a StyleGAN2 `GeneratorConfig` or a
+    `models/stylegan3.py::StyleGAN3Config`, whose network runs in fp32 on one
+    device (no mesh) from the tree `stylegan3.prepare` makes at load."""
 
     params: Params
-    config: GeneratorConfig
+    config: Union[GeneratorConfig, stylegan3.StyleGAN3Config]
     path: Optional[Path] = None
     truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI
     compute_dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
@@ -137,6 +141,14 @@ class SynthesisNetwork:
     def __post_init__(self) -> None:
         self._replicas: Optional[Dict[Tuple[torch.device, ...], Any]] = None
         self._data_axis = 1
+        self._sg3: Optional[stylegan3.PreparedGenerator] = None
+        if isinstance(self.config, stylegan3.StyleGAN3Config):
+            if self.mesh is not None:
+                raise ValueError("a StyleGAN3 network runs on one device, not on a mesh")
+            self.device = resolve_device(self.device)
+            self._sg3 = stylegan3.prepare(params_to_device(self.params, self.device), self.config)
+            self.params = self._sg3.params
+            return
         if self.mesh is not None:
             from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
 
@@ -205,12 +217,22 @@ class SynthesisNetwork:
         return images
 
     def _vectors(self, params: Params, z: torch.Tensor) -> torch.Tensor:
+        if self._sg3 is not None:
+            return self._finish(stylegan3.generator_apply(
+                self._sg3, z, self.config, truncation_psi=self.truncation_psi,
+                compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
+            ))
         return self._finish(generator_apply(
             params, z, self.config, truncation_psi=self.truncation_psi, noise_mode="const",
             compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
         ))
 
     def _matrices(self, params: Params, dlatents: torch.Tensor) -> torch.Tensor:
+        if self._sg3 is not None:
+            return self._finish(stylegan3.synthesis_apply(
+                self._sg3, dlatents, self.config, compute_dtype=self.compute_dtype,
+                uint8_output=not self._needs_resize,
+            ))
         return self._finish(synthesis_apply(
             params, dlatents, self.config, noise_mode="const",
             compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,

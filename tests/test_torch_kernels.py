@@ -260,7 +260,7 @@ def test_ctypes_bindings_match_c_signatures():
     """Every bound function exists in its source with as many parameters as argtypes
     (the wrapper appends the stream), and every source is built for sm_90a."""
     signatures = _c_signatures()
-    assert len(signatures) == len(build.FUNCTIONS) + len(build.ENTRY_POINTS) == 6
+    assert len(signatures) == len(build.FUNCTIONS) + len(build.ENTRY_POINTS) == 7
     bound = [(stem, symbol, argtypes) for stem, (symbol, argtypes) in build.FUNCTIONS.items()]
     for stem, symbol, argtypes in bound + list(build.ENTRY_POINTS.values()):
         assert signatures[symbol] == (stem, len(argtypes))
@@ -271,7 +271,7 @@ def test_ctypes_bindings_match_c_signatures():
 
 def test_library_paths_key_on_the_sources():
     paths = {build.library_path(name) for name in build.FUNCTIONS}
-    assert len(paths) == 5
+    assert len(paths) == 6
     for path in paths:
         assert path.parent == build.BUILD_DIR
         assert re.fullmatch(r"\w+-[0-9a-f]{16}\.so", path.name)

@@ -302,7 +302,8 @@ def test_card_path_imports_no_host_only_package():
                "gance_tpu_torch.serving.daemon", "gance_tpu_torch.serving.audio",
                "gance_tpu_torch.metrics", "gance_tpu_torch.metrics.frechet",
                "gance_tpu_torch.metrics.ppl", "gance_tpu_torch.metrics.training_eval",
-               "gance_tpu_torch.projection.visualization", "chip_smoke"]
+               "gance_tpu_torch.projection.visualization", "gance_tpu_torch.models.stylegan3",
+               "gance_tpu_torch.ops.filtered_lrelu", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
