@@ -10,8 +10,9 @@ filtered_lrelu.py`) on NCHW fp32 activations:
 with separable FIRs `fu` and `fd` (1-D taps) and the same pads on both axes.
 
 `filtered_lrelu` launches kernel F (`cuda/csrc/filtered_lrelu.cu`, built by
-`cuda/build.py`) for a CUDA tensor: one pass that keeps the upsampled grid in
-shared memory and writes each output once. Its plain twin,
+`cuda/build.py`) for a CUDA tensor: one pass in which each warp walks down a
+strip of output columns of a plane, keeps the upsampled rows it still needs
+in registers and shared memory only, and writes each output once. Its twin,
 `filtered_lrelu_plain`, composes the port's general `upfirdn2d` and
 `bias_act`; the wrapper takes it for a CPU tensor. Where autograd may ask for
 a gradient (the projector through a StyleGAN3 network), the wrapper goes
@@ -21,7 +22,9 @@ inference path does and whose backward is the twin's vector-Jacobian product
 up/down/taps other than StyleGAN3-T's) the wrapper raises; nothing falls
 back. While a profiler runs, the wrapper counts `ops.filtered_lrelu_fused`
 (a forward ran F) and `ops.filtered_lrelu_twin` (a forward ran the twin: a
-CPU tensor).
+CPU tensor), and of F's launches `ops.filtered_lrelu_lanes32` and
+`ops.filtered_lrelu_lanes16`: strips of a whole warp, or of half a warp with
+two planes a warp (`strip_lanes`, the kernel's choice).
 
 F has no counterpart among the JAX package's Pallas kernels: the JAX package
 runs no StyleGAN3 network.
@@ -48,6 +51,21 @@ def output_size(size: int, up: int, down: int, padding: Tuple[int, int], up_taps
     """Side of the output for an input of side `size`."""
     upsampled = size * up + padding[0] + padding[1] - up_taps + 1
     return (upsampled - down_taps) // down + 1
+
+
+@functools.lru_cache(maxsize=256)
+def strip_lanes(side: int, up: int, down: int, pad: int, down_taps: int) -> int:
+    """The lanes of a strip kernel F picks for an output side (its C host's
+    rule): a lane makes 8 upsampled columns, so 32 lanes feed strips of at
+    most about 120 outputs and 16 of about 56; 16, two planes a warp, where
+    that leaves fewer lanes idle over the plane's width."""
+    e = (-pad - 1) % up
+
+    def lanes_used(lanes: int) -> int:
+        widest = ((lanes * 8 - down_taps - e) // down + 1) // 4 * 4
+        return -(-side // widest) * lanes
+
+    return 16 if lanes_used(16) < lanes_used(32) else 32
 
 
 def filtered_lrelu_plain(
@@ -142,16 +160,17 @@ def _filtered_lrelu_run(x: torch.Tensor, bias: torch.Tensor, scale: Optional[tor
                          f"{KERNEL_CASES} with a clamp, got {case}, clamp {clamp}")
     if x.dtype != torch.float32:
         raise TypeError(f"filtered_lrelu: kernel F takes float32, got {x.dtype}")
+    side = output_size(h, up, down, padding, case[2], case[3])
+    if side <= 0:
+        raise ValueError(f"filtered_lrelu: no output for x {tuple(x.shape)}, pads {padding}")
     profiling.count("ops.filtered_lrelu_fused")
+    profiling.count(f"ops.filtered_lrelu_lanes{strip_lanes(side, up, down, padding[0], case[3])}")
     x = x.contiguous()
     bias = _kernels._float32(bias).contiguous()
     scales = () if scale is None else (_kernels._float32(scale).contiguous(),)
     device = _kernels._check("filtered_lrelu", x, bias, *scales)
     ku = _taps_on(tuple(float(t) for t in fu), float(up), x.device)
     kd = _taps_on(tuple(float(t) for t in fd), 1.0, x.device)
-    side = output_size(h, up, down, padding, case[2], case[3])
-    if side <= 0:
-        raise ValueError(f"filtered_lrelu: no output for x {tuple(x.shape)}, pads {padding}")
     out = x.new_empty((b, c, side, side))
     _kernels._launch(
         "filtered_lrelu", "filtered_lrelu", device,

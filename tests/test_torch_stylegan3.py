@@ -16,7 +16,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from gance_tpu_torch.models import stylegan3 as S  # noqa: E402
-from gance_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_plain  # noqa: E402
+from gance_tpu_torch.ops.filtered_lrelu import (  # noqa: E402
+    filtered_lrelu, filtered_lrelu_plain, output_size)
 from port_bench.reference import stylegan3 as R  # noqa: E402
 from tests.torch_threads import capped_threads  # noqa: E402,F401
 
@@ -191,6 +192,216 @@ def test_filtered_lrelu_function_gradients_are_the_twins(case, scaled):
     # the leaky ReLU is linear between its kinks: the second order comes
     # through the scale, which multiplies x
     assert (float(second[0].abs().sum()) > 0) == scaled
+
+
+# Kernel F's schedule (ops/cuda/csrc/filtered_lrelu.cu), emulated in numpy: a
+# block is one warp of 32 lanes; LS of them (32, or 16 with two planes a warp)
+# own a strip of output columns of a plane and walk down a segment of rows one
+# input row a step; the strip's lane i makes u columns 8i..8i+7 and outputs
+# 4i..4i+3 of the strip
+F_LANES, F_UCOLS, F_DCOLS, F_WINDOW = 32, 8, 4, 6
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def f_schedule(side: int, batch: int, channels: int, up: int, down: int, pad: int,
+               down_taps: int, slots: int):
+    """The C host's choice, line for line: E; the lanes a strip (16 where
+    that leaves fewer idle than 32); the strips and their width (a multiple
+    of 4, the widest the lanes' u columns feed); and the segment's rows
+    (even) with the fewest waves of `slots` resident warps times a segment's
+    bodies of 6 steps."""
+    e = (-pad - 1) % up
+
+    def width_max(lanes):
+        return ((lanes * F_UCOLS - down_taps - e) // down + 1) // 4 * 4
+
+    lanes = 16 if _cdiv(side, width_max(16)) * 16 < _cdiv(side, width_max(32)) * 32 else 32
+    strips = _cdiv(side, width_max(lanes))
+    width = _cdiv(_cdiv(side, strips), 4) * 4
+    warps_per_row = batch * _cdiv(channels, F_LANES // lanes) * strips
+    best = None
+    for segs in range(1, max(1, min(64, side // 2)) + 1):
+        rows = _cdiv(_cdiv(side, segs), 2) * 2
+        waves = _cdiv(warps_per_row * _cdiv(side, rows), slots)
+        bodies = _cdiv(_cdiv(e + down * (rows - 1) + down_taps, up), F_WINDOW)
+        cost = waves * (5 * bodies + 1)
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+    return e, lanes, strips, width, best[1]
+
+
+def _swizzled(col: np.ndarray) -> np.ndarray:
+    """A v row's float for column `col`: 16-byte chunks, chunk bit 0 flipped
+    where chunk bit 3 is set."""
+    chunk = col >> 2
+    return ((chunk ^ ((chunk >> 3) & 1)) << 2) | (col & 3)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """fmaf to fp32 rounding: the float32 product is exact in float64."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def emulate_f(x, fu, fd, bias, up, down, padding, gain, slope, clamp, scale, slots):
+    """Kernel F's walk, lane arrays at a time: the output and how often each
+    output was written."""
+    b, c, h, w = x.shape
+    tu, td = len(fu), len(fd)
+    mu, pad = tu // up, padding[0]
+    side = output_size(h, up, down, padding, tu, td)
+    ku = (np.asarray(fu, np.float32)[::-1] * np.float32(up)).astype(np.float32)
+    kd = np.asarray(fd, np.float32)[::-1].copy()
+    e, ls, strips, width, rows = f_schedule(side, b, c, up, down, pad, td, slots)
+    groups = F_UCOLS // up
+    read = 12 if up == 2 else 8  # float4 or float2 loads of the 8 / up + 5 inputs
+    nt = groups * (ls - 1) + read
+    chunks = _cdiv(e + down * (F_DCOLS - 1) + td, 4)
+    lanes = np.arange(ls)
+    out = np.full((b, c, side, side), np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int64)
+    x, bias = x.numpy(), bias.numpy()
+    scale = np.ones((b, c), np.float32) if scale is None else scale.numpy()
+    for bi, ci, seg, strip in np.ndindex(b, c, _cdiv(side, rows), strips):
+        # the warp's lane of each of the strip's lanes: the planes a warp
+        # walks lie side by side in its v rows
+        warp_lanes = ci % (F_LANES // ls) * ls + lanes
+        ox0, oy0 = strip * width, seg * rows
+        nr = min(rows, side - oy0)
+        # the strip's u columns and the segment's v rows start E before its
+        # first output, on phase 1 of up
+        assert (down * ox0 - e - pad - 1) % up == 0 and (down * oy0 - e - pad - 1) % up == 0
+        tx0 = (down * ox0 - e - pad - 1) // up + 1
+        ty0 = (down * oy0 - e - pad - 1) // up + 1
+
+        def t_row(r):
+            q = tx0 + np.arange(nt)
+            inside = (q >= 0) & (q < w) & (0 <= r < h)
+            row = np.zeros(nt, np.float32)
+            if inside.any():
+                xs = (x[bi, ci, r, q[inside]] * scale[bi, ci]).astype(np.float32)
+                row[inside] = xs + bias[ci]
+            return row
+
+        def x_up(row):
+            ux = np.empty((ls, F_UCOLS), np.float32)
+            for g, j in np.ndindex(groups, up):
+                k0 = up - 1 - j if j < up - 1 else 0
+                acc = np.zeros(ls, np.float32)
+                for m in range(mu):
+                    acc = _fma(row[groups * lanes + g + m], ku[k0 + up * m], acc)
+                ux[:, up * g + j] = acc
+            return ux
+
+        window = np.zeros((F_WINDOW, ls, F_UCOLS), np.float32)  # slot: row mod 6
+        for k in range(F_WINDOW - 1):
+            window[k] = x_up(t_row(ty0 + k))
+        flight = np.zeros((td // down, ls, F_DCOLS), np.float32)  # slot: output mod 6
+        bodies = _cdiv(_cdiv(e + down * (nr - 1) + td, up), F_WINDOW)
+        for body, st in np.ndindex(bodies, F_WINDOW):
+            step = F_WINDOW * body + st
+            window[(F_WINDOW - 1 + st) % F_WINDOW] = x_up(t_row(ty0 + F_WINDOW - 1 + step))
+            v_rows = np.full((up, F_LANES * F_UCOLS + 32), np.nan, np.float32)
+            for j in range(up):
+                k0 = up - 1 - j if j < up - 1 else 0
+                acc = np.zeros((ls, F_UCOLS), np.float32)
+                for m in range(mu):
+                    acc = _fma(window[(st + m) % F_WINDOW], ku[k0 + up * m], acc)
+                v = np.maximum(acc, (acc * np.float32(slope)).astype(np.float32))
+                v = (v * np.float32(gain)).astype(np.float32)
+                v = np.minimum(np.maximum(v, np.float32(-clamp)), np.float32(clamp))
+                v_rows[j, _swizzled(F_UCOLS * warp_lanes[:, None] + np.arange(F_UCOLS))] = v
+            for j in range(up):
+                big_l = up * step + j  # the segment's v row
+                cols = 2 * F_DCOLS * warp_lanes[:, None] + np.arange(4 * chunks)
+                got = v_rows[j, _swizzled(cols)]
+                dx = np.empty((ls, F_DCOLS), np.float32)
+                for o in range(F_DCOLS):
+                    acc = np.zeros(ls, np.float32)
+                    for m in range(td):
+                        acc = _fma(got[:, e + down * o + m], kd[m], acc)
+                    dx[:, o] = acc
+                lm = (big_l - e) % (down * len(flight))
+                assert lm == (up * st + j - e) % (down * len(flight))  # static in the body
+                for i in range(len(flight)):
+                    m = lm % down + down * i
+                    lo = (big_l - e - m) // down  # the output row it feeds
+                    slot = ((lm - m) // down) % len(flight)
+                    assert slot == lo % len(flight)
+                    flight[slot] = _fma(dx, kd[m], 0.0 if m == 0 else flight[slot])
+                    if m == td - 1 and 0 <= lo < nr:
+                        ox = ox0 + F_DCOLS * lanes[:, None] + np.arange(F_DCOLS)
+                        keep = (ox - ox0 < width) & (ox < side)
+                        out[bi, ci, oy0 + lo, ox[keep]] = flight[slot][keep]
+                        writes[bi, ci, oy0 + lo, ox[keep]] += 1
+    return torch.from_numpy(out), writes
+
+
+# (layer whose filters and gains are used, its pads or others, input side,
+# channels, resident warps): every E of both (up, down) cases, planes
+# narrower than a strip, strips of 32 lanes and of 16 (two planes a warp, the
+# second idle where the channels are odd), sides that no strip width, 4 or
+# segment divides, one segment or many
+F_SCHEDULES = {
+    "up2_narrow": ("L0_36_512", None, 38, 3, 12),
+    "up2_two_warp_strips": ("L0_36_512", None, 202, 1, 4),
+    "up2_half_strips_segments": ("L0_36_512", None, 131, 3, 10**6),
+    "up2_e1": ("L0_36_512", (8, 9), 61, 2, 10**6),
+    "critical": ("L13_1024_32", None, 40, 3, 1),
+    "up4_narrow": ("L2_52_512", None, 38, 3, 12),
+    "up4_e0": ("L2_52_512", (-5, -10), 70, 2, 10**6),
+    "up4_e2_ragged": ("L2_52_512", (-7, -8), 73, 3, 3),
+    "up4_e3": ("L2_52_512", (-8, -7), 70, 1, 10**6),
+}
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scale", "no_scale"])
+@pytest.mark.parametrize("case", list(F_SCHEDULES))
+def test_kernel_f_schedule_reproduces_the_twin_and_writes_each_output_once(case, scaled):
+    """Kernel F's index map in numpy (strips, segments, the window and
+    output slots, the swizzled v rows, the x halo's offsets), lane by lane:
+    it gives the twin's output to fp32 rounding (its fmaf in float64) and
+    writes every output exactly once."""
+    name, pads, side, channels, slots = F_SCHEDULES[case]
+    geo = next(g for g in S.synthesis_geometry(T1024)[1] if g.name == name)
+    padding = pads or geo.padding
+    gen = torch.Generator().manual_seed(19)
+    x = torch.randn((1, channels, side, side), generator=gen) * 2
+    bias = torch.randn((channels,), generator=gen) * 0.2
+    scale = torch.rand((1, channels), generator=gen) + 0.5 if scaled else None
+    call = (geo.up_filter, geo.down_filter, bias, geo.up, geo.down, padding, geo.gain, geo.slope,
+            geo.clamp)
+    got, writes = emulate_f(x, *call, scale, slots)
+    want = filtered_lrelu_plain(x, *call, scale)
+    assert got.shape == want.shape and (writes == 1).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+def test_kernel_f_schedule_fits_lanes_and_rows_to_the_layer():
+    """On an H100 (132 SMs of 16 resident warps) at the 1024px network's
+    shapes: the 1044px layers take 9 strips of 116 outputs a warp, the
+    narrow ones two planes a warp (16 lanes a strip); at batch 1 the last
+    layer's 288 warps split its rows into segments that fill the card."""
+    slots = 132 * 16
+    assert f_schedule(1044, 8, 81, 4, 2, -6, 12, slots)[:4] == (1, 32, 9, 116)
+    assert f_schedule(36, 8, 512, 2, 2, 9, 12, slots)[:4] == (0, 16, 1, 36)
+    assert f_schedule(148, 8, 512, 4, 2, -6, 12, slots)[:4] == (1, 16, 3, 52)
+    rows = f_schedule(1024, 1, 32, 2, 2, -11, 12, slots)[4]
+    assert rows % 2 == 0 and 6 <= -(-1024 // rows) and 288 * -(-1024 // rows) <= slots
+
+
+def test_kernel_f_wrapper_counts_the_lanes_the_kernel_picks():
+    """The wrapper's `strip_lanes`, which names the counter of each launch,
+    is the C host's rule as the schedule above emulates it, at every side up
+    to 1100 and every E of both (up, down) cases."""
+    from gance_tpu_torch.ops.filtered_lrelu import strip_lanes
+
+    for up, pad in ((2, 9), (2, 8), (4, -6), (4, -5), (4, -7), (4, -8)):
+        for side in range(1, 1101):
+            assert strip_lanes(side, up, 2, pad, 12) == f_schedule(side, 1, 1, up, 2, pad, 12,
+                                                                   1)[1]
 
 
 def test_generator_matches_the_reference_at_64px():

@@ -1,8 +1,9 @@
 """
 StyleGAN3-T on the card (marker `gpu`; skips without CUDA, since kernel F has
 no CPU mode): kernel F against its twin at every layer shape of the 1024px
-network at batch 8, F's refusals, F under autograd (the kernel forward, the
-twin's gradient), and the port's 1024px frames against the plain reference.
+network at batch 8 and at its schedule's edges, F's refusals, F under
+autograd (the kernel forward, the twin's gradient), and the port's 1024px
+frames against the plain reference.
 This file imports no jax:
 
     python3 -m pytest --noconftest tests/test_torch_stylegan3_gpu.py -m gpu -q
@@ -74,6 +75,69 @@ def test_kernel_f_matches_its_twin_at_every_t1024_layer(cuda_device, geo):
     err = float((got - want).abs().max())
     print(f"{geo.name}: max |F - twin| {err:.3e} of {float(want.abs().max()):.3e}")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6 * float(want.abs().max()))
+
+
+# (layer whose filters, pads and gains are used, input side, batch): F's
+# schedule at its edges. A strip is at most 120 outputs wide and a segment's
+# rows follow from the batch (more segments where few planes fill the card)
+STRIP_EDGES = {
+    "narrow_up2_b1": ("L0_36_512", 38, 1),  # a 36px plane, narrower than a strip
+    "narrow_up2_b48": ("L0_36_512", 38, 48),
+    "narrow_up4_b48": ("L2_52_512", 38, 48),
+    "ragged_up2": ("L8_276_203", 133, 3),  # 131 outputs: 2 strips of 68, odd rows, scalar stores
+    "ragged_up4": ("L7_276_323", 79, 2),  # 134 outputs: 2 strips of 68, 134 not a multiple of 4
+    "wide_up4_b1": ("L10_1044_81", 534, 1),  # few planes: the rows split into segments
+    "wide_up2_b1": ("L13_1024_32", 1046, 1),
+    "mid_up2_b48": ("L6_148_512", 150, 48),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scaled", [True, False], ids=["scale", "no_scale"])
+@pytest.mark.parametrize("edge", list(STRIP_EDGES))
+def test_kernel_f_matches_its_twin_at_the_schedules_edges(cuda_device, edge, scaled):
+    """F's column strips and row segments at their edges: planes narrower
+    than a strip, widths and heights that no strip or segment divides, batch
+    1 (segments) and 48, with and without the demodulation; against the
+    twin under the 14-layer test's tolerance, the twin run two rows at a
+    time."""
+    name, side, batch = STRIP_EDGES[edge]
+    geo = next(g for g in F_LAYERS if g.name == name)
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.randn((batch, geo.out_channels, side, side), generator=gen,
+                    device=cuda_device) * 2
+    bias = torch.randn((geo.out_channels,), generator=gen, device=cuda_device) * 0.2
+    scale = (torch.rand((batch, geo.out_channels), generator=gen, device=cuda_device) + 0.5
+             if scaled else None)
+    with torch.inference_mode():
+        got = run_f(geo, x, bias, scale)
+    with exact_fp32(), torch.inference_mode():
+        want = torch.cat([run_twin(geo, x[i:i + 2], bias, None if scale is None else
+                                   scale[i:i + 2]) for i in range(0, batch, 2)])
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    print(f"{edge} {tuple(got.shape)}: max |F - twin| {err:.3e} of {float(want.abs().max()):.3e}")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-6 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_kernel_f_counts_the_lanes_of_its_strips(cuda_device):
+    """Under a profiler the wrapper counts each launch of F by its strips'
+    lanes: the 36px layer's planes two a warp, the 1044px layer's one."""
+    from gance_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.inference_mode():
+            for name in ("L0_36_512", "L11_1044_51"):
+                geo = next(g for g in F_LAYERS if g.name == name)
+                run_f(geo, *layer_inputs(geo, 1, cuda_device))
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset()
+    assert counts.get("ops.filtered_lrelu_fused") == 2
+    assert counts.get("ops.filtered_lrelu_lanes16") == counts.get("ops.filtered_lrelu_lanes32") == 1
 
 
 @pytest.mark.gpu
