@@ -14,9 +14,10 @@ in order (any failure exits non-zero; no phase's failure is caught):
    the 1024px config-f path gives it at batch 8, in fp32 and bf16, and times
    the kernel, the twin, one PyTorch library call that computes the same
    function where there is one, and the least time the card could take
-   (bound). A and B must equal their twins bit for bit; C rounds like its
-   twin: fp32 max abs error at most 1e-5 of the output's scale, bf16 at most
-   2 bf16 ulps. A runs at each shape with a (B, C) `scale` (the layer's
+   (bound: port_bench/reference/bounds.py's peaks and `bound_s`, E's bf16
+   products at the bf16 tensor-core rate). A and B must equal their twins
+   bit for bit; C rounds like its twin: fp32 max abs error at most 1e-5 of
+   the output's scale, bf16 at most 2 bf16 ulps. A runs at each shape with a (B, C) `scale` (the layer's
    demodulation, the form the path launches, which A's per-forward sums
    count) and without one (the form the autograd route launches). A is also
    held with per-sample noise at training's (4, 64, 1024, 1024), and A
@@ -394,12 +395,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from port_bench.reference.bounds import FP32_FLOPS_PER_S, HBM_BYTES_PER_S, bound_s
+
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
 BATCH = 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 rate outside the tensor cores
-BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core rate, dense
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor-core rate, dense (bounds.py counts fp32)
 TAPS = (0.25, 0.75, 0.75, 0.25)  # [1,3,3,1] binomial, gain 2 per axis
 TAPS_1234 = (0.2, 0.4, 0.6, 0.8)  # root of the non-symmetric FIR (1, 2, 3, 4)
 FIR_1234 = np.outer((1, 2, 3, 4), (1, 2, 3, 4)) / 100.0  # a 4x4 FIR that is not symmetric
@@ -466,6 +467,14 @@ REPLACES = {
     "stencil_blur4_valid": "gance_tpu/ops/pallas/fused_ops.py:412",
     "filtered_lrelu": "none: the JAX package runs no StyleGAN3",
 }
+KERNELS = {  # phase 2's letter for each kernel
+    "A": "fused_bias_noise_lrelu",
+    "B": "upsample2x_blur",
+    "C": "blur4_separable_pad11",
+    "D": "stencil_blur4_valid",
+    "E": "phase_conv1_torgb",
+    "F": "filtered_lrelu",
+}
 SOURCES = {
     "fused_bias_noise_lrelu": "gance_tpu_torch/ops/cuda/csrc/fused_bias_noise_lrelu.cu",
     "upsample2x_blur": "gance_tpu_torch/ops/cuda/csrc/upsample2x_blur.cu",
@@ -506,9 +515,10 @@ def time_ms(fn: Callable[[], object], min_total_ms: float = 50.0) -> float:
 
 def bound_ms(bytes_moved: float, flops: float,
              flops_per_s: float = FP32_FLOPS_PER_S) -> Tuple[float, str]:
-    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / flops_per_s * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    """`bounds.bound_s` in ms, the operations counted at `flops_per_s`, and
+    which term bounds it."""
+    seconds = bound_s(bytes_moved, flops * (FP32_FLOPS_PER_S / flops_per_s))
+    return seconds * 1e3, "bytes" if seconds == bytes_moved / HBM_BYTES_PER_S else "operations"
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -567,7 +577,9 @@ def discriminator_shapes(config) -> List[Tuple[tuple, int, tuple]]:
             for res in range(config.resolution_log2, 2, -1) for pads in ((2, 2), (1, 1))]
 
 
-def kernel_phase(config, gen: torch.Generator) -> List[dict]:
+def kernel_phase(config, gen: torch.Generator, kernels: str = "ABCDEF") -> List[dict]:
+    """Phase 2 for the kernels whose letters `kernels` holds (`KERNELS`):
+    each one's record, its times summed per forward in fp32."""
     from gance_tpu_torch.ops.cuda import fused_ops as K
     from gance_tpu_torch.ops.phase_block import fold_conv1_weights
 
@@ -576,7 +588,10 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
 
     k2d = torch.tensor(np.outer(TAPS, TAPS), dtype=torch.float32, device="cuda")
     records = []
+    names = {KERNELS[letter] for letter in kernels}
     for name, shapes in path_shapes(config).items():
+        if name not in names:
+            continue
         # (shape, launches per forward, option, offset): option is C's w_logical,
         # B's taps or A's noise batch; offset puts x's base that many elements
         # past a 16-byte boundary (a contiguous view with a storage offset)
@@ -753,8 +768,11 @@ def kernel_phase(config, gen: torch.Generator) -> List[dict]:
             "library_ms": (None if name in ("fused_bias_noise_lrelu", "blur4_separable_pad11")
                            else totals["library_ms"]),
         })
-    records.append(stencil_phase(config, randn))
+    if "stencil_blur4_valid" in names:
+        records.append(stencil_phase(config, randn))
     torch.cuda.empty_cache()
+    if "filtered_lrelu" in names:
+        records.append(filtered_lrelu_phase(gen))
     return records
 
 
@@ -821,7 +839,7 @@ def filtered_lrelu_phase(gen: torch.Generator) -> dict:
     demodulation as its (B, C) scale: bit for bit with its twin (the port's
     separable `upfirdn2d` and `bias_act`, two rows at a time, TF32 off). Its
     bound is port_bench/reference/bounds_sg3.py's bytes and multiply-adds a
-    launch at this script's peaks; no one PyTorch call computes F."""
+    launch at bounds.py's peaks; no one PyTorch call computes F."""
     from gance_tpu_torch.models import stylegan3 as S
     from gance_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_plain
     from gance_tpu_torch.ops.precision import exact_fp32
@@ -1844,7 +1862,7 @@ def flagship_memory_reader(config) -> MemoryProjectionReader:
     seeded z through network 0's mapping."""
     from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply
     from gance_tpu_torch.projection import LATEST_VERSION, ProjectionAttributes
-    from gance_tpu_torch.synthesis.runtime import params_to_device
+    from gance_tpu_torch.utils.device import params_to_device
 
     count, res = FLAGSHIP_PROJECTION_FRAMES, config.resolution
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
@@ -3586,7 +3604,7 @@ def metrics_phase(params, config, workdir: Path, card: str) -> Dict[str, int]:
     from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
     from gance_tpu_torch.ops.precision import deterministic_cudnn
     from gance_tpu_torch.projection.lpips import random_vgg_params, vgg_params_to_device
-    from gance_tpu_torch.synthesis.runtime import params_to_device
+    from gance_tpu_torch.utils.device import params_to_device
     from PIL import Image
 
     set_phase("off")
@@ -3688,7 +3706,7 @@ def remat_phase(config, card: str) -> Dict[str, int]:
     from gance_tpu_torch.ops.cuda.fused_ops import reset_launch_counts
     from gance_tpu_torch.parallel import training as T
     from gance_tpu_torch.projection.projector import Projector, ProjectorSettings
-    from gance_tpu_torch.synthesis.runtime import params_to_device
+    from gance_tpu_torch.utils.device import params_to_device
 
     set_phase("off")
     torch.cuda.empty_cache()
@@ -4940,7 +4958,7 @@ def history_reader(config) -> MemoryProjectionReader:
     (steps - 1 - s) / (steps - 1) of w's scale away), rows identical."""
     from gance_tpu_torch.models.stylegan2 import broadcast_dlatents, mapping_apply
     from gance_tpu_torch.projection import LATEST_VERSION, ProjectionAttributes
-    from gance_tpu_torch.synthesis.runtime import params_to_device
+    from gance_tpu_torch.utils.device import params_to_device
 
     count, steps, res = HISTORY_FRAMES, HISTORY_STEPS, config.resolution
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
@@ -5529,7 +5547,6 @@ def main() -> None:
     config = GeneratorConfig()  # config-f, 1024px
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = kernel_phase(config, gen)
-    records.append(filtered_lrelu_phase(gen))
     # phase 3's networks stay in this directory for phase 8
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as nets_dir:
         launches, net, z = main_path_phase(config, Path(nets_dir))

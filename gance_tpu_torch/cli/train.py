@@ -28,6 +28,8 @@ from typing import Any, Optional
 
 import click
 
+from gance_tpu_torch.utils.device import params_to_device
+
 
 @click.command()
 @click.option("--dataset-directory", type=click.Path(exists=True, file_okay=False), required=True)
@@ -206,7 +208,6 @@ def cli(  # pylint: disable=too-many-arguments,too-many-locals
         ema = state.ema_params
         if not isinstance(ema, dict):  # a model group: evaluate it whole on its lead
             from gance_tpu_torch.parallel.mesh import gather_params
-            from gance_tpu_torch.synthesis.runtime import params_to_device
 
             ema = params_to_device(gather_params(ema), ema.lead)
         record = evaluate_training_metrics(

@@ -42,8 +42,7 @@ from gance_tpu_torch.projection.lpips import (
     vgg_features,
     vgg_params_to_device,
 )
-from gance_tpu_torch.synthesis.runtime import params_to_device
-from gance_tpu_torch.utils.device import resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 
 _FEATURE_SIZE = 256  # evaluate features at 256px, like projection and PPL

@@ -48,8 +48,7 @@ from gance_tpu_torch.projection.lpips import (
     lpips_distance,
     vgg_params_to_device,
 )
-from gance_tpu_torch.synthesis.runtime import params_to_device
-from gance_tpu_torch.utils.device import resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 
 # NVlabs evaluates the perceptual distance at 256px (same as projection).
 _PERCEPTUAL_SIZE = 256

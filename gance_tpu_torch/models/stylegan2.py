@@ -520,6 +520,11 @@ def synthesis_apply(
     return images_to_uint8(image) if uint8_output else image
 
 
+def prepare(params: Params, config: GeneratorConfig) -> Params:
+    """The params as every forward takes them: StyleGAN2 makes nothing ahead."""
+    return params
+
+
 def generator_apply(
     params: Params,
     z: torch.Tensor,

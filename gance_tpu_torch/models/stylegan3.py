@@ -365,18 +365,26 @@ def _synthesis_layers(prepared: PreparedGenerator, x: torch.Tensor, dlatents: to
     return images_to_uint8(image) if uint8_output else image
 
 
-def _check_dtype(compute_dtype: torch.dtype) -> None:
+def _check(compute_dtype: torch.dtype, noise_mode: str,
+           phase_top_block_mode: Optional[bool]) -> None:
+    """The arguments StyleGAN2's signature has that StyleGAN3-T takes one way only."""
     if compute_dtype != torch.float32:
         raise ValueError(f"StyleGAN3 runs in float32 only, not {compute_dtype}")
+    if noise_mode != "const":
+        raise ValueError(f"StyleGAN3-T has no noise inputs: noise_mode 'const', not {noise_mode!r}")
+    if phase_top_block_mode:
+        raise ValueError("StyleGAN3 has no polyphase top block")
 
 
 def synthesis_apply(params: Any, dlatents: torch.Tensor, config: StyleGAN3Config,
                     compute_dtype: torch.dtype = torch.float32,
-                    uint8_output: bool = False) -> torch.Tensor:
+                    uint8_output: bool = False, noise_mode: str = "const",
+                    phase_top_block_mode: Optional[bool] = None) -> torch.Tensor:
     """w+ (B, num_style_rows, dlatent) -> (B, resolution, resolution, 3) NHWC
     float (about [-1, 1]), or uint8 with `uint8_output`. `params` is a tree
-    or a `PreparedGenerator`."""
-    _check_dtype(compute_dtype)
+    or a `PreparedGenerator`. `noise_mode` and `phase_top_block_mode` are
+    StyleGAN2's, taken so both families share one signature."""
+    _check(compute_dtype, noise_mode, phase_top_block_mode)
     prepared = as_prepared(params, config)
     apply_conv_precision()
     dlatents = dlatents.float()
@@ -388,9 +396,10 @@ def synthesis_apply(params: Any, dlatents: torch.Tensor, config: StyleGAN3Config
 def generator_apply(params: Any, z: torch.Tensor, config: StyleGAN3Config,
                     truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI,
                     compute_dtype: torch.dtype = torch.float32,
-                    uint8_output: bool = False) -> torch.Tensor:
+                    uint8_output: bool = False, noise_mode: str = "const",
+                    phase_top_block_mode: Optional[bool] = None) -> torch.Tensor:
     """z -> mapping -> broadcast -> truncation -> synthesis."""
-    _check_dtype(compute_dtype)
+    _check(compute_dtype, noise_mode, phase_top_block_mode)
     prepared = as_prepared(params, config)
     with span("model.sg3.input"):
         dlatents = broadcast_dlatents(mapping_apply(prepared.params, z, config), config)

@@ -41,24 +41,12 @@
 
 #include "common.cuh"
 
-// Measurement variants (tools/time_torch_ab_kernels.py --ablate); 0 is the kernel.
-// 1: no noise read; 2: no arithmetic (out = x); 3: the scalar path everywhere.
-#ifndef GANCE_A_ABLATE
-#define GANCE_A_ABLATE 0
-#endif
-#ifndef GANCE_A_CHANNELS_PER_THREAD
-#define GANCE_A_CHANNELS_PER_THREAD 16
-#endif
-#ifndef GANCE_A_IN_FLIGHT
-#define GANCE_A_IN_FLIGHT 4
-#endif
-
 namespace {
 
 constexpr float kSqrt2 = 1.41421356237309504880f;
 constexpr int kThreads = 256;
-constexpr int kMaxChannelsPerThread = GANCE_A_CHANNELS_PER_THREAD;
-constexpr int kInFlight = GANCE_A_IN_FLIGHT;  // x loads issued before the first use
+constexpr int kMaxChannelsPerThread = 16;
+constexpr int kInFlight = 4;  // x loads issued before the first use
 constexpr long kMinBlocks = 2 * 132;          // two blocks per SM before channels per thread grow
 
 // V elements of T per unit: Raw holds them as loaded.
@@ -110,15 +98,10 @@ bias_noise_lrelu_kernel(const T* __restrict__ x, const float* __restrict__ noise
   const long pixel = unit * V;
 
   float ns[V];  // noise * strength of this unit, for every channel of the group
-#if GANCE_A_ABLATE == 1
-#pragma unroll
-  for (int i = 0; i < V; ++i) ns[i] = 0.f;
-#else
   U::noise(noise + (noise_per_sample ? b * hw : 0) + pixel, ns);
   const float s = __ldg(strength);
 #pragma unroll
   for (int i = 0; i < V; ++i) ns[i] = ns[i] * s;
-#endif
 
   for (int k0 = 0; k0 < channels_per_thread; k0 += kInFlight) {
     typename U::Raw raw[kInFlight];
@@ -135,7 +118,6 @@ bias_noise_lrelu_kernel(const T* __restrict__ x, const float* __restrict__ noise
       if (k0 + j < channels_per_thread && c < channels) {
         float f[V];
         U::unpack(raw[j], f);
-#if GANCE_A_ABLATE != 2
         const float bc = __ldg(bias + c);
         if constexpr (kScaled) {
           // scale and x * scale rounded to T, as the separate multiply in T rounds them
@@ -150,7 +132,6 @@ bias_noise_lrelu_kernel(const T* __restrict__ x, const float* __restrict__ noise
           const float v = (f[i] + ns[i]) + bc;
           f[i] = (v >= 0.f ? v : v * 0.2f) * kSqrt2;
         }
-#endif
         U::store(out + (b * channels + c) * hw + pixel, f);
       }
     }
@@ -213,7 +194,7 @@ int dispatch(const void* x, const void* noise, const void* bias, const void* str
              const void* scale, void* out, long batch, int channels, long hw,
              int noise_per_sample, cudaStream_t stream) {
   constexpr int V = gance::kVec<T>;
-  const bool vector = GANCE_A_ABLATE != 3 && hw % V == 0 && gance::aligned(x, 16) &&
+  const bool vector = hw % V == 0 && gance::aligned(x, 16) &&
                       gance::aligned(out, 16) && gance::aligned(noise, 16);
   if (vector) {
     return launch<T, V>(x, noise, bias, strength, scale, out, batch, channels, hw,

@@ -47,36 +47,15 @@
 namespace gance {
 namespace stencil4 {
 
-// Measurement builds only (tools/time_torch_stencil_kernels.py --ablate; the
-// port builds none of these macros): GANCE_STENCIL4_STAGES sets the ring
-// depth, GANCE_STENCIL4_MAX_UNIT the widest unit, GANCE_STENCIL4_MIN_BLOCKS
-// the blocks of 512 threads an SM must hold (2: at most 64 registers), and
-// GANCE_STENCIL4_ABLATE = 1 replaces the stencil's arithmetic by a copy of
-// each thread's first V values, 2 keeps the arithmetic but stores nothing,
-// 3 leaves out a row's second column part (`launch_columns`).
-#ifndef GANCE_STENCIL4_STAGES
-#define GANCE_STENCIL4_STAGES 4
-#endif
-#ifndef GANCE_STENCIL4_MAX_UNIT
-#define GANCE_STENCIL4_MAX_UNIT 512
-#endif
-#ifndef GANCE_STENCIL4_ABLATE
-#define GANCE_STENCIL4_ABLATE 0
-#endif
-
-constexpr int kStages = GANCE_STENCIL4_STAGES;  // ring depth: loads run kStages-1 rows ahead
-constexpr int kMaxUnitThreads = GANCE_STENCIL4_MAX_UNIT;  // wider planes take column tiles
+constexpr int kStages = 4;  // ring depth: loads run kStages-1 rows ahead
+constexpr int kMaxUnitThreads = 512;  // wider planes take column tiles
 
 // Blocks of kMaxUnitThreads an SM must hold, for a kernel whose fp32 form
 // asks for `fp32_blocks` (2: at most 64 registers a thread); bf16 forms take
 // 1, since at 64 registers their four rows of partial sums spill.
 template <typename T>
 constexpr int min_blocks(int fp32_blocks) {
-#ifdef GANCE_STENCIL4_MIN_BLOCKS
-  return GANCE_STENCIL4_MIN_BLOCKS;
-#else
   return sizeof(T) == 4 ? fp32_blocks : 1;
-#endif
 }
 
 constexpr int kBlockThreads = 128;  // units narrower than this share a block
@@ -195,7 +174,7 @@ inline int launch_columns(int elem_bytes, long planes, long x_elems, int h, int 
   l.part[0] = plan(elem_bytes, planes, x_elems, h, ld, w_in, pad0, h_out, w_out, 0, split,
                    kBlockThreads);
   const int threads = l.part[0].tpr * l.part[0].units;
-  l.parts = split < w_out && GANCE_STENCIL4_ABLATE != 3 ? 2 : 1;
+  l.parts = split < w_out ? 2 : 1;
   if (l.parts == 2) {
     l.part[1] = plan(elem_bytes, planes, x_elems, h, ld, w_in, pad0, h_out, w_out, split, w_out,
                      threads);
@@ -465,12 +444,7 @@ __device__ __forceinline__ void stream_strip(const T* __restrict__ x, T* __restr
       for (int m = 0; m < N; ++m) v[m] = 0.f;
     }
     float o[V];
-#if GANCE_STENCIL4_ABLATE == 1
-#pragma unroll
-    for (int m = 0; m < V; ++m) o[m] = v[m];
-#else
     op.template row<R>(v, params, o);
-#endif
     if (k >= 3) {
       T* const p = orow + static_cast<long>(i0 + k - 3) * g.w_out;
       const int a = static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15) /
@@ -480,11 +454,7 @@ __device__ __forceinline__ void stream_strip(const T* __restrict__ x, T* __restr
 #pragma unroll
         for (int m = 0; m < V; ++m) prev[m] = __shfl_up_sync(0xffffffffu, o[m], 1);
       }
-#if GANCE_STENCIL4_ABLATE == 2
-      if (active && __float_as_uint(o[0]) == 0x7fc0dead)  // a NaN the data never holds
-#else
       if (active)
-#endif
         store_row<T, V>(p, a, o, prev, has_prev, tail_self, g.w_end - jt);
     }
   };

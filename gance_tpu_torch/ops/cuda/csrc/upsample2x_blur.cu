@@ -21,8 +21,7 @@
 // contiguous bytes. Units of 16 input bytes, whose two 16-byte stores a row
 // each cover half of every 32-byte sector they touch, ran at 47% of the
 // bound in fp32 at the largest launch, against 76% for this design and
-// 69-72% for the 8-byte stores of the kernel it replaced (the ablation
-// GANCE_B_UNIT_BYTES=16 of tools/time_torch_ab_kernels.py). A plane
+// 69-72% for the 8-byte stores of the kernel it replaced (on an H100). A plane
 // narrower than a block's threads shares the block with other row strips
 // (threadIdx.y). The vector path needs W a multiple of V, x aligned to a
 // unit and out to 16 bytes; anything else (ragged or odd widths, a view with
@@ -31,33 +30,19 @@
 // lane folding of (W, C) has no counterpart here: NCHW already puts W on the
 // fast axis.
 
-#include <type_traits>
-
 #include "common.cuh"
-
-// Measurement variants (tools/time_torch_ab_kernels.py --ablate); 0 is the kernel.
-// 1: an empty kernel (launch and host cost alone); 2: the scalar path everywhere.
-#ifndef GANCE_B_ABLATE
-#define GANCE_B_ABLATE 0
-#endif
-#ifndef GANCE_B_UNIT_BYTES
-#define GANCE_B_UNIT_BYTES 8
-#endif
-#ifndef GANCE_B_ROWS
-#define GANCE_B_ROWS 4
-#endif
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = GANCE_B_ROWS;           // input rows a thread walks down
-constexpr int kUnitBytes = GANCE_B_UNIT_BYTES;  // input bytes of a thread's columns: 8 or 16
+constexpr int kRows = 4;        // input rows a thread walks down
+constexpr int kUnitBytes = 8;   // input bytes of a thread's columns
 
 // V = kCols<T> input columns a thread owns, loaded as one InVec<T>.
 template <typename T>
 constexpr int kCols = kUnitBytes / static_cast<int>(sizeof(T));
 template <typename T>
-using InVec = std::conditional_t<kUnitBytes == 8, gance::Vec8<T>, gance::Vec16<T>>;
+using InVec = gance::Vec8<T>;
 
 struct Taps {
   float k0, k1, k2, k3;
@@ -140,9 +125,6 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 upsample2x_blur_kernel(const T* __restrict__ x, T* __restrict__ out, int h, int w, Taps k,
                        int col_tiles) {
-#if GANCE_B_ABLATE == 1
-  return;
-#endif
   constexpr int V = kCols<T>;
   const long plane = blockIdx.x / col_tiles;
   const int j0 = ((blockIdx.x % col_tiles) * blockDim.x + threadIdx.x) * V;
@@ -207,8 +189,8 @@ int launch(const void* x, void* out, long planes, int h, int w, Taps k, cudaStre
 
 template <typename T>
 int dispatch(const void* x, void* out, long planes, int h, int w, Taps k, cudaStream_t stream) {
-  const bool vector = GANCE_B_ABLATE != 2 && w % kCols<T> == 0 &&
-                      gance::aligned(x, kUnitBytes) && gance::aligned(out, 16);
+  const bool vector = w % kCols<T> == 0 && gance::aligned(x, kUnitBytes) &&
+                      gance::aligned(out, 16);
   return vector ? launch<T, true>(x, out, planes, h, w, k, stream)
                 : launch<T, false>(x, out, planes, h, w, k, stream);
 }

@@ -22,9 +22,7 @@ inference path does and whose backward is the twin's vector-Jacobian product
 up/down/taps other than StyleGAN3-T's) the wrapper raises; nothing falls
 back. While a profiler runs, the wrapper counts `ops.filtered_lrelu_fused`
 (a forward ran F) and `ops.filtered_lrelu_twin` (a forward ran the twin: a
-CPU tensor), and of F's launches `ops.filtered_lrelu_lanes32` and
-`ops.filtered_lrelu_lanes16`: strips of a whole warp, or of half a warp with
-two planes a warp (`strip_lanes`, the kernel's choice).
+CPU tensor).
 
 F has no counterpart among the JAX package's Pallas kernels: the JAX package
 runs no StyleGAN3 network.
@@ -53,7 +51,6 @@ def output_size(size: int, up: int, down: int, padding: Tuple[int, int], up_taps
     return (upsampled - down_taps) // down + 1
 
 
-@functools.lru_cache(maxsize=256)
 def strip_lanes(side: int, up: int, down: int, pad: int, down_taps: int) -> int:
     """The lanes of a strip kernel F picks for an output side (its C host's
     rule): a lane makes 8 upsampled columns, so 32 lanes feed strips of at
@@ -164,7 +161,6 @@ def _filtered_lrelu_run(x: torch.Tensor, bias: torch.Tensor, scale: Optional[tor
     if side <= 0:
         raise ValueError(f"filtered_lrelu: no output for x {tuple(x.shape)}, pads {padding}")
     profiling.count("ops.filtered_lrelu_fused")
-    profiling.count(f"ops.filtered_lrelu_lanes{strip_lanes(side, up, down, padding[0], case[3])}")
     x = x.contiguous()
     bias = _kernels._float32(bias).contiguous()
     scales = () if scale is None else (_kernels._float32(scale).contiguous(),)

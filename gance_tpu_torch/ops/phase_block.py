@@ -24,7 +24,6 @@ JAX leaves to XLA). Conv1, its epilogue and ToRGB run as kernel E
 """
 
 import math
-import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,9 +44,6 @@ from gance_tpu_torch.ops.upfirdn2d import (
 )
 
 _SQRT2 = math.sqrt(2.0)
-# GANCE_TPU_UINT8_RGB picks between two TPU forms of the ToRGB contraction
-# that give the same values; kernel E computes that contraction itself.
-_UINT8_RGB_FORMS = ("blockdiag", "split")
 
 
 def phase_kernel_slices(k1d: np.ndarray) -> np.ndarray:
@@ -346,17 +342,9 @@ def phase_top_block_uint8(
     are interleaved. The same adds on the same operands in the same order as
     `images_to_uint8(phase_top_block(...))`, so the two agree bit for bit.
 
-    GANCE_TPU_UINT8_RGB ('blockdiag', the default, or 'split') chose between
-    two TPU forms of the ToRGB contraction with the same values; kernel E
-    computes the contraction itself, so both give this result, and any other
-    value raises.
-
     :param y: the RGB accumulator BEFORE the upsample (B, n_rgb, H/2, W/2), or None.
     :return: uint8 NHWC image (B, H, W, n_rgb).
     """
-    form = os.environ.get("GANCE_TPU_UINT8_RGB", "blockdiag")
-    if form not in _UINT8_RGB_FORMS:
-        raise ValueError(f"GANCE_TPU_UINT8_RGB={form!r}: expected one of {_UINT8_RGB_FORMS}")
     b, _, hh, hw = x.shape
     n_rgb = block["ToRGB"]["weight"].shape[0]
     bias = block["ToRGB"]["bias"]

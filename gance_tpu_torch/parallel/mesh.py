@@ -39,7 +39,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from gance_tpu_torch.utils.device import resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 
 Params = Dict[str, Any]
 
@@ -234,6 +234,16 @@ def data_axis_size(mesh: Optional[Mesh]) -> int:
     return int(mesh.shape.get("data", 1)) if mesh is not None else 1
 
 
+def _bucket_size(real: int, batch_size: int, multiple: int = 1) -> int:
+    """Smallest `multiple`·2^k >= `real`, capped at `batch_size`: bounds pad
+    waste on partial batches at under 2x. The serving batcher buckets with
+    `multiple` 8; the stream and network-parallel synthesis with the data axis."""
+    size = multiple
+    while size < real and size < batch_size:
+        size *= 2
+    return min(size, batch_size)
+
+
 def shard_slices(n: int, parts: int) -> List[slice]:
     """Contiguous blocks of ceil(n / parts) rows, one per part (the last
     ones may be short or empty), as XLA lays out an uneven batch."""
@@ -302,8 +312,6 @@ def process_rows(mesh: Mesh, n: int, process: Optional[int] = None) -> slice:
 
 def replicated(mesh: Mesh, params: Params) -> Dict[torch.device, Params]:
     """`params` (numpy or tensors) copied once to each of this process's devices."""
-    from gance_tpu_torch.synthesis.runtime import params_to_device
-
     return {device: params_to_device(params, device) for device in mesh.local_devices}
 
 

@@ -23,23 +23,22 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from gance_tpu_torch.models.frames import frames
 from gance_tpu_torch.models.pickle_loader import load_generator
 from gance_tpu_torch.models.stylegan2 import (
     DEFAULT_TRUNCATION_PSI,
     GeneratorConfig,
-    generator_apply,
-    images_to_uint8,
-    resize_images,
     resolve_phase_top_block,
-    synthesis_apply,
 )
 from gance_tpu_torch.parallel.mesh import (
     Mesh,
+    _bucket_size,
     _object_grid,
     all_gather_host,
     global_devices,
     shard_slices,
 )
+from gance_tpu_torch.utils.device import params_to_device
 
 Params = Dict[str, Any]
 
@@ -143,8 +142,6 @@ class NetworkParallelSynthesis:
         self._phase_mode = phase_top_block_mode
         self.output_side_length = output_side_length
 
-        from gance_tpu_torch.synthesis.runtime import params_to_device
-
         stacked = stack_network_params(list(params_list))
         # each network's params once on each of its local devices
         self._params: Dict[Tuple[int, torch.device], Params] = {}
@@ -178,19 +175,6 @@ class NetworkParallelSynthesis:
     def output_resolution(self) -> int:
         return self.output_side_length or self.config.resolution
 
-    def _cell(self, params: Params, frames: torch.Tensor, phase_mode: bool) -> torch.Tensor:
-        config, side = self.config, self.output_side_length
-        fused = side is None or side == config.resolution
-        if frames.ndim == 3:
-            images = synthesis_apply(params, frames, config, noise_mode="const",
-                                     compute_dtype=self._compute_dtype,
-                                     phase_top_block_mode=phase_mode, uint8_output=fused)
-        else:
-            images = generator_apply(params, frames, config, truncation_psi=self._truncation_psi,
-                                     noise_mode="const", compute_dtype=self._compute_dtype,
-                                     phase_top_block_mode=phase_mode, uint8_output=fused)
-        return images if fused else images_to_uint8(resize_images(images, side))
-
     def _launch_grouped(self, grouped: np.ndarray) -> "_GroupedFrames":
         grouped = np.asarray(grouped)
         if grouped.shape[0] != self.n_networks:
@@ -206,10 +190,12 @@ class NetworkParallelSynthesis:
             for (i, j), slot in np.ndenumerate(self.mesh.devices):
                 if not self.mesh.is_local(slot) or blocks[j].stop == blocks[j].start:
                     continue
-                frames = torch.from_numpy(
+                batch = torch.from_numpy(
                     np.ascontiguousarray(grouped[i, blocks[j]], np.float32)).to(slot.device)
-                cells.append((i, blocks[j], self._cell(self._params[(i, slot.device)],
-                                                       frames, phase_mode)))
+                cells.append((i, blocks[j], frames(
+                    self._params[(i, slot.device)], batch, self.config,
+                    truncation_psi=self._truncation_psi, compute_dtype=self._compute_dtype,
+                    output_side_length=self.output_side_length, phase_top_block_mode=phase_mode)))
         return _GroupedFrames(self, grouped.shape[:2], cells)
 
     def synthesize_grouped(self, grouped: np.ndarray) -> np.ndarray:
@@ -235,8 +221,6 @@ class NetworkParallelSynthesis:
         (group cap = batch_size x data axis); larger inputs go in rounds of
         one group shape.
         """
-        from gance_tpu_torch.synthesis.runtime import _bucket_size
-
         frame_data = np.asarray(frame_data)
         n = frame_data.shape[0]
         if network_indices is None:

@@ -17,12 +17,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from gance_tpu_torch.models.stylegan2 import (
-    DEFAULT_TRUNCATION_PSI,
-    GeneratorConfig,
-    generator_apply,
-    synthesis_apply,
-)
+from gance_tpu_torch.models.frames import frames
+from gance_tpu_torch.models.stylegan2 import DEFAULT_TRUNCATION_PSI, GeneratorConfig
 from gance_tpu_torch.parallel.mesh import (
     Mesh,
     ShardedRows,
@@ -67,8 +63,7 @@ def make_sharded_synthesis(
     res = config.resolution
 
     def apply(p: Params, z: torch.Tensor) -> torch.Tensor:
-        return generator_apply(p, z, config, truncation_psi=truncation_psi, noise_mode="const",
-                               compute_dtype=compute_dtype, uint8_output=True)
+        return frames(p, z, config, truncation_psi=truncation_psi, compute_dtype=compute_dtype)
 
     def synthesize(z: Any) -> np.ndarray:
         return fetch_to_host(run_sharded(mesh, replicas, z, apply, (res, res, 3)))
@@ -87,8 +82,7 @@ def make_sharded_matrix_synthesis(
     res = config.resolution
 
     def apply(p: Params, dlatents: torch.Tensor) -> torch.Tensor:
-        return synthesis_apply(p, dlatents, config, noise_mode="const",
-                               compute_dtype=compute_dtype, uint8_output=True)
+        return frames(p, dlatents, config, truncation_psi=None, compute_dtype=compute_dtype)
 
     def synthesize(dlatents: Any) -> np.ndarray:
         return fetch_to_host(run_sharded(mesh, replicas, dlatents, apply, (res, res, 3)))

@@ -70,7 +70,7 @@ from gance_tpu_torch.models.stylegan2 import (
 )
 from gance_tpu_torch.parallel.mesh import all_reduce_sum_
 from gance_tpu_torch.parallel.tensor_parallel import GroupParams
-from gance_tpu_torch.synthesis.runtime import params_to_device, resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 
 Params = Dict[str, Any]
 Metrics = Dict[str, torch.Tensor]

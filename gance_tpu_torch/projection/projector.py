@@ -57,8 +57,7 @@ from gance_tpu_torch.projection.lpips import (
     random_vgg_params,
     vgg_params_to_device,
 )
-from gance_tpu_torch.synthesis.runtime import params_to_device
-from gance_tpu_torch.utils.device import resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 
 StepCallback = Callable[[int, np.ndarray, List[np.ndarray], np.ndarray], None]

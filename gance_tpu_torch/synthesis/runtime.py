@@ -12,11 +12,10 @@ psi=1.2 on the vectors path, constant noise buffers, and no mapping or
 truncation on the matrices path.
 
 Entry points run on `device="cuda"` unless the caller asks for the CPU; asking
-for CUDA on a host without it raises. Every call resolves the polyphase top
-block (GANCE_TPU_PHASE1024) anew, as JAX's runtime does. With an
-`output_side_length` other than the resolution, frames are rendered as float,
-resized on the device (`resize_images`, JAX's bicubic) and then quantised;
-otherwise the uint8 output is fused into synthesis.
+for CUDA on a host without it raises. A batch becomes frames through
+`models/frames.py::frames`, which owns the rank, truncation, noise and
+output-size rules for both model families. Every call resolves the
+polyphase top block (GANCE_TPU_PHASE1024) anew, as JAX's runtime does.
 
 Multi-device placement is JAX's: `SynthesisNetwork(mesh=)` places the params
 on a ('data', 'model') mesh (copied to each device with a 'model' axis of 1,
@@ -40,18 +39,22 @@ import torch
 
 # parse_network_paths is re-exported beside MultiNetwork, as gance_tpu's runtime does.
 from gance_tpu_torch.models.pickle_loader import load_generator, parse_network_paths  # noqa: F401
-from gance_tpu_torch.models.stylegan2 import (
-    DEFAULT_TRUNCATION_PSI,
-    GeneratorConfig,
-    generator_apply,
-    images_to_uint8,
-    resize_images,
-    synthesis_apply,
+from gance_tpu_torch.models.frames import Config, frames, prepare
+from gance_tpu_torch.models.stylegan2 import DEFAULT_TRUNCATION_PSI, GeneratorConfig
+from gance_tpu_torch.parallel.mesh import (
+    _bucket_size,
+    data_axis_size,
+    fetch_to_host as _fetch_to_host,
+    generator_param_sharding,
+    local_devices,
 )
-from gance_tpu_torch.models import stylegan3
-from gance_tpu_torch.parallel.mesh import fetch_to_host as _fetch_to_host
+from gance_tpu_torch.parallel.network_parallel import (
+    NetworkParallelSynthesis,
+    create_network_mesh,
+)
+from gance_tpu_torch.parallel.sharded_synthesis import run_sharded
 from gance_tpu_torch.types import is_vector
-from gance_tpu_torch.utils.device import resolve_device
+from gance_tpu_torch.utils.device import params_to_device, resolve_device
 from gance_tpu_torch.utils.logging import LOGGER
 from gance_tpu_torch.utils.profiling import count, span
 
@@ -66,16 +69,6 @@ DEFAULT_COMPUTE_DTYPE = {
 }[os.environ.get("GANCE_TPU_COMPUTE_DTYPE", "float32").lower()]
 
 
-def params_to_device(params: Any, device: torch.device) -> Any:
-    """A params tree of numpy arrays (or tensors) -> float32 tensors on `device`,
-    copied, so the tree never aliases the caller's arrays."""
-    if isinstance(params, dict):
-        return {k: params_to_device(v, device) for k, v in params.items()}
-    if torch.is_tensor(params):
-        return params.to(device=device, dtype=torch.float32, copy=True)
-    return torch.from_numpy(np.array(params, dtype=np.float32)).to(device)
-
-
 def _pad_batch(data: np.ndarray, batch_size: int) -> Tuple[np.ndarray, int]:
     """Pad the leading axis up to `batch_size`; return (padded, real_count)."""
     real = data.shape[0]
@@ -83,16 +76,6 @@ def _pad_batch(data: np.ndarray, batch_size: int) -> Tuple[np.ndarray, int]:
         return data, real
     pad = [(0, batch_size - real)] + [(0, 0)] * (data.ndim - 1)
     return np.pad(data, pad), real
-
-
-def _bucket_size(real: int, batch_size: int, multiple: int = 1) -> int:
-    """Smallest `multiple`·2^k >= `real`, capped at `batch_size`: bounds pad
-    waste on partial batches at under 2x. The serving batcher buckets with
-    `multiple` 8; the stream keeps 1."""
-    size = multiple
-    while size < real and size < batch_size:
-        size *= 2
-    return min(size, batch_size)
 
 
 # A dispatched window: its frame count, its per-index groups as (images on
@@ -122,12 +105,12 @@ def _window_in_order(window: Window, window_start: int) -> Iterator[np.ndarray]:
 @dataclass
 class SynthesisNetwork:
     """A loaded generator: params resident on `device` + config + batched
-    apply. `config` is a StyleGAN2 `GeneratorConfig` or a
-    `models/stylegan3.py::StyleGAN3Config`, whose network runs in fp32 on one
-    device (no mesh) from the tree `stylegan3.prepare` makes at load."""
+    apply through `models/frames.py::frames`. `config` is a StyleGAN2
+    `GeneratorConfig` or a `models/stylegan3.py::StyleGAN3Config`, whose
+    network runs in fp32 on one device (no mesh)."""
 
     params: Params
-    config: Union[GeneratorConfig, stylegan3.StyleGAN3Config]
+    config: Config
     path: Optional[Path] = None
     truncation_psi: Optional[float] = DEFAULT_TRUNCATION_PSI
     compute_dtype: torch.dtype = DEFAULT_COMPUTE_DTYPE
@@ -141,17 +124,11 @@ class SynthesisNetwork:
     def __post_init__(self) -> None:
         self._replicas: Optional[Dict[Tuple[torch.device, ...], Any]] = None
         self._data_axis = 1
-        self._sg3: Optional[stylegan3.PreparedGenerator] = None
-        if isinstance(self.config, stylegan3.StyleGAN3Config):
-            if self.mesh is not None:
-                raise ValueError("a StyleGAN3 network runs on one device, not on a mesh")
-            self.device = resolve_device(self.device)
-            self._sg3 = stylegan3.prepare(params_to_device(self.params, self.device), self.config)
-            self.params = self._sg3.params
-            return
         if self.mesh is not None:
-            from gance_tpu_torch.parallel.mesh import data_axis_size, generator_param_sharding
-
+            # the mesh's sharding policy knows StyleGAN2's params tree only
+            if not isinstance(self.config, GeneratorConfig):
+                raise ValueError("only a StyleGAN2 network runs on a mesh; StyleGAN3 runs on "
+                                 "one device")
             self._replicas = generator_param_sharding(self.mesh, self.params)
             self._data_axis = data_axis_size(self.mesh)
             self.device = self.mesh.first_device
@@ -161,6 +138,7 @@ class SynthesisNetwork:
         self.device = resolve_device(self.device)
         # Params go to the device once and stay there for every call.
         self.params = params_to_device(self.params, self.device)
+        self._prepared = prepare(self.params, self.config)
 
     @classmethod
     def from_pkl(
@@ -206,43 +184,14 @@ class SynthesisNetwork:
             return batch.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(batch, np.float32)).to(self.device)
 
-    @property
-    def _needs_resize(self) -> bool:
-        return self.output_side_length not in (None, self.config.resolution)
+    def _frames(self, prepared: Any, batch: torch.Tensor) -> torch.Tensor:
+        return frames(prepared, batch, self.config, truncation_psi=self.truncation_psi,
+                      compute_dtype=self.compute_dtype,
+                      output_side_length=self.output_side_length)
 
-    def _finish(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 frames as they leave: resized from float when asked, else as rendered."""
-        if self._needs_resize:
-            return images_to_uint8(resize_images(images, self.output_side_length))
-        return images
-
-    def _vectors(self, params: Params, z: torch.Tensor) -> torch.Tensor:
-        if self._sg3 is not None:
-            return self._finish(stylegan3.generator_apply(
-                self._sg3, z, self.config, truncation_psi=self.truncation_psi,
-                compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
-            ))
-        return self._finish(generator_apply(
-            params, z, self.config, truncation_psi=self.truncation_psi, noise_mode="const",
-            compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
-        ))
-
-    def _matrices(self, params: Params, dlatents: torch.Tensor) -> torch.Tensor:
-        if self._sg3 is not None:
-            return self._finish(stylegan3.synthesis_apply(
-                self._sg3, dlatents, self.config, compute_dtype=self.compute_dtype,
-                uint8_output=not self._needs_resize,
-            ))
-        return self._finish(synthesis_apply(
-            params, dlatents, self.config, noise_mode="const",
-            compute_dtype=self.compute_dtype, uint8_output=not self._needs_resize,
-        ))
-
-    def _on_mesh(self, batch: Union[np.ndarray, torch.Tensor], apply: Any) -> Any:
+    def _on_mesh(self, batch: Union[np.ndarray, torch.Tensor]) -> Any:
         """The batch over the mesh's data axis, padded to a multiple of it by
         repeating the last row (the pads are sliced off at the fetch)."""
-        from gance_tpu_torch.parallel.sharded_synthesis import run_sharded
-
         batch = batch.cpu() if torch.is_tensor(batch) else torch.from_numpy(
             np.ascontiguousarray(batch, np.float32))
         n = batch.shape[0]
@@ -250,33 +199,22 @@ class SynthesisNetwork:
         if pad:
             batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
         side = self.output_side_length or self.config.resolution
-        return run_sharded(self.mesh, self._replicas, batch, apply, (side, side, 3), rows=n)
+        return run_sharded(self.mesh, self._replicas, batch, self._frames, (side, side, 3),
+                           rows=n)
 
     @torch.inference_mode()
-    def device_images_from_vectors(self, z_batch: np.ndarray) -> torch.Tensor:
-        """(B, latent) z -> (B, S, S, 3) uint8 on the device (queued, not synced);
-        S is `output_side_length`, or the resolution. On a mesh: the launched
-        shards (`parallel/mesh.py::ShardedRows`)."""
+    def device_images_generic(self, batch: Union[np.ndarray, torch.Tensor]) -> Any:
+        """(B, latent) z or (B, num_style_rows, dlatent) w+ -> (B, S, S, 3)
+        uint8 on the device (queued, not synced); S is `output_side_length`,
+        or the resolution. The rank decides: w+ skips the mapping network and
+        truncation, since projection latents are final. On a mesh: the
+        launched shards (`parallel/mesh.py::ShardedRows`)."""
         if self.mesh is not None:
-            return self._on_mesh(z_batch, self._vectors)
-        return self._vectors(self.params, self._input(z_batch))
+            return self._on_mesh(batch)
+        return self._frames(self._prepared, self._input(batch))
 
-    @torch.inference_mode()
-    def device_images_from_matrices(self, dlatent_batch: np.ndarray) -> torch.Tensor:
-        """(B, num_style_rows, dlatent) w+ -> uint8 images on the device. Skips the
-        mapping network and truncation: projection latents are final."""
-        if self.mesh is not None:
-            return self._on_mesh(dlatent_batch, self._matrices)
-        return self._matrices(self.params, self._input(dlatent_batch))
-
-    def device_images_generic(self, batch: np.ndarray) -> torch.Tensor:
-        """Dispatch on input rank: (B, V) -> vectors, (B, R, V) -> matrices."""
-        batch = np.asarray(batch)
-        if batch.ndim == 2:
-            return self.device_images_from_vectors(batch)
-        if batch.ndim == 3:
-            return self.device_images_from_matrices(batch)
-        raise ValueError(f"Cannot dispatch batch of shape {batch.shape}")
+    device_images_from_vectors = device_images_generic
+    device_images_from_matrices = device_images_generic
 
     def images_from_vectors(self, z_batch: np.ndarray) -> np.ndarray:
         return _fetch_to_host(self.device_images_from_vectors(z_batch))
@@ -453,11 +391,6 @@ class MultiNetwork:
 
     def load(self) -> None:
         if self._networks is None and self._network_parallel:
-            from gance_tpu_torch.parallel.network_parallel import (
-                NetworkParallelSynthesis,
-                create_network_mesh,
-            )
-
             LOGGER.info("Network-parallel synthesis: %d networks resident on a "
                         "('network', 'data') mesh", len(self.network_paths))
             self._np_serving = NetworkParallelSynthesis.from_pkls(
@@ -474,8 +407,6 @@ class MultiNetwork:
             LOGGER.info("Loading %d networks", len(self.network_paths))
             devices = None
             if self._device_per_network:
-                from gance_tpu_torch.parallel.mesh import local_devices
-
                 devices = ([torch.device(d) for d in self._devices] if self._devices
                            else local_devices(self._device))
                 LOGGER.info("One network per device over %d devices", len(devices))
@@ -593,8 +524,6 @@ class MultiNetwork:
         # Batches over a mesh stay divisible by its data axis, the cap too:
         # batch_size rounds down to a data-axis multiple (up only when it is
         # below the data axis, the smallest batch that fills it).
-        from gance_tpu_torch.parallel.mesh import data_axis_size
-
         data_axis = data_axis_size(self._mesh)
         if data_axis > 1:
             batch_size = max(data_axis, batch_size - batch_size % data_axis)

@@ -1,7 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and params placement shared by every entry point of the port."""
 
-from typing import Union
+from typing import Any, Union
 
+import numpy as np
 import torch
 
 Device = Union[str, torch.device]
@@ -16,3 +17,13 @@ def resolve_device(device: Device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def params_to_device(params: Any, device: torch.device) -> Any:
+    """A params tree of numpy arrays (or tensors) -> float32 tensors on `device`,
+    copied, so the tree never aliases the caller's arrays."""
+    if isinstance(params, dict):
+        return {k: params_to_device(v, device) for k, v in params.items()}
+    if torch.is_tensor(params):
+        return params.to(device=device, dtype=torch.float32, copy=True)
+    return torch.from_numpy(np.array(params, dtype=np.float32)).to(device)

@@ -25,7 +25,7 @@ from gance_tpu.models import stylegan2 as jax_g  # noqa: E402
 from gance_tpu_torch.models import pickle_loader as port_loader  # noqa: E402
 from gance_tpu_torch.models import stylegan2 as port_g  # noqa: E402
 from gance_tpu_torch.models.convert import params_from_reference  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.test_golden_image import GOLDEN_PIXELS  # noqa: E402
 
 GOLDEN_KW = dict(resolution=32, fmap_base=512, fmap_max=64, latent_size=32,

@@ -37,7 +37,7 @@ from gance_tpu_torch.metrics import ppl as port_ppl  # noqa: E402
 from gance_tpu_torch.models import stylegan2 as port_g  # noqa: E402
 from gance_tpu_torch.models.convert import params_from_reference  # noqa: E402
 from gance_tpu_torch.projection.lpips import vgg_params_to_device  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.torch_threads import capped_threads  # noqa: E402,F401
 
 MODEL_KW = dict(resolution=32, fmap_base=256, fmap_max=32, latent_size=32, dlatent_size=32,

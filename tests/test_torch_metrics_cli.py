@@ -39,7 +39,7 @@ from gance_tpu_torch.metrics import training_eval as port_eval  # noqa: E402
 from gance_tpu_torch.models import stylegan2 as port_g  # noqa: E402
 from gance_tpu_torch.models.convert import params_from_reference  # noqa: E402
 from gance_tpu_torch.parallel import training as T  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.test_torch_metrics import two_block_features  # noqa: E402
 from tests.torch_threads import capped_threads  # noqa: E402,F401
 

@@ -40,7 +40,7 @@ from gance_tpu_torch.ops import phase_block as port_pb  # noqa: E402
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
 from gance_tpu_torch.ops.upfirdn2d import upsample2x_phases_nchw  # noqa: E402
 from gance_tpu_torch.synthesis import runtime as port_rt  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 
 RK = (1, 3, 3, 1)
 CPU = torch.device("cpu")
@@ -301,21 +301,6 @@ def test_phase_top_block_uint8_matches_jax_and_float_form(resolution, fmap_base,
     fine = port_pb.phase_top_block(*port_args, y_up, RK, torch.float32)
     torch.testing.assert_close(got, port_g.images_to_uint8(fine.permute(0, 2, 3, 1)),
                                rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("form", ["blockdiag", "split", "other"])
-def test_uint8_rgb_env_forms(monkeypatch, form):
-    """Both TPU forms of the ToRGB contraction give the same frame; others raise."""
-    _, rng, port_args, _ = _block_case(8, 256, "const")
-    y = rng.randn(2, 3, 4, 4).astype(np.float32)
-    reference = port_pb.phase_top_block_uint8(*port_args, torch.from_numpy(y), RK, torch.float32)
-    monkeypatch.setenv("GANCE_TPU_UINT8_RGB", form)
-    if form == "other":
-        with pytest.raises(ValueError, match="GANCE_TPU_UINT8_RGB"):
-            port_pb.phase_top_block_uint8(*port_args, torch.from_numpy(y), RK, torch.float32)
-        return
-    got = port_pb.phase_top_block_uint8(*port_args, torch.from_numpy(y), RK, torch.float32)
-    torch.testing.assert_close(got, reference, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("side,in_size", [(16, 32), (24, 32), (48, 32), (7, 16)])

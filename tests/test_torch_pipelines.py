@@ -74,7 +74,7 @@ from gance_tpu_torch.synthesis.inputs import (  # noqa: E402
     alpha_blend_projection_file,
     alpha_blend_vectors_max_rms_power_audio,
 )
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.test_torch_media import read_avi  # noqa: E402
 from tests.torch_parallel_worker import cpu_slots  # noqa: E402
 

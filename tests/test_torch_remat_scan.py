@@ -27,7 +27,7 @@ from gance_tpu_torch.models import stylegan2 as port_g  # noqa: E402
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
 from gance_tpu_torch.parallel import training as T  # noqa: E402
 from gance_tpu_torch.projection import projector as port_proj  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.torch_threads import capped_threads  # noqa: E402,F401
 
 TINY_KW = dict(resolution=16, fmap_base=256, fmap_max=32, latent_size=16, dlatent_size=16,

@@ -6,6 +6,8 @@ another order may flip a value on a step boundary), `synthesize_stream`
 groups, pads and orders frames exactly as JAX does (alternating indices,
 partial buckets), the multi-device modes render the same frames, a
 tensor-parallel 'model' axis and a CUDA request without CUDA raise, and the port imports neither jax nor gance_tpu.
+`models/frames.py::frames` gives each family's own apply bit for bit, and
+the trainer loads without the runtime.
 """
 
 import subprocess
@@ -22,12 +24,17 @@ import numpy as np  # noqa: E402
 from gance_tpu.models.pickle_loader import save_generator_pickle  # noqa: E402
 from gance_tpu.models.stylegan2 import GeneratorConfig, init_generator_params  # noqa: E402
 from gance_tpu.synthesis import runtime as jax_rt  # noqa: E402
+from gance_tpu_torch.models import frames as port_frames  # noqa: E402
+from gance_tpu_torch.models import stylegan2 as port_sg2  # noqa: E402
+from gance_tpu_torch.models import stylegan3 as port_sg3  # noqa: E402
 from gance_tpu_torch.synthesis import runtime as port_rt  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 from tests.torch_parallel_worker import cpu_slots  # noqa: E402
 
 TINY = GeneratorConfig(resolution=16, fmap_base=256, fmap_max=32, latent_size=16,
                        dlatent_size=16, mapping_layers=2, mapping_fmaps=16)
 ROOT = Path(__file__).resolve().parents[1]
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -152,6 +159,64 @@ def test_deferred_multi_network_modes_raise(two_networks, kwargs, monkeypatch):
 def test_output_side_length_equal_to_resolution_is_accepted(two_networks):
     net = port_rt.SynthesisNetwork.from_pkl(two_networks[0], device="cpu", output_side_length=16)
     assert net.images_from_vectors(np.zeros((1, 16), np.float32)).shape == (1, 16, 16, 3)
+
+
+def _family_case(case):
+    """(family module, prepared params, config, output side) of a tiny CPU network."""
+    if case == "sg3":
+        config = port_sg3.StyleGAN3Config(resolution=32, num_layers=6, channel_base=1024,
+                                          channel_max=32)
+        params = params_to_device(port_sg3.init_generator_params(7, config), CPU)
+        return port_sg3, port_frames.prepare(params, config), config, None
+    config = port_sg2.GeneratorConfig(resolution=16, fmap_base=256, fmap_max=32, latent_size=16,
+                                      dlatent_size=16, mapping_layers=2, mapping_fmaps=16)
+    params = port_sg2.init_generator_params(7, config)
+    params["dlatent_avg"] = np.random.RandomState(8).randn(16).astype(np.float32)
+    for name, block in params["synthesis"].items():  # the constant noise moves the frames
+        for layer in block.values() if name != "noise" else ():
+            if "noise_strength" in layer:
+                layer["noise_strength"] = np.float32(0.5)
+    side = 24 if case == "sg2-resized" else None
+    return port_sg2, params_to_device(params, CPU), config, side
+
+
+@pytest.mark.parametrize("case", ["sg2", "sg2-resized", "sg3"])
+def test_frames_is_each_familys_own_apply(case):
+    """`models/frames.py::frames`, the one road from a batch to frames, gives
+    bit for bit what the family's own apply gives: z through the generator
+    with truncation, w+ through synthesis alone, constant noise, uint8 fused
+    at the resolution, else the float render resized and then quantised."""
+    model, prepared, config, side = _family_case(case)
+    rng = np.random.RandomState(9)
+    z = torch.from_numpy(rng.randn(3, config.latent_size).astype(np.float32))
+    ws = torch.from_numpy(rng.randn(3, config.num_style_rows, config.dlatent_size)
+                          .astype(np.float32))
+    fused = side is None
+    want_z = model.generator_apply(prepared, z, config, truncation_psi=0.7, noise_mode="const",
+                                   uint8_output=fused)
+    want_ws = model.synthesis_apply(prepared, ws, config, noise_mode="const", uint8_output=fused)
+    if not fused:
+        want_z, want_ws = (port_sg2.images_to_uint8(port_sg2.resize_images(w, side))
+                           for w in (want_z, want_ws))
+    for batch, want in ((z, want_z), (ws, want_ws)):
+        got = port_frames.frames(prepared, batch, config, truncation_psi=0.7,
+                                 compute_dtype=torch.float32, output_side_length=side)
+        assert got.dtype == torch.uint8 and got.shape == (3, side or config.resolution,
+                                                          side or config.resolution, 3)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="Cannot dispatch"):
+        port_frames.frames(prepared, z[0], config, truncation_psi=0.7,
+                           compute_dtype=torch.float32)
+
+
+def test_training_imports_no_runtime():
+    """`params_to_device` lives below the runtime: the trainer and the
+    parallel layer load without `synthesis/runtime.py`."""
+    code = ("import sys, gance_tpu_torch.parallel.training\n"
+            "assert 'gance_tpu_torch.synthesis.runtime' not in sys.modules\n")
+    result = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                            text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
 
 
 @pytest.mark.parametrize("batch_size,lookahead", [(3, 1), (3, 2), (4, 2)])

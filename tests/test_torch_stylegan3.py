@@ -393,9 +393,9 @@ def test_kernel_f_schedule_fits_lanes_and_rows_to_the_layer():
 
 
 def test_kernel_f_wrapper_counts_the_lanes_the_kernel_picks():
-    """The wrapper's `strip_lanes`, which names the counter of each launch,
-    is the C host's rule as the schedule above emulates it, at every side up
-    to 1100 and every E of both (up, down) cases."""
+    """The wrapper's `strip_lanes`, the lanes of F's strips, is the C host's
+    rule as the schedule above emulates it, at every side up to 1100 and
+    every E of both (up, down) cases."""
     from gance_tpu_torch.ops.filtered_lrelu import strip_lanes
 
     for up, pad in ((2, 9), (2, 8), (4, -6), (4, -5), (4, -7), (4, -8)):

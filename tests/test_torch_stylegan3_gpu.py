@@ -17,7 +17,8 @@ import numpy as np  # noqa: E402
 
 from gance_tpu_torch.models import stylegan3 as S  # noqa: E402
 from gance_tpu_torch.ops.cuda import fused_ops as K  # noqa: E402
-from gance_tpu_torch.ops.filtered_lrelu import filtered_lrelu, filtered_lrelu_plain  # noqa: E402
+from gance_tpu_torch.ops.filtered_lrelu import (  # noqa: E402
+    filtered_lrelu, filtered_lrelu_plain, strip_lanes)
 from gance_tpu_torch.ops.precision import exact_fp32  # noqa: E402
 
 T1024 = S.StyleGAN3Config()
@@ -123,21 +124,24 @@ def test_kernel_f_matches_its_twin_at_the_schedules_edges(cuda_device, edge, sca
 
 @pytest.mark.gpu
 def test_kernel_f_counts_the_lanes_of_its_strips(cuda_device):
-    """Under a profiler the wrapper counts each launch of F by its strips'
-    lanes: the 36px layer's planes two a warp, the 1044px layer's one."""
+    """Under a profiler the wrapper counts each launch of F; the lanes of its
+    strips follow from the width (`strip_lanes`): the 36px layer's planes two
+    a warp, the 1044px layer's one."""
     from gance_tpu_torch.utils import profiling
 
+    layers = [next(g for g in F_LAYERS if g.name == name) for name in ("L0_36_512",
+                                                                       "L11_1044_51")]
     profiling.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         with torch.inference_mode():
-            for name in ("L0_36_512", "L11_1044_51"):
-                geo = next(g for g in F_LAYERS if g.name == name)
+            for geo in layers:
                 run_f(geo, *layer_inputs(geo, 1, cuda_device))
         torch.cuda.synchronize()
     counts = profiling.counters()
     profiling.reset()
     assert counts.get("ops.filtered_lrelu_fused") == 2
-    assert counts.get("ops.filtered_lrelu_lanes16") == counts.get("ops.filtered_lrelu_lanes32") == 1
+    assert [strip_lanes(g.out_size, g.up, g.down, g.padding[0], len(g.down_filter))
+            for g in layers] == [16, 32]
 
 
 @pytest.mark.gpu

@@ -56,7 +56,7 @@ from gance_tpu_torch.models.convert import (  # noqa: E402
 from gance_tpu_torch.ops import modulated_conv as port_mc  # noqa: E402
 from gance_tpu_torch.ops import upfirdn2d as port_fir  # noqa: E402
 from gance_tpu_torch.parallel import training as port_training  # noqa: E402
-from gance_tpu_torch.synthesis.runtime import params_to_device  # noqa: E402
+from gance_tpu_torch.utils.device import params_to_device  # noqa: E402
 
 # gance_tpu.ops re-exports functions under these modules' names
 jax_fir = importlib.import_module("gance_tpu.ops.upfirdn2d")
